@@ -1,0 +1,59 @@
+"""Carry weights from the JAX package to the port.
+
+:func:`state_dict_from_jax` takes a flax param tree as nested dicts of numpy
+arrays (``jax.device_get(params)`` or ``np.asarray`` leaves; no JAX import
+is needed here) and returns a state dict under the reference torch key names
+with OIHW weights — the keys the port's modules carry, so
+``model.load_state_dict(state_dict_from_jax(params), strict=True)`` loads.
+The naming rules are those of ``realvsr_tpu/train/torch_import.py``
+(``flax_path_to_torch_key``):
+
+  * drop ``Conv_N`` wrapper segments of the JAX ``Conv2d`` module,
+  * ``blockN`` (Blocks container) → ``N`` (``nn.Sequential`` index),
+  * leaf ``kernel`` → ``weight``; 4-D leaves HWIO → OIHW,
+  * BatchNorm ``scale`` / ``mean`` / ``var`` → ``weight`` /
+    ``running_mean`` / ``running_var``,
+  * everything else keeps its name.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+_LEAF_MAP = {"kernel": "weight", "scale": "weight",
+             "mean": "running_mean", "var": "running_var"}
+
+
+def flax_path_to_torch_key(path: tuple[str, ...]) -> str:
+    parts = []
+    for p in path[:-1]:
+        if re.fullmatch(r"Conv_\d+", p):
+            continue
+        m = re.fullmatch(r"block(\d+)", p)
+        parts.append(m.group(1) if m else p)
+    leaf = path[-1]
+    parts.append(_LEAF_MAP.get(leaf, leaf))
+    return ".".join(parts)
+
+
+def _leaves(tree: Mapping[str, Any], prefix: tuple[str, ...] = ()):
+    for key, val in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(val, Mapping):
+            yield from _leaves(val, path)
+        else:
+            yield path, val
+
+
+def state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Flax params (nested dicts of arrays) → float32 torch state dict."""
+    out = {}
+    for path, leaf in _leaves(params):
+        t = np.asarray(leaf, dtype=np.float32)
+        if t.ndim == 4:
+            t = t.transpose(3, 2, 0, 1)  # HWIO → OIHW
+        out[flax_path_to_torch_key(path)] = torch.tensor(t)  # a copy
+    return out

@@ -1,0 +1,127 @@
+"""The port's CUDA kernels against their plain versions on the card.
+
+Marked ``gpu``: each test asks the ``cuda`` fixture, which skips where
+there is no CUDA device (decided when the test runs, never at import).  On
+a machine with an H100 and nvcc:
+
+    python -m pytest tests/test_torch_cuda.py -m gpu --noconftest -q
+
+(``--noconftest``: ``tests/conftest.py`` sets up JAX, which the port and
+this file do not use.)
+"""
+import numpy as np
+import pytest
+import torch
+
+from realvsr_tpu_torch.ops.kernels.check import max_abs_err, tolerance
+from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_plain
+from realvsr_tpu_torch.ops.kernels.dcn import dcn_fwd, dcn_fwd_plain
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _gen(seed):
+    return torch.Generator().manual_seed(seed)
+
+
+def _dcn_inputs(shape, dtype, dev, seed=0, dg=8):
+    b, h, w, c = shape
+    g = _gen(seed)
+    x = torch.randn(b, h, w, c, generator=g)
+    off = torch.randn(b, h, w, dg * 18, generator=g) * 2.5  # some beyond ±4
+    mask = torch.rand(b, h, w, dg * 9, generator=g)
+    wgt = (torch.rand(64, c, 3, 3, generator=g) * 2 - 1) / (9 * c) ** 0.5
+    bias = torch.randn(64, generator=g) * 0.1
+    return [t.to(dev, dtype) for t in (x, off, mask, wgt, bias)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,act,max_offset", [
+    ((3, 128, 256, 64), "lrelu", 4),     # the L3 DCN
+    ((1, 37, 45, 64), None, None),       # ragged tile edges
+    ((2, 64, 128, 64), None, 4),
+])
+def test_dcn_kernel_matches_plain(cuda, dtype, shape, act, max_offset):
+    x, off, mask, wgt, bias = _dcn_inputs(shape, dtype, cuda)
+    n = dcn_fwd.launches
+    out = dcn_fwd(x, off, mask, wgt, bias, 8, act=act, max_offset=max_offset)
+    torch.cuda.synchronize()
+    assert dcn_fwd.launches == n + 1
+    ref = dcn_fwd_plain(x, off, mask, wgt, bias, 8, act, max_offset)
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert max_abs_err(out, ref) <= tolerance(ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,c2,act,residual", [
+    ((3, 128, 256, 64), 0, "relu", False),
+    ((3, 128, 256, 64), 0, None, True),
+    ((3, 128, 256, 64), 64, "lrelu", False),
+    ((2, 37, 45, 16), 16, "relu", True),  # ragged tiles, narrow inputs
+])
+def test_conv3x3_kernel_matches_plain(cuda, dtype, shape, c2, act, residual):
+    b, h, w, c1 = shape
+    g = _gen(1)
+    x = torch.randn(b, h, w, c1, generator=g).to(cuda, dtype)
+    x2 = torch.randn(b, h, w, c2, generator=g).to(cuda, dtype) if c2 else None
+    wgt = ((torch.rand(64, c1 + c2, 3, 3, generator=g) * 2 - 1)
+           / (9 * (c1 + c2)) ** 0.5).to(cuda, dtype)
+    bias = (torch.randn(64, generator=g) * 0.1).to(cuda, dtype)
+    res = torch.randn(b, h, w, 64, generator=g).to(cuda, dtype) \
+        if residual else None
+    n = conv3x3.launches
+    out = conv3x3(x, wgt, bias, act, res, x2)
+    torch.cuda.synchronize()
+    assert conv3x3.launches == n + 1
+    ref = conv3x3_plain(x, wgt, bias, act, res, x2)
+    assert max_abs_err(out, ref) <= tolerance(ref)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.randn(1, 8, 32, 64, device=cuda)
+    w = torch.randn(64, 64, 3, 3, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3(x.transpose(1, 2).contiguous().transpose(1, 2), w)
+    with pytest.raises(ValueError, match="dtype"):
+        conv3x3(x.half(), w.half())
+    with pytest.raises(ValueError, match="output channels"):
+        conv3x3(x, torch.randn(32, 64, 3, 3, device=cuda))
+    with pytest.raises(ValueError, match="multiples of 16"):
+        conv3x3(x[..., :40].contiguous(), w[:, :40].contiguous())
+    with pytest.raises(ValueError, match="offset"):
+        dcn_fwd(x, torch.zeros(1, 8, 32, 8, device=cuda),
+                torch.zeros(1, 8, 32, 72, device=cuda), w)
+
+
+def test_edvr_on_card_matches_cpu(cuda):
+    """Full width (nf 64, 8 groups), cut depth and size: the card in f32
+    (TF32 kernels) against the CPU in f32."""
+    from realvsr_tpu_torch.models.edvr import EDVRNoUp
+
+    cfg = dict(nf=64, nframes=3, groups=8, front_RBs=1, back_RBs=1,
+               dcn_max_offset=4)
+    cpu = EDVRNoUp(**cfg, device="cpu", generator=_gen(2)).eval()
+    g = _gen(3)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if "conv_offset_mask" in name:
+                p.copy_(torch.randn(p.shape, generator=g))
+    card = EDVRNoUp(**cfg, device=cuda).eval()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.rand(1, 3, 32, 64, 3, generator=g)
+    n = (dcn_fwd.launches, conv3x3.launches)
+    with torch.inference_mode():
+        ref = cpu(x)
+        out = card(x.to(cuda)).cpu()
+    assert (dcn_fwd.launches - n[0], conv3x3.launches - n[1]) == (4, 15)
+    assert torch.isfinite(out).all()
+    assert np.abs((out - ref).numpy()).max() <= 2e-2
