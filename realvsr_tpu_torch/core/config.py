@@ -110,17 +110,17 @@ def parse(opt_path: str, is_train: bool = True, root: str | None = None) -> None
 def check_resume(opt, resume_iter) -> None:
     """Rewire pretrain paths when resuming (options/options.py:97-111).
 
-    The rewritten paths point at ``<models>/<iter>_G`` (no suffix), the
-    naming of the JAX package's checkpoints.
+    The rewritten paths point at ``<models>/<iter>_G.pth``, the port's (and
+    the reference's) checkpoint names.
     """
     logger = logging.getLogger("base")
     if opt["path"]["resume_state"]:
         if opt["path"].get("pretrain_model_G") or opt["path"].get("pretrain_model_D"):
             logger.warning("pretrain_model path will be ignored when resuming training.")
         opt["path"]["pretrain_model_G"] = osp.join(
-            opt["path"]["models"], f"{resume_iter}_G"
+            opt["path"]["models"], f"{resume_iter}_G.pth"
         )
         if "gan" in opt["model"].lower():
             opt["path"]["pretrain_model_D"] = osp.join(
-                opt["path"]["models"], f"{resume_iter}_D"
+                opt["path"]["models"], f"{resume_iter}_D.pth"
             )

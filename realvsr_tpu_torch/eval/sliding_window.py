@@ -21,12 +21,15 @@ def make_forward(model: torch.nn.Module,
 
     ``params``: a state dict loaded into ``model`` with ``strict=True``, or
     None to keep the model's weights.  The window is cast to the model's
-    dtype; the output keeps it.
+    compute dtype ``model.dtype``; the output keeps it.  The parameters are
+    cast to that dtype here, once (inference keeps no f32 copy), so the
+    modules' casts at use do nothing per window.
     """
     if params is not None:
         model.load_state_dict(params, strict=True)
     model.eval()
-    dtype = next(model.parameters()).dtype
+    dtype = model.dtype
+    model.to(dtype)
 
     @torch.inference_mode()
     def fwd(window: torch.Tensor) -> torch.Tensor:

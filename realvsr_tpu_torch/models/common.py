@@ -6,9 +6,13 @@ reference torch names and layouts (``weight`` OIHW, ``bias``), so
 ``load_state_dict(strict=True)`` takes reference ``.pth`` files and
 :func:`realvsr_tpu_torch.convert.state_dict_from_jax` output alike.
 
-Activations are channels-last ``(B, H, W, C)`` tensors.  Initialisers match
-the JAX package's torch-semantics ones and draw from an explicit
-``torch.Generator`` (:meth:`reset_parameters`):
+Activations are channels-last ``(B, H, W, C)`` tensors.  Parameters are cast
+to the activations' dtype where they are used, as the JAX package's modules
+cast their f32 parameters to ``dtype`` at the call site: f32 parameters with
+bf16 activations compute in bf16 and get f32 gradients (mixed precision),
+and parameters already in the activations' dtype are used as they are.
+Initialisers match the JAX package's torch-semantics ones and draw from an
+explicit ``torch.Generator`` (:meth:`reset_parameters`):
 
   * Conv2d default: U(±1/sqrt(fan_in)) for weight and bias,
   * residual blocks: kaiming_normal(fan_in) scaled by 0.1, zero bias,
@@ -23,7 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from realvsr_tpu_torch.ops.deform_conv import apply_act, modulated_deform_conv
-from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3
+from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3_autograd
 
 
 def _uniform_(t: torch.Tensor, bound: float, gen: torch.Generator | None):
@@ -42,9 +46,9 @@ class Conv2d(nn.Module):
     second input concatenated on the channels (``x2``).
 
     ``kernel=True`` marks a 3x3 / stride 1 conv that runs the hand-written
-    kernel (:func:`realvsr_tpu_torch.ops.kernels.conv3x3.conv3x3`) on a CUDA
-    tensor, as the JAX package runs ``conv3x3_packed`` there; the other convs
-    go to ``F.conv2d``, as the JAX package leaves them to XLA.
+    kernel (:func:`realvsr_tpu_torch.ops.kernels.conv3x3.conv3x3_autograd`)
+    on a CUDA tensor, as the JAX package runs ``conv3x3_packed`` there; the
+    other convs go to ``F.conv2d``, as the JAX package leaves them to XLA.
     """
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
@@ -79,11 +83,12 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None,
                 x2: torch.Tensor | None = None) -> torch.Tensor:
+        weight, bias = self.weight.to(x.dtype), self.bias.to(x.dtype)
         if self.kernel:
-            return conv3x3(x, self.weight, self.bias, self.act, residual, x2)
+            return conv3x3_autograd(x, weight, bias, self.act, residual, x2)
         xin = x if x2 is None else torch.cat([x, x2], dim=-1)
-        y = F.conv2d(xin.permute(0, 3, 1, 2), self.weight, self.bias,
-                     self.stride, self.padding)
+        y = F.conv2d(xin.permute(0, 3, 1, 2), weight, bias, self.stride,
+                     self.padding)
         y = apply_act(y, self.act).permute(0, 2, 3, 1)
         if residual is not None:
             y = y + residual
@@ -111,8 +116,8 @@ class FrameSumConv1x1(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, h, w, c = x.shape
         xc = x.permute(0, 2, 3, 1, 4).reshape(b * h * w, n * c)
-        out = F.linear(xc, self.weight.reshape(self.weight.shape[0], n * c),
-                       self.bias)
+        wt = self.weight.reshape(self.weight.shape[0], n * c).to(x.dtype)
+        out = F.linear(xc, wt, self.bias.to(x.dtype))
         return out.reshape(b, h, w, -1)
 
 
@@ -168,7 +173,7 @@ class DCNPack(nn.Module):
         offset = torch.cat([o1, o2], dim=-1)
         mask = torch.sigmoid(m).contiguous()
         return modulated_deform_conv(
-            x, offset, mask, self.weight, self.bias,
+            x, offset, mask, self.weight.to(x.dtype), self.bias.to(x.dtype),
             deformable_groups=self.deformable_groups,
             max_offset=self.max_offset, act=act)
 

@@ -89,7 +89,14 @@ class EDVRNoUp(nn.Module):
     modes give outputs identical to "full".
 
     Weights are drawn on the CPU from ``generator`` (so one seed gives the
-    same model on every device) and then moved to ``device`` / ``dtype``.
+    same model on every device), moved to ``device`` and kept in f32 (for
+    inference :func:`~realvsr_tpu_torch.eval.sliding_window.make_forward`
+    casts them to ``dtype`` once).
+    ``dtype`` is the compute dtype: the window is cast to it on entry and the
+    parameters where they are used, as the JAX package's ``dtype`` does, so
+    bf16 computes in bf16 with f32 parameters and f32 gradients.  The
+    centre frame added to the output is the window as given (a bf16 model
+    fed f32 frames returns f32, as in JAX).
     ``dcn_max_offset``: None for the exact DCN, R to clamp the offsets to
     ±R as the JAX package's deployment setting does.
     """
@@ -119,8 +126,9 @@ class EDVRNoUp(nn.Module):
         self.recon_trunk = Blocks(nf, back_RBs)
         self.HRconv = Conv2d(nf, 64, act="lrelu", kernel=True)
         self.conv_last = Conv2d(64, nc)
+        self.dtype = dtype
         reset_parameters(self, generator)
-        self.to(device=device, dtype=dtype)
+        self.to(device=device)
 
     def front_pyramid(self, x_flat: torch.Tensor):
         """Per-frame 3-level feature pyramid, frames folded into the batch."""
@@ -153,13 +161,13 @@ class EDVRNoUp(nn.Module):
 
     def forward(self, x, mode: str = "full"):
         if mode == "pyramid":
-            return self.front_pyramid(x)
+            return self.front_pyramid(x.to(self.dtype))
         if mode == "fuse":
             l1v, l2v, l3v, x_center = x
             fea = self.align_fuse(l1v, l2v, l3v)
         elif mode == "full":
             x_center = x[:, self.center_idx]
-            fea = self.extract_and_align(x)
+            fea = self.extract_and_align(x.to(self.dtype))
         else:
             raise ValueError(f"unknown mode {mode!r}")
         out = self.HRconv(self.recon_trunk(fea))

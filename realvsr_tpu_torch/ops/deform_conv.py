@@ -15,9 +15,13 @@ Layouts follow the reference CUDA op, as the JAX package does:
 of the JAX block and frame paths (``ops/deform_conv_block.py:417``); None
 keeps the exact op.  ``act="lrelu"`` applies LeakyReLU(0.1) after the bias.
 
-:func:`modulated_deform_conv` sends a CUDA tensor to the hand-written kernel
-(:mod:`realvsr_tpu_torch.ops.kernels.dcn`, 3x3 / stride 1 / pad 1) and a CPU
-tensor to :func:`modulated_deform_conv_plain`.
+:func:`modulated_deform_conv` sends a CUDA tensor to the hand-written
+forward and backward kernels (:func:`realvsr_tpu_torch.ops.kernels.dcn.
+dcn_autograd`, 3x3 / stride 1 / pad 1) and a CPU tensor to
+:func:`modulated_deform_conv_plain`, which autograd differentiates; its
+``clamp`` passes the offset gradient on [-R, R] inclusive, as the JAX
+package's clip (``deform_conv_block.py::_fold_dcoord``) and the backward
+kernel do.
 """
 from __future__ import annotations
 
@@ -40,6 +44,19 @@ def apply_act(y: torch.Tensor, act: str | None) -> torch.Tensor:
         return F.relu(y)
     if act == "lrelu":
         return F.leaky_relu(y, 0.1)
+    raise ValueError(f"unknown activation {act!r}")
+
+
+def act_grad(g: torch.Tensor, y: torch.Tensor, act: str | None):
+    """The cotangent before :func:`apply_act`, from its output ``y``
+    (LeakyReLU(0.1): slope 1 where y >= 0, as the JAX package's
+    ``jnp.where(x >= 0, ...)``)."""
+    if act is None:
+        return g
+    if act == "lrelu":
+        return torch.where(y >= 0, g, g * 0.1)
+    if act == "relu":
+        return torch.where(y > 0, g, torch.zeros_like(g))
     raise ValueError(f"unknown activation {act!r}")
 
 
@@ -124,8 +141,8 @@ def modulated_deform_conv(x: torch.Tensor, offset: torch.Tensor,
                           deformable_groups: int = 1,
                           max_offset: float | None = None,
                           act: str | None = None) -> torch.Tensor:
-    """DCNv2 forward: the hand-written kernel for a CUDA tensor, the plain
-    op for a CPU tensor.  See :func:`modulated_deform_conv_plain`."""
+    """Differentiable DCNv2: the hand-written kernels for a CUDA tensor,
+    the plain op for a CPU tensor.  See :func:`modulated_deform_conv_plain`."""
     if x.device.type == "cpu":
         return modulated_deform_conv_plain(
             x, offset, mask, weight, bias, stride, padding, dilation,
@@ -136,7 +153,7 @@ def modulated_deform_conv(x: torch.Tensor, offset: torch.Tensor,
                          "dilation 1 only")
     if mask is None:
         raise ValueError("the DCN kernel takes a mask (DCNv2)")
-    from realvsr_tpu_torch.ops.kernels.dcn import dcn_fwd
+    from realvsr_tpu_torch.ops.kernels.dcn import dcn_autograd
 
-    return dcn_fwd(x, offset, mask, weight, bias, deformable_groups,
-                   act=act, max_offset=max_offset)
+    return dcn_autograd(x, offset, mask, weight, bias, deformable_groups,
+                        act=act, max_offset=max_offset)

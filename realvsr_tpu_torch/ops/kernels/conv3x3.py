@@ -12,6 +12,14 @@ packing: the TPU's 128-lane layout is not carried over.
 
 :func:`conv3x3` launches the kernel for a CUDA tensor and counts the launch
 in ``conv3x3.launches``; for a CPU tensor it runs :func:`conv3x3_plain`.
+:func:`conv3x3_autograd` is the differentiable op: the kernel forward, and a
+backward through cuDNN's data and weight gradients in the activation dtype,
+as the JAX package's custom VJP (``conv3x3_kernel.py::_packed_core_bwd``)
+leaves its backward to stock XLA.  Unlike that VJP it does not recompute the
+forward: the activation's slope comes from the kernel's own output (as the
+DCN's backward does), so the gradient follows the forward's decisions — a
+bf16 recompute rounds the conv before the bias and flips the sign of some
+pre-activations near 0.
 """
 from __future__ import annotations
 
@@ -20,7 +28,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from realvsr_tpu_torch.ops.deform_conv import apply_act
+from realvsr_tpu_torch.ops.deform_conv import act_grad, apply_act
 from realvsr_tpu_torch.ops.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -102,3 +110,55 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor,
 
 
 conv3x3.launches = 0
+
+
+
+def _grad_conv(x, weight, g_nchw):
+    """(d input, d weight) of a 3x3 / s1 / p1 conv of NHWC ``x`` for the
+    NCHW cotangent ``g_nchw``, in the input dtype (cuDNN on the card)."""
+    xn = x.permute(0, 3, 1, 2)
+    dx = torch.nn.grad.conv2d_input(xn.shape, weight, g_nchw, padding=1)
+    dw = torch.nn.grad.conv2d_weight(xn, weight.shape, g_nchw, padding=1)
+    return dx.permute(0, 2, 3, 1), dw
+
+
+class _Conv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, residual, x2, act):
+        out = conv3x3(x, weight, bias, act, residual, x2)
+        ctx.save_for_backward(x, weight, x2, None if act is None else out)
+        ctx.act = act
+        ctx.has_bias = bias is not None
+        ctx.has_residual = residual is not None
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, x2, out = ctx.saved_tensors
+        g_pre = act_grad(g, out, ctx.act)
+        gn = g_pre.permute(0, 3, 1, 2)
+        c1 = x.shape[-1]
+        dx, dweight = _grad_conv(x, weight[:, :c1], gn)
+        dx2 = None
+        if x2 is not None:
+            dx2, dw2 = _grad_conv(x2, weight[:, c1:], gn)
+            dweight = torch.cat([dweight, dw2], dim=1)
+        dbias = (g_pre.float().sum((0, 1, 2)).to(g.dtype) if ctx.has_bias
+                 else None)
+        return (dx, dweight, dbias, g if ctx.has_residual else None, dx2,
+                None)
+
+
+def conv3x3_autograd(x: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor | None = None, act: str | None = None,
+                     residual: torch.Tensor | None = None,
+                     x2: torch.Tensor | None = None) -> torch.Tensor:
+    """Differentiable :func:`conv3x3` (the kernel for a CUDA tensor, its
+    plain version for a CPU tensor), with a backward through the conv's data
+    and weight gradients (cuDNN on the card).  The backward takes the
+    activation's slope from the forward's output, so an activation and a
+    residual (added after it) do not go together here."""
+    if act is not None and residual is not None:
+        raise ValueError("conv3x3_autograd: an activation with a residual "
+                         "is not differentiable here")
+    return _Conv3x3.apply(x, weight, bias, residual, x2, act)

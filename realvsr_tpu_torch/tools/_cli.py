@@ -11,6 +11,7 @@ import torch
 
 from realvsr_tpu_torch.core.config import parse
 from realvsr_tpu_torch.models import define_g
+from realvsr_tpu_torch.train.checkpoint import load_network
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -45,18 +46,6 @@ def setup_logger(log_dir: str, name: str = "base") -> logging.Logger:
     return lg
 
 
-def load_state_dict(path: str) -> dict[str, torch.Tensor]:
-    """A torch ``.pth`` state dict, ``module.`` prefixes stripped
-    (base_model.py:90-95)."""
-    if osp.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a directory; Orbax checkpoints of the JAX package "
-            "are not loaded yet (ROADMAP, queue 1)")
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    return {k[len("module."):] if k.startswith("module.") else k: v
-            for k, v in sd.items()}
-
-
 def setup(args):
     """(opt, results_root, model) with weights loaded from
     ``path.pretrain_model_G`` when the YAML names one."""
@@ -68,7 +57,7 @@ def setup(args):
     pretrain = opt["path"].get("pretrain_model_G")
     if pretrain:
         strict = opt["path"].get("strict_load")
-        model.load_state_dict(load_state_dict(pretrain),
+        model.load_state_dict(load_network(pretrain),
                               strict=True if strict is None else bool(strict))
     else:
         logger.warning("No pretrain_model_G given — evaluating randomly "

@@ -1,0 +1,55 @@
+"""Checkpoints in the reference's two-file scheme
+(``codes/models/base_model.py:77-141``): network weights as
+``<models>/<iter>_G.pth`` state dicts under the reference key names, and
+the trainer state (step, epoch, optimizer, scheduler) as
+``<training_state>/<iter>.state``.  The JAX package's Orbax directories are
+not read yet (ROADMAP, queue 1, item 6).
+"""
+from __future__ import annotations
+
+import os
+import os.path as osp
+
+import torch
+
+
+def save_network(models_dir: str, label: str, step, model) -> str:
+    """Save ``model``'s state dict (on the CPU) as
+    ``<models_dir>/<step>_<label>.pth``; returns the path."""
+    os.makedirs(models_dir, exist_ok=True)
+    path = osp.join(models_dir, f"{step}_{label}.pth")
+    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+               path)
+    return path
+
+
+def load_network(path: str) -> dict[str, torch.Tensor]:
+    """A torch ``.pth`` state dict, ``module.`` prefixes stripped
+    (base_model.py:90-95)."""
+    if osp.isdir(path):
+        raise NotImplementedError(
+            f"{path} is a directory; Orbax checkpoints of the JAX package "
+            "are not loaded yet (ROADMAP, queue 1, item 6)")
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k[len("module."):] if k.startswith("module.") else k: v
+            for k, v in sd.items()}
+
+
+def save_training_state(state_dir: str, step: int, epoch: int, optimizer,
+                        scheduler) -> str:
+    """Trainer-state checkpoint (base_model.py:121-130); returns the path."""
+    os.makedirs(state_dir, exist_ok=True)
+    path = osp.join(state_dir, f"{step}.state")
+    torch.save({"step": step, "epoch": epoch,
+                "optimizer": optimizer.state_dict(),
+                "scheduler": scheduler.state_dict()}, path)
+    return path
+
+
+def load_training_state(path: str, optimizer, scheduler) -> tuple[int, int]:
+    """Restore ``optimizer`` and ``scheduler`` in place; returns (step,
+    epoch)."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    optimizer.load_state_dict(state["optimizer"])
+    scheduler.load_state_dict(state["scheduler"])
+    return int(state["step"]), int(state["epoch"])

@@ -1,0 +1,257 @@
+"""Training orchestration (the reference's ``codes/train.py``) on one device.
+
+Counterpart of ``realvsr_tpu/train/trainer.py`` with the same lifecycle:
+config → experiment dirs and logger → datasets → model and train state →
+resume → the loop (feed → train step → periodic log / validation /
+checkpoint) → a final ``latest`` checkpoint; SIGTERM / SIGINT save a
+resumable checkpoint before leaving the loop.  One process on one device:
+multi-process training and DDP are not ported yet (ROADMAP, queue 1,
+item 7).  ``train.mixed_precision`` computes in bf16 with f32 parameters.
+The DCN clamp is the model's ``dcn_max_offset``, given by the caller.
+"""
+from __future__ import annotations
+
+import logging
+import math
+import os
+import os.path as osp
+import signal
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from realvsr_tpu_torch.core.config import check_resume, dict2str
+from realvsr_tpu_torch.data import create_dataloader, create_dataset
+from realvsr_tpu_torch.models import define_g
+from realvsr_tpu_torch.ops.metrics import calculate_psnr_np
+from realvsr_tpu_torch.train import checkpoint as ckpt
+from realvsr_tpu_torch.train.state import create_train_state
+from realvsr_tpu_torch.train.wrappers import make_eval_step, make_train_step
+
+logger = logging.getLogger("base")
+
+
+def setup_logger(log_dir: str | None, name: str = "base",
+                 level=logging.INFO) -> logging.Logger:
+    lg = logging.getLogger(name)
+    lg.setLevel(level)
+    lg.propagate = False
+    fmt = logging.Formatter(
+        "%(asctime)s.%(msecs)03d - %(levelname)s: %(message)s",
+        datefmt="%y-%m-%d %H:%M:%S")
+    if not any(type(h) is logging.StreamHandler for h in lg.handlers):
+        sh = logging.StreamHandler()
+        sh.setFormatter(fmt)
+        lg.addHandler(sh)
+    if log_dir:  # one log file: that of the latest trainer in the process
+        path = osp.abspath(osp.join(log_dir, "train.log"))
+        for h in [h for h in lg.handlers
+                  if isinstance(h, logging.FileHandler)]:
+            lg.removeHandler(h)
+            h.close()
+        os.makedirs(log_dir, exist_ok=True)
+        fh = logging.FileHandler(path)
+        fh.setFormatter(fmt)
+        lg.addHandler(fh)
+    return lg
+
+
+class Trainer:
+    """``Trainer(opt, device, dcn_max_offset).train()``; ``opt`` from
+    :func:`realvsr_tpu_torch.core.config.parse` with ``is_train=True``."""
+
+    def __init__(self, opt: dict, device="cuda", *,
+                 dcn_max_offset: float | None):
+        self.opt = opt
+        self.device = torch.device(device)
+        for key in ("experiments_root", "models", "training_state",
+                    "val_images"):
+            if opt["path"].get(key):
+                os.makedirs(opt["path"][key], exist_ok=True)
+        setup_logger(opt["path"].get("log"))
+        logger.info(dict2str(opt))
+        if opt.get("use_tb_logger") and "debug" not in opt["name"]:
+            logger.info("TensorBoard logging is not ported; the log file "
+                        "has every logged value")
+
+        self.train_loader = self.val_loader = None
+        self.total_iters = int(opt["train"]["niter"])
+        for phase, dataset_opt in opt["datasets"].items():
+            if phase == "train":
+                train_set = create_dataset(dataset_opt)
+                self.train_loader = create_dataloader(train_set, dataset_opt,
+                                                      opt)
+                per_epoch = len(self.train_loader)
+                self.total_epochs = int(math.ceil(self.total_iters
+                                                  / max(1, per_epoch)))
+                logger.info(
+                    f"Number of train images: {len(train_set)}, iters per "
+                    f"epoch: {per_epoch}; total epochs {self.total_epochs}, "
+                    f"iters {self.total_iters}")
+            elif phase == "val":
+                val_set = create_dataset(dataset_opt)
+                self.val_loader = create_dataloader(val_set, dataset_opt, opt)
+                logger.info(f"Number of val images: {len(val_set)}")
+        if self.train_loader is None:
+            raise ValueError("the config has no datasets.train")
+
+        seed = int(opt["train"].get("manual_seed") or 0)
+        dtype = (torch.bfloat16 if opt["train"].get("mixed_precision")
+                 else torch.float32)
+        self.model = define_g(opt, device=self.device, dtype=dtype,
+                              generator=torch.Generator().manual_seed(seed),
+                              dcn_max_offset=dcn_max_offset)
+        self.state = create_train_state(self.model, opt)
+        n_params = sum(p.numel() for p in self.model.parameters())
+        logger.info(f"Network G: {type(self.model).__name__}, with "
+                    f"parameters: {n_params:,d}")
+
+        self.start_epoch, self.current_step = 0, 0
+        self._load_or_resume()
+        self.train_step = make_train_step(self.model, opt)
+        self.eval_step = make_eval_step(self.model)
+        self.gen = torch.Generator(device=self.device).manual_seed(seed + 7)
+        # (start, stop) steps of a torch.profiler trace (tools/train.py
+        # --profile); None disables
+        self.profile_steps = None
+
+    def _load_or_resume(self):
+        opt = self.opt
+        resume_path = opt["path"].get("resume_state")
+        if resume_path:
+            check_resume(opt, osp.basename(resume_path).split(".")[0])
+            step, epoch = ckpt.load_training_state(
+                resume_path, self.state.optimizer, self.state.scheduler)
+            self.model.load_state_dict(
+                ckpt.load_network(opt["path"]["pretrain_model_G"]),
+                strict=True)
+            self.state.step = step
+            self.start_epoch, self.current_step = epoch, step
+            logger.info(f"Resuming training from epoch {epoch}, iter {step}.")
+        elif opt["path"].get("pretrain_model_G"):
+            strict = opt["path"].get("strict_load")
+            self.model.load_state_dict(
+                ckpt.load_network(opt["path"]["pretrain_model_G"]),
+                strict=True if strict is None else bool(strict))
+            logger.info(
+                f"Loaded pretrained G from {opt['path']['pretrain_model_G']}")
+
+    def validate(self, step: int) -> float:
+        """Mean over clips of the per-frame PSNR (train.py:230-262)."""
+        if self.val_loader is None:
+            return float("nan")
+        psnr_by_folder = defaultdict(list)
+        for batch in self.val_loader:
+            lqs = torch.from_numpy(batch["LQs"]).to(self.device)
+            out = self.eval_step(lqs)[0].float().cpu().numpy()
+            psnr = calculate_psnr_np(np.clip(out, 0, 1) * 255.0,
+                                     batch["GT"][0] * 255.0)
+            psnr_by_folder[batch["folder"][0]].append(psnr)
+        folder_means = {k: float(np.mean(v)) for k, v in psnr_by_folder.items()}
+        psnr_avg = float(np.mean(list(folder_means.values())))
+        for k, v in folder_means.items():
+            logger.info(f"Folder {k} psnr: {v:.6f}.")
+        logger.info(f"# Validation # PSNR: {psnr_avg:.6f}.")
+        return psnr_avg
+
+    def save_checkpoint(self, epoch: int, step: int | str):
+        ckpt.save_network(self.opt["path"]["models"], "G", step, self.model)
+        if isinstance(step, int):
+            ckpt.save_training_state(self.opt["path"]["training_state"], step,
+                                     epoch, self.state.optimizer,
+                                     self.state.scheduler)
+        logger.info("Saved models and training states.")
+
+    def _profile(self, prof):
+        """Start (returns the profiler) or stop (returns None) the trace at
+        the ``profile_steps`` window."""
+        if self.profile_steps is None:
+            return prof
+        start, stop = self.profile_steps
+        if self.current_step == start:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            prof.__enter__()
+        elif self.current_step == stop and prof is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            prof.__exit__(None, None, None)
+            out = osp.join(self.opt["path"]["experiments_root"], "profile")
+            os.makedirs(out, exist_ok=True)
+            prof.export_chrome_trace(osp.join(out, "trace.json"))
+            sort = ("cuda_time_total" if self.device.type == "cuda"
+                    else "cpu_time_total")
+            with open(osp.join(out, "summary.txt"), "w") as f:
+                f.write(prof.key_averages().table(sort_by=sort,
+                                                  row_limit=40))
+            logger.info(f"Saved profiler trace of steps {start}-{stop} to "
+                        f"{out}.")
+            prof = None
+        return prof
+
+    def train(self):
+        opt = self.opt
+        print_freq = int(opt["logger"]["print_freq"])
+        save_freq = int(opt["logger"]["save_checkpoint_freq"])
+        val_freq = (int(opt["train"]["val_freq"]) if opt["train"].get("val_freq")
+                    else None)
+
+        # preemption: SIGTERM / SIGINT end the loop after the current step
+        # and save a resumable checkpoint
+        stop = {"flag": False}
+
+        def _request_stop(signum, frame):
+            stop["flag"] = True
+
+        prev_handlers = {s: signal.signal(s, _request_stop)
+                         for s in (signal.SIGTERM, signal.SIGINT)}
+        prof = None
+        try:
+            logger.info(f"Start training from epoch: {self.start_epoch:d}, "
+                        f"iter: {self.current_step:d}")
+            t_last = time.time()
+            epoch = self.start_epoch
+            while self.current_step <= self.total_iters:
+                for batch in self.train_loader.epoch_iter(epoch):
+                    self.current_step += 1
+                    if self.current_step > self.total_iters:
+                        break
+                    prof = self._profile(prof)
+                    device_batch = {
+                        k: torch.from_numpy(batch[k]).to(self.device)
+                        for k in ("LQs", "GT")}
+                    self.state, logs = self.train_step(self.state,
+                                                       device_batch, self.gen)
+
+                    if self.current_step % print_freq == 0:
+                        logs = {k: float(v) for k, v in logs.items()}
+                        ips = print_freq / max(time.time() - t_last, 1e-9)
+                        t_last = time.time()
+                        msg = (f"[epoch:{epoch:3d}, iter:"
+                               f"{self.current_step:8,d}, {ips:.2f} it/s] ")
+                        msg += " ".join(f"{k}: {v:.4e}"
+                                        for k, v in logs.items())
+                        logger.info(msg)
+                    if val_freq and self.current_step % val_freq == 0:
+                        self.validate(self.current_step)
+                    if self.current_step % save_freq == 0:
+                        self.save_checkpoint(epoch, self.current_step)
+                    if stop["flag"]:
+                        break
+                if stop["flag"]:
+                    logger.info("Stop signal received — saving and exiting.")
+                    self.save_checkpoint(epoch, self.current_step)
+                    break
+                epoch += 1
+        finally:
+            if prof is not None:
+                prof.__exit__(None, None, None)
+            for s, h in prev_handlers.items():
+                signal.signal(s, h)
+        self.save_checkpoint(epoch, "latest")
+        logger.info("End of training.")
+        return self.state

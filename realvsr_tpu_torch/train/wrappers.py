@@ -1,0 +1,128 @@
+"""Loss-assembly train steps of the model wrappers.
+
+Counterparts of ``realvsr_tpu/train/wrappers.py``, rebuilding the
+reference's training logic:
+
+  * Split — separate Y / CbCr criteria on the YCbCr channels
+    (``VideoSR_AllPair_model_YCbCr_Split.py:163-191``),
+  * Combine — one criterion on all channels plus an optional edge loss
+    (``VideoSR_AllPair_model_YCbCr_Combine.py:190-215``); its VGG feature
+    loss and the GAN-Split wrapper are not ported yet (ROADMAP).
+
+Each ``make_*_train_step`` returns ``train_step(state, batch, gen) ->
+(state, logs)``: augment, forward, loss, backward and one optimizer update
+of the :class:`~realvsr_tpu_torch.train.state.TrainState` (in place).  Batches are
+``{'LQs': (B, T, H, W, C), 'GT': (B, T, H, W, C)}`` tensors on the model's
+device (AllPair layout; the loss takes the centre frame); ``gen`` is the
+augmentations' generator on that device.  ``logs`` are 0-d tensors, read
+on the host only when printed.
+"""
+from __future__ import annotations
+
+from functools import partial
+from typing import Callable
+
+import torch
+
+from realvsr_tpu_torch.data.augments import apply_augment
+from realvsr_tpu_torch.losses import get_pixel_criterion, pyramid_loss
+
+
+def _maybe_augment(opt: dict, gen, gt, lq):
+    aug = opt.get("augment") if opt else None
+    if not aug:
+        return gt, lq
+    return apply_augment(gen, gt, lq, aug["augs"], aug["probs"],
+                         aug["alphas"], aug["mix_p"])
+
+
+def _update(state, loss: torch.Tensor) -> None:
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    state.apply_gradients()
+
+
+def make_split_train_step(model, opt: dict) -> Callable:
+    """YCbCr Split: w_y * cri_y(pred_Y, gt_Y) + w_c * cri_c(pred_C, gt_C)."""
+    train_opt = opt["train"]
+    cri_y = get_pixel_criterion(train_opt["pixel_criterion_y"])
+    cri_c = get_pixel_criterion(train_opt["pixel_criterion_c"])
+    w_y = float(train_opt["pixel_weight_y"])
+    w_c = float(train_opt["pixel_weight_c"])
+
+    def train_step(state, batch, gen):
+        gt, lq = _maybe_augment(opt, gen, batch["GT"], batch["LQs"])
+        gt_c = gt[:, lq.shape[1] // 2]
+        state.model.train()
+        pred = state.model(lq)
+        l_y = w_y * cri_y(pred[..., 0:1], gt_c[..., 0:1])
+        l_c = w_c * cri_c(pred[..., 1:3], gt_c[..., 1:3])
+        l_pix = l_y + l_c
+        _update(state, l_pix)
+        return state, {"l_pix_y": l_y.detach(), "l_pix_c": l_c.detach(),
+                       "l_pix": l_pix.detach()}
+
+    return train_step
+
+
+def make_combine_train_step(model, opt: dict) -> Callable:
+    """YCbCr Combine: one criterion on all channels (+ edge)."""
+    train_opt = opt["train"]
+    if train_opt.get("feature_criterion") and train_opt.get("feature_weight"):
+        raise NotImplementedError(
+            "the VGG feature loss is not ported yet (ROADMAP, queue 1)")
+    cri_pix = get_pixel_criterion(train_opt["pixel_criterion"])
+    w_pix = float(train_opt["pixel_weight"])
+    cri_edg = None
+    if train_opt.get("edge_criterion") and train_opt.get("edge_weight"):
+        name = train_opt["edge_criterion"]
+        # the Combine wrapper's 'pyr' edge loss is the laplacian pyramid
+        # (VideoSR_..._Combine.py:75-76)
+        cri_edg = (partial(pyramid_loss, num_levels=3, pyr_mode="lap",
+                           loss_mode="cb") if name == "pyr"
+                   else get_pixel_criterion(name))
+        w_edg = float(train_opt["edge_weight"])
+
+    def train_step(state, batch, gen):
+        gt, lq = _maybe_augment(opt, gen, batch["GT"], batch["LQs"])
+        gt_c = gt[:, lq.shape[1] // 2]
+        state.model.train()
+        pred = state.model(lq)
+        l_pix = w_pix * cri_pix(pred, gt_c)
+        logs = {"l_pix": l_pix.detach()}
+        l_tot = l_pix
+        if cri_edg is not None:
+            l_edg = w_edg * cri_edg(pred, gt_c)
+            logs["l_edg"] = l_edg.detach()
+            l_tot = l_tot + l_edg
+        logs["l_tot"] = l_tot.detach()
+        _update(state, l_tot)
+        return state, logs
+
+    return train_step
+
+
+def make_eval_step(model) -> Callable:
+    """Forward for validation (the wrapper's ``.test()``), in eval mode."""
+
+    @torch.inference_mode()
+    def eval_step(lq: torch.Tensor) -> torch.Tensor:
+        model.eval()
+        return model(lq)
+
+    return eval_step
+
+
+def make_train_step(model, opt: dict) -> Callable:
+    """Dispatch on opt['model'] as the reference's create_model
+    (models/__init__.py:5-17) and the JAX package do."""
+    name = opt["model"]
+    if "GAN" in name:
+        raise NotImplementedError(
+            f"Model [{name}]: GAN training is not ported yet (ROADMAP, "
+            "queue 1)")
+    if "Split" in name:
+        return make_split_train_step(model, opt)
+    if "Combine" in name or name == "VideoSR_AllPair":
+        return make_combine_train_step(model, opt)
+    raise NotImplementedError(f"Model [{name}] not recognized.")

@@ -13,9 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from realvsr_tpu_torch.ops.kernels.check import max_abs_err, tolerance
-from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_plain
-from realvsr_tpu_torch.ops.kernels.dcn import dcn_fwd, dcn_fwd_plain
+from realvsr_tpu_torch.ops.kernels.check import (conv3x3_plain_grads,
+                                                 grad_tolerance, max_abs_err,
+                                                 slope_mismatches, tolerance)
+from realvsr_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_autograd,
+                                                   conv3x3_plain)
+from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_bwd_plain,
+                                               dcn_fwd, dcn_fwd_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -125,3 +129,112 @@ def test_edvr_on_card_matches_cpu(cuda):
     assert (dcn_fwd.launches - n[0], conv3x3.launches - n[1]) == (4, 15)
     assert torch.isfinite(out).all()
     assert np.abs((out - ref).numpy()).max() <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,max_offset,zero", [
+    ((1, 37, 45, 64), 8, False),     # ragged tile edges, taps outside
+    ((2, 48, 64, 64), None, False),
+    ((2, 48, 64, 64), 2, False),     # many offsets beyond the clamp
+    ((1, 32, 40, 64), None, True),   # on the grid: one-sided differences
+])
+def test_dcn_bwd_kernel_matches_plain(cuda, dtype, shape, max_offset, zero):
+    x, off, mask, wgt, _ = _dcn_inputs(shape, dtype, cuda, seed=4)
+    if zero:
+        off = torch.zeros_like(off)
+    g = torch.randn(*shape[:3], 64, generator=_gen(5)).to(cuda, dtype)
+    n = dcn_bwd.launches
+    out = dcn_bwd(x, off, mask, wgt, g, 8, max_offset)
+    torch.cuda.synchronize()
+    assert dcn_bwd.launches == n + 1
+    ref = dcn_bwd_plain(x, off, mask, wgt, g, 8, max_offset)
+    for name, o, r in zip(("dx", "doffset", "dmask", "dweight"), out, ref):
+        assert o.shape == r.shape and o.dtype == r.dtype, name
+        assert max_abs_err(o, r) <= grad_tolerance(r), name
+    if max_offset is not None:
+        assert not out[1][off.abs() > max_offset].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c2,act,residual", [(0, None, True),
+                                              (64, None, False),
+                                              (0, "relu", False),
+                                              (64, "lrelu", False)])
+def test_conv3x3_autograd_matches_plain_autograd(cuda, dtype, c2, act,
+                                                 residual):
+    """Each gradient within check.grad_tolerance of the plain autograd, the
+    activation's slope taken from the kernel's output; that slope equals
+    the plain f32 one outside the rounding of 0 (see check.py)."""
+    g = _gen(6)
+
+    def t(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(
+            cuda, dtype).requires_grad_()
+
+    x = t(2, 40, 72, 64)
+    x2 = t(2, 40, 72, c2) if c2 else None
+    w = t(64, 64 + c2, 3, 3, scale=(9 * (64 + c2)) ** -0.5)
+    b = t(64, scale=0.1)
+    res = t(2, 40, 72, 64) if residual else None
+    cot = torch.randn(2, 40, 72, 64, generator=g).to(cuda, dtype)
+    leaves = [v for v in (x, w, b, res, x2) if v is not None]
+    n = conv3x3.launches
+    out = conv3x3_autograd(x, w, b, act, res, x2)
+    ours = torch.autograd.grad(out, leaves, cot)
+    assert conv3x3.launches == n + 1
+    ref = conv3x3_plain_grads(out, cot, leaves, x, w, b, act, res, x2)
+    for o, r in zip(ours, ref):
+        assert o.dtype == r.dtype and max_abs_err(o, r) <= grad_tolerance(r)
+    if act is not None:
+        assert slope_mismatches(out, x, w, b, act, x2)[0] == 0
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One Split step at full width (nf 64, 8 groups: the kernels write 64
+    channels), cut depth, 64x64, batch 2, f32: the card (TF32 kernels)
+    against the CPU from the same weights and batch; loss to 1e-3
+    relative, each gradient to 5e-2 of its largest magnitude."""
+    import os
+
+    import yaml
+
+    from realvsr_tpu_torch.data.synthetic import SyntheticVSRDataset
+    from realvsr_tpu_torch.models.edvr import EDVRNoUp
+    from realvsr_tpu_torch.train.state import create_train_state
+    from realvsr_tpu_torch.train.wrappers import make_split_train_step
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "configs", "train",
+                           "train_EDVR_woTSA_RealVSR_YCbCr_Split.yml")) as f:
+        opt = yaml.safe_load(f)
+    opt.pop("augment")
+    cfg = dict(nf=64, nframes=3, groups=8, front_RBs=1, back_RBs=1,
+               dcn_max_offset=8)
+    cpu = EDVRNoUp(**cfg, device="cpu", generator=_gen(7))
+    g = _gen(8)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if "conv_offset_mask" in name:
+                p.copy_(torch.randn(p.shape, generator=g) * 0.5)
+    ds = SyntheticVSRDataset(dict(N_frames=3, GT_size=64))
+    items = [ds.get(i, np.random.default_rng(i)) for i in (1, 9)]
+    batch = {k: torch.from_numpy(np.stack([it[k] for it in items]))
+             for k in ("LQs", "GT")}
+    grads, losses = {}, {}
+    n = (dcn_fwd.launches, dcn_bwd.launches, conv3x3.launches)
+    for dev in ("cpu", cuda):
+        model = EDVRNoUp(**cfg, device=dev)
+        model.load_state_dict(cpu.state_dict())
+        state = create_train_state(model, opt)
+        _, logs = make_split_train_step(model, opt)(
+            state, {k: v.to(dev) for k, v in batch.items()},
+            torch.Generator(device=dev))
+        losses[str(dev)] = logs["l_pix"].item()
+        grads[str(dev)] = {k: p.grad.float().cpu()
+                           for k, p in model.named_parameters()}
+    assert (dcn_fwd.launches - n[0], dcn_bwd.launches - n[1],
+            conv3x3.launches - n[2]) == (4, 4, 15)
+    assert losses["cuda"] == pytest.approx(losses["cpu"], rel=1e-3)
+    for k, ref in grads["cpu"].items():
+        err = (grads["cuda"][k] - ref).abs().max().item()
+        assert err <= 5e-2 * ref.abs().max().item(), k

@@ -140,6 +140,7 @@ from realvsr_tpu_torch.models import define_g
 from realvsr_tpu_torch.models.edvr import EDVRNoUp
 from realvsr_tpu_torch.eval.sliding_window import sliding_window_infer
 from realvsr_tpu_torch.tools._cli import parse_args
+from realvsr_tpu_torch.train.trainer import Trainer
 d = lambda f: inspect.signature(f).parameters["device"].default
 print(json.dumps({
     "modules": names,
@@ -147,7 +148,7 @@ print(json.dumps({
                      if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                             "realvsr_tpu")),
     "defaults": [d(EDVRNoUp), d(define_g), d(sliding_window_infer),
-                 parse_args(["-opt", "x"], "").device],
+                 parse_args(["-opt", "x"], "").device, d(Trainer)],
 }))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -155,10 +156,15 @@ print(json.dumps({
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    assert "realvsr_tpu_torch.models.edvr" in out["modules"]
-    assert "realvsr_tpu_torch.ops.kernels.dcn" in out["modules"]
+    for name in ("models.edvr", "ops.kernels.dcn", "ops.kernels.conv3x3",
+                 "ops.pyramid", "losses", "losses.basic", "losses.ssim",
+                 "losses.pyramid", "schedules", "data", "data.augments",
+                 "data.synthetic", "data.video_test", "data.loader",
+                 "train.state", "train.wrappers", "train.checkpoint",
+                 "train.trainer", "tools.train"):
+        assert f"realvsr_tpu_torch.{name}" in out["modules"], name
     assert out["leaked"] == []
-    assert out["defaults"] == ["cuda"] * 4
+    assert out["defaults"] == ["cuda"] * 5
 
 
 def test_make_forward_casts_to_model_dtype():
@@ -166,6 +172,7 @@ def test_make_forward_casts_to_model_dtype():
     fwd = make_forward(model)
     out = fwd(torch.rand(3, 8, 16, 3))
     assert out.dtype == torch.float64 and out.shape == (8, 16, 3)
+    assert all(p.dtype == torch.float64 for p in model.parameters())
     assert not model.training
     assert inspect.signature(evaluate_wi_gt).parameters.keys() == \
         inspect.signature(jax_evaluate_wi_gt).parameters.keys()
