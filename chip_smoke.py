@@ -6,23 +6,36 @@
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build every kernel of the two paths from ``realvsr_tpu_torch/csrc`` with
+2. build every kernel of the paths from ``realvsr_tpu_torch/csrc`` with
    nvcc, in parallel, and print ``-Xptxas -v``;
 3. hold each kernel against its plain PyTorch version on the card at the
    paths' shapes, in bf16 and f32, with the tolerances of
    ``realvsr_tpu_torch/ops/kernels/check.py``: the DCN forward and the
-   conv3x3 at the inference shapes, the DCN backward at one training sample
-   (3, 192, 192, 64) clamped to ±8 and exact, with offsets of a few pixels
-   (taps outside the image) and with zero offsets, each of dx, doffset,
-   dmask and dW on its own; and the conv3x3 autograd, with and without
-   an activation, against autograd of its plain version;
-4. inference: EDVR_NoUp at full width (nf 64, 3 frames, 8 deformable
-   groups, 5 + 10 ResBlocks, no TSA, DCN offsets clamped to ±4 as the JAX
-   package's deployment setting), bf16, seeded random weights with
-   randomised DCN offset convs, through ``evaluate_wo_gt`` on a seeded
-   synthetic 5-frame 1024x512 PNG clip, with the kernels' launch counts
-   read around that run; then the same weights at 64x128 on the card (f32
-   and bf16) against the CPU in f32;
+   64-out conv3x3 at the inference shapes; the conv3x3 at other widths
+   (64->3 with and without bias, 64->216 lrelu, 64->256 with a residual at
+   EDVR's upconv2 shape, 128 (64+64) -> 3 through two inputs); the block DCN
+   API at the L1 shape clamped to ±4 and ±8; the DCN backward at one
+   training sample (3, 192, 192, 64) clamped to ±8 and exact, with offsets
+   of a few pixels (taps outside the image) and with zero offsets, each of
+   dx, doffset, dmask and dW on its own; and the conv3x3 autograd (64-out
+   with and without an activation, and 64->3) against autograd of its
+   plain version;
+4. inference, each path through ``evaluate_wo_gt`` on a seeded synthetic
+   PNG clip, bf16, seeded random weights with randomised DCN offset convs,
+   DCN offsets clamped to ±4 (the JAX package's deployment setting), with
+   the kernels' launch counts set to 0 before the path and read after it
+   and held to the counts per window the model's routing gives; then the
+   same weights at a reduced size on the card (f32 and bf16) against the
+   CPU in f32:
+   - EDVR_NoUp at full width (nf 64, 3 frames, 8 deformable groups, 5 + 10
+     ResBlocks, no TSA) on a 5-frame 1024x512 clip;
+   - TDAN as ``configs/train/train_TDAN_RealVSR_YCbCr_Split.yml`` gives it
+     (nf 64, 3 frames, 8 groups, 5 + 10 ResBlocks, scale 1) on the same
+     clip;
+   - EDVR x4 with TSA as ``configs/train/train_EDVRx4_TSA_Vimeo90K.yml``
+     gives it (7 frames, 5 + 10 ResBlocks) on a 7-frame clip at the
+     Vimeo90K LR size 448x256 (output 1792x1024);
+   - the block DCN API at the L1 shape (3, 512, 1024, 64), ±4;
 5. training: the port's ``Trainer`` on the Split recipe
    (``configs/train/train_EDVR_woTSA_RealVSR_YCbCr_Split.yml`` parsed as
    is; the train set swapped to the ``Synthetic`` mode at the recipe's
@@ -36,11 +49,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    against the CPU in f32;
 6. times: each kernel, its plain version and the one PyTorch call that
    computes the same function (where there is one) with CUDA events at the
-   paths' shapes, and the inference slice's frames/s at 1024x512.
+   paths' shapes, and each inference path's forward ms, frames/s and peak
+   memory.
 
 Prints one JSON line per check and timing, then the card line, the
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
-``--profile`` adds a ``torch.profiler`` breakdown of one window's forward.
+``--profile`` adds a ``torch.profiler`` breakdown of one window's forward
+of each inference model.
 """
 from __future__ import annotations
 
@@ -58,6 +73,12 @@ PEAK_F32_FLOPS = 67e12   # f32 outside the tensor cores
 H, W, NFRAMES, CLIP = 512, 1024, 3, 5
 RECIPE = os.path.join("configs", "train",
                       "train_EDVR_woTSA_RealVSR_YCbCr_Split.yml")
+TDAN_CFG = os.path.join("configs", "train",
+                        "train_TDAN_RealVSR_YCbCr_Split.yml")
+EDVRX4_CFG = os.path.join("configs", "train",
+                          "train_EDVRx4_TSA_Vimeo90K.yml")
+VIMEO_H, VIMEO_W = 256, 448      # the Vimeo90K LR frame
+R_INFER = 4                      # the deployment DCN clamp
 TRAIN_STEPS, TRAIN_WARMUP = 10, 2
 TRAIN_BATCH = 32                 # the recipe's; f32 fits it too (PERF.md)
 
@@ -100,6 +121,28 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
+def counters() -> dict:
+    """Every kernel wrapper, by its row name in the kernels line; each
+    counts its own launches in ``.launches``."""
+    from realvsr_tpu_torch.ops.deform_conv_block import (
+        modulated_deform_conv_block)
+    from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_fused
+    from realvsr_tpu_torch.ops.kernels.dcn import dcn_bwd, dcn_fwd
+
+    return {"dcn_fwd": dcn_fwd, "conv3x3": conv3x3,
+            "conv3x3_fused": conv3x3_fused, "dcn_bwd": dcn_bwd,
+            "dcn_block": modulated_deform_conv_block}
+
+
+def zero_counts() -> None:
+    for f in counters().values():
+        f.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: f.launches for k, f in counters().items()}
+
+
 def bound(bytes_moved, tc_flops, f32_flops, dtype):
     """(least ms, "bytes" | "operations") from data-sheet peaks; the tensor
     cores and the f32 cores run at once, so the slower of the two counts."""
@@ -124,19 +167,19 @@ def dcn_inputs(shape, dtype, seed):
     return [t.to("cuda", dtype) for t in (x, off, mask, wgt, bias)]
 
 
-def conv_inputs(shape, c2, residual, dtype, seed):
+def conv_inputs(shape, c2, residual, dtype, seed, cout=64, bias=True):
     import torch
 
     b, h, w, c1 = shape
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(b, h, w, c1, generator=g)
     x2 = torch.randn(b, h, w, c2, generator=g) if c2 else None
-    wgt = (torch.rand(64, c1 + c2, 3, 3, generator=g) * 2 - 1) \
+    wgt = (torch.rand(cout, c1 + c2, 3, 3, generator=g) * 2 - 1) \
         / (9 * (c1 + c2)) ** 0.5
-    bias = torch.randn(64, generator=g) * 0.1
-    res = torch.randn(b, h, w, 64, generator=g) if residual else None
+    bs = torch.randn(cout, generator=g) * 0.1
+    res = torch.randn(b, h, w, cout, generator=g) if residual else None
     return [None if t is None else t.to("cuda", dtype)
-            for t in (x, x2, wgt, bias, res)]
+            for t in (x, x2, wgt, bs if bias else None, res)]
 
 
 DCN_CASES = [  # (name, shape, act): the L1 / cascade and the L3 DCNs
@@ -148,16 +191,41 @@ CONV_CASES = [  # (name, shape, c2, act, residual)
     ("front 64->64 +res", (3, H, W, 64), 0, None, True),
     ("PCD L1 128->64 lrelu", (3, H, W, 64), 64, "lrelu", False),
 ]
+UPCONV2 = "EDVR upconv2 64->256 lrelu"
+WIDE_CASES = [  # (name, shape, c2, cout, act, bias, residual)
+    ("TDAN reconstruction 64->3", (3, H, W, 64), 0, 3, None, True, False),
+    ("TDAN final_conv 64->3 no bias", (1, H, W, 64), 0, 3, None, False,
+     False),
+    ("64->216 lrelu", (3, H, W, 64), 0, 216, "lrelu", True, False),
+    ("64->256 +res", (1, 2 * VIMEO_H, 2 * VIMEO_W, 64), 0, 256, None, True,
+     True),
+    (UPCONV2, (1, 2 * VIMEO_H, 2 * VIMEO_W, 64), 0, 256, "lrelu", True,
+     False),
+    ("128 (64+64)->3 two inputs", (3, H, W, 64), 64, 3, None, True, False),
+]
 
 
 def check_kernels():
     import torch
 
+    from realvsr_tpu_torch.ops.deform_conv import modulated_deform_conv_plain
+    from realvsr_tpu_torch.ops.deform_conv_block import (
+        modulated_deform_conv_block)
     from realvsr_tpu_torch.ops.kernels.check import max_abs_err, tolerance
     from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_plain
     from realvsr_tpu_torch.ops.kernels.dcn import dcn_fwd, dcn_fwd_plain
 
     errs = {}
+
+    def hold(key, out, ref, **info):
+        err, tol = max_abs_err(out, ref), tolerance(ref)
+        emit(check=key[0], dtype=str(out.dtype)[6:], max_abs_err=err,
+             tol=tol, **info)
+        if not (out.shape == ref.shape and err <= tol
+                and torch.isfinite(out).all()):
+            raise AssertionError(f"{key}: {err} > {tol}")
+        errs[key] = err
+
     for dtype in (torch.bfloat16, torch.float32):
         for name, shape, act in DCN_CASES:
             for r in (None, 4):
@@ -165,27 +233,37 @@ def check_kernels():
                 out = dcn_fwd(*args, 8, act=act, max_offset=r)
                 torch.cuda.synchronize()
                 ref = dcn_fwd_plain(*args, 8, act, r)
-                err, tol = max_abs_err(out, ref), tolerance(ref)
-                emit(check="dcn_fwd", case=name, shape=shape, act=act,
-                     max_offset=r, dtype=str(dtype)[6:], max_abs_err=err,
-                     tol=tol)
-                if not (err <= tol and torch.isfinite(out).all()):
-                    raise AssertionError(f"dcn_fwd {name} {dtype} r={r}: "
-                                         f"{err} > {tol}")
-                errs[("dcn_fwd", name, dtype, r)] = err
+                hold(("dcn_fwd", name, dtype, r), out, ref, case=name,
+                     shape=shape, act=act, max_offset=r)
                 del out, ref, args
         for name, shape, c2, act, residual in CONV_CASES:
             x, x2, wgt, bias, res = conv_inputs(shape, c2, residual, dtype, 2)
             out = conv3x3(x, wgt, bias, act, res, x2)
             torch.cuda.synchronize()
             ref = conv3x3_plain(x, wgt, bias, act, res, x2)
-            err, tol = max_abs_err(out, ref), tolerance(ref)
-            emit(check="conv3x3", case=name, shape=shape, dtype=str(dtype)[6:],
-                 max_abs_err=err, tol=tol)
-            if not (err <= tol and torch.isfinite(out).all()):
-                raise AssertionError(f"conv3x3 {name} {dtype}: {err} > {tol}")
-            errs[("conv3x3", name, dtype)] = err
+            hold(("conv3x3", name, dtype), out, ref, case=name, shape=shape)
             del out, ref, x, x2, res
+        for name, shape, c2, cout, act, bias, residual in WIDE_CASES:
+            x, x2, wgt, bs, res = conv_inputs(shape, c2, residual, dtype, 3,
+                                              cout, bias)
+            out = conv3x3(x, wgt, bs, act, res, x2)
+            torch.cuda.synchronize()
+            ref = conv3x3_plain(x, wgt, bs, act, res, x2)
+            hold(("conv3x3_fused", name, dtype), out, ref, case=name,
+                 shape=shape, cout=cout, act=act, bias=bias,
+                 residual=residual)
+            del out, ref, x, x2, res
+        for r in (4, 8):
+            x, off, mask, wgt, bias = dcn_inputs(DCN_CASES[0][1], dtype, 1)
+            out = modulated_deform_conv_block(x, off, mask, wgt, bias,
+                                              deformable_groups=8,
+                                              max_offset=r)
+            torch.cuda.synchronize()
+            ref = modulated_deform_conv_plain(x, off, mask, wgt, bias, 1, 1,
+                                              1, 8, r)
+            hold(("dcn_block", dtype, r), out, ref, case="L1",
+                 shape=DCN_CASES[0][1], max_offset=r)
+            del out, ref, x, off, mask
     return errs
 
 
@@ -248,22 +326,26 @@ def check_backward():
     # slope equal to the plain f32 one outside the rounding of 0 (check.py)
     g = torch.Generator().manual_seed(6)
     for dtype in (torch.bfloat16, torch.float32):
-        for case, c2, act, residual in (
-                ("64->64 +res", 0, None, True),
-                ("128->64 two inputs", 64, None, False),
-                ("64->64 relu", 0, "relu", False),
-                ("128->64 lrelu two inputs", 64, "lrelu", False)):
+        for case, c2, act, residual, cout, has_bias in (
+                ("64->64 +res", 0, None, True, 64, True),
+                ("128->64 two inputs", 64, None, False, 64, True),
+                ("64->64 relu", 0, "relu", False, 64, True),
+                ("128->64 lrelu two inputs", 64, "lrelu", False, 64, True),
+                ("64->3 no bias", 0, None, False, 3, False)):
             x, x2, wgt, bias, res = conv_inputs((3, 192, 192, 64), c2,
-                                                residual, dtype, 7)
-            leaves = [t.requires_grad_() for t in (x, wgt, bias, res, x2)
-                      if t is not None]
-            cot = torch.randn(3, 192, 192, 64, generator=g).to("cuda", dtype)
+                                                residual, dtype, 7, cout,
+                                                has_bias)
+            named = [(n, t) for n, t in zip(
+                ("dx", "dweight", "dbias", "dresidual", "dx2"),
+                (x, wgt, bias, res, x2)) if t is not None]
+            names = [n for n, _ in named]
+            leaves = [t.requires_grad_() for _, t in named]
+            cot = torch.randn(3, 192, 192, cout, generator=g).to("cuda",
+                                                                 dtype)
             out = conv3x3_autograd(x, wgt, bias, act, res, x2)
             ours = torch.autograd.grad(out, leaves, cot)
             ref = conv3x3_plain_grads(out, cot, leaves, x, wgt, bias, act,
                                       res, x2)
-            names = ["dx", "dweight", "dbias"] + (
-                ["dresidual"] if residual else []) + (["dx2"] if c2 else [])
             row = {}
             for name, o, rf in zip(names, ours, ref):
                 err, tol = max_abs_err(o, rf), grad_tolerance(rf)
@@ -296,101 +378,181 @@ def randomise_offset_convs(model, seed, std=1.0):
                 p.copy_(torch.randn(p.shape, generator=g) * std)
 
 
-def write_clip(root: str, seed: int) -> str:
-    """A seeded 5-frame 1024x512 clip of smooth texture moving 3 px/frame."""
+def write_clip(root: str, seed: int, frames: int = CLIP, h: int = H,
+               w: int = W) -> str:
+    """A seeded clip of ``frames`` h x w PNGs of smooth texture moving 3
+    px/frame; returns its root (one sequence, ``000``)."""
     import cv2
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    base = cv2.resize(rng.random((H // 8, W // 8 + 8, 3)).astype(np.float32),
-                      (W + 64, H), interpolation=cv2.INTER_CUBIC)
-    lq = os.path.join(root, "LQ", "000")
+    base = cv2.resize(rng.random((h // 8, w // 8 + 8, 3)).astype(np.float32),
+                      (w + 64, h), interpolation=cv2.INTER_CUBIC)
+    lq = os.path.join(root, f"LQ_{w}x{h}_{frames}", "000")
     os.makedirs(lq)
-    for t in range(CLIP):
-        frame = np.clip(base[:, 3 * t:3 * t + W] * 255, 0, 255)
+    for t in range(frames):
+        frame = np.clip(base[:, 3 * t:3 * t + w] * 255, 0, 255)
         cv2.imwrite(os.path.join(lq, f"{t:05d}.png"), frame.astype(np.uint8))
     return os.path.dirname(lq)
 
 
-def main_path(tmp):
+def read_window(lq_root: str, n: int):
+    """The clip's first ``n`` frames as one (1, n, H, W, 3) window on the
+    card, RGB in [0, 1]."""
     import cv2
     import numpy as np
     import torch
 
+    return torch.from_numpy(np.stack([
+        cv2.imread(os.path.join(lq_root, "000", f"{t:05d}.png"))[..., ::-1]
+        .astype(np.float32) / 255 for t in range(n)]))[None].cuda()
+
+
+# Per window of each inference path, from the models' routing: 64-out
+# conv3x3 = ResBlock convs + PCD offset convs (10) + HRconv, with TDAN's
+# bottle_neck and 4 offset convs and TSA's 6 3x3 convs; conv3x3 at other
+# widths = TDAN's reconstruction and final_conv, EDVR's upconv1, upconv2
+# and conv_last.
+EXPECT = {
+    "edvr_noup": {"dcn_fwd": 4, "conv3x3": 41, "conv3x3_fused": 0},
+    "tdan": {"dcn_fwd": 4, "conv3x3": 10 + 1 + 4 + 20, "conv3x3_fused": 2},
+    "edvr_x4": {"dcn_fwd": 4, "conv3x3": 41 + 6, "conv3x3_fused": 3},
+}
+
+
+def drive_path(name, model, lq_root, n_frames, clip, out_hw, tmp):
+    """One inference path through ``evaluate_wo_gt``: the counts set to 0
+    just before it and read just after, held to ``EXPECT`` per window;
+    every output saved at ``out_hw``; then one window's output checked
+    (finite, shape, the DCN offsets in play)."""
+    import cv2
+    import torch
+
     from realvsr_tpu_torch.eval.test_wo_gt import evaluate_wo_gt
-    from realvsr_tpu_torch.models.edvr import EDVRNoUp
-    from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3
-    from realvsr_tpu_torch.ops.kernels.dcn import dcn_bwd, dcn_fwd
 
-    cfg = dict(nf=64, nc=3, nframes=NFRAMES, groups=8, front_RBs=5,
-               back_RBs=10, w_TSA=False, dcn_max_offset=4)
-    model = EDVRNoUp(**cfg, device="cuda", dtype=torch.bfloat16,
-                     generator=torch.Generator().manual_seed(0))
-    randomise_offset_convs(model, seed=1)
-    lq_root = write_clip(tmp, seed=2)
-    out_dir = os.path.join(tmp, "out")
-
-    dcn_fwd.launches = dcn_bwd.launches = conv3x3.launches = 0
-    res = evaluate_wo_gt(model, None, lq_root, n_frames=NFRAMES,
+    out_dir = os.path.join(tmp, f"out_{name}")
+    zero_counts()
+    res = evaluate_wo_gt(model, None, lq_root, n_frames=n_frames,
                          save_folder=out_dir)
     torch.cuda.synchronize()
-    launches = {"dcn_fwd": dcn_fwd.launches, "conv3x3": conv3x3.launches,
-                "dcn_bwd": dcn_bwd.launches}
-    per_window = {k: v / CLIP for k, v in launches.items()}
-    emit(phase="main_path", windows=CLIP, launches=launches,
-         launches_per_window=per_window, frames_per_s_first_run=res[
-             "frames_per_s"])
-    if per_window["dcn_fwd"] < 4 or per_window["conv3x3"] < 41 or \
-            launches["dcn_bwd"]:
-        raise AssertionError(f"kernels not on the main path: {per_window}")
+    launches = read_counts()
+    per_window = {k: v / clip for k, v in launches.items()}
+    emit(phase="path", path=name, windows=clip, launches=launches,
+         launches_per_window=per_window,
+         frames_per_s_first_run=res["frames_per_s"])
+    expect = dict(EXPECT[name], dcn_bwd=0, dcn_block=0)
+    if per_window != expect:
+        raise AssertionError(f"{name}: launches per window {per_window}, "
+                             f"expected {expect}")
     saved = sorted(os.listdir(os.path.join(out_dir, "000")))
-    if len(saved) != CLIP:
-        raise AssertionError(f"expected {CLIP} outputs, got {saved}")
-    for name in saved:
-        img = cv2.imread(os.path.join(out_dir, "000", name))
-        if img is None or img.shape != (H, W, 3):
-            raise AssertionError(f"bad output {name}")
+    if len(saved) != clip:
+        raise AssertionError(f"{name}: expected {clip} outputs, got {saved}")
+    for f in saved:
+        img = cv2.imread(os.path.join(out_dir, "000", f))
+        if img is None or img.shape != (*out_hw, 3):
+            raise AssertionError(f"{name}: bad output {f}")
 
-    # output checks on one window: finite, right shape, offsets in play
-    frames = torch.from_numpy(np.stack([
-        cv2.imread(os.path.join(lq_root, "000", f"{t:05d}.png"))[..., ::-1]
-        .astype(np.float32) / 255 for t in range(NFRAMES)])).cuda()
+    window = read_window(lq_root, n_frames).to(torch.bfloat16)
     offs = []
     hooks = [m.conv_offset_mask.register_forward_hook(
         lambda mod, inp, out: offs.append(out[..., :out.shape[-1] * 2 // 3]))
         for m in model.modules() if hasattr(m, "conv_offset_mask")]
     with torch.inference_mode():
-        y = model(frames[None].to(torch.bfloat16))
+        y = model(window)
     for h in hooks:
         h.remove()
-    if y.shape != (1, H, W, 3) or not torch.isfinite(y).all():
-        raise AssertionError("main-path output not finite or misshapen")
-    emit(phase="main_path_output", shape=list(y.shape),
+    if y.shape != (1, *out_hw, 3) or not torch.isfinite(y).all():
+        raise AssertionError(f"{name}: output not finite or misshapen")
+    emit(phase="path_output", path=name, shape=list(y.shape),
          out_min=y.min().item(), out_max=y.max().item(),
          offset_abs_mean=[o.float().abs().mean().item() for o in offs],
          offset_abs_max=[o.float().abs().max().item() for o in offs])
+    return launches
 
-    # the same weights at a reduced size: card (f32 and bf16) vs CPU f32.
-    # f32: TF32 kernels through ~45 layers, 2e-2; bf16: 8-bit mantissas
-    # through the same depth, 5e-2 (output range ~[0, 1]).
+
+def card_vs_cpu(name, build, model, shape):
+    """The same weights at a reduced size: the card (f32 and bf16) against
+    the CPU in f32, relative to the output's largest magnitude (~1 for
+    EDVR, whose output adds the centre frame; a few hundredths for TDAN at
+    random weights).  f32: TF32 kernels through ~45 layers, 2e-2; bf16:
+    8-bit mantissas through the same depth, 5e-2."""
+    import torch
+
     sd = {k: v.float().cpu() for k, v in model.state_dict().items()}
-    cpu = EDVRNoUp(**cfg, device="cpu")
+    cpu = build("cpu")
     cpu.load_state_dict(sd)
-    card32 = EDVRNoUp(**cfg, device="cuda")
+    card32 = build("cuda")
     card32.load_state_dict(sd)
-    x = torch.rand(1, NFRAMES, 64, 128, 3,
-                   generator=torch.Generator().manual_seed(4))
+    x = torch.rand(*shape, generator=torch.Generator().manual_seed(4))
     with torch.inference_mode():
         ref = cpu.eval()(x)
-        for dtype, m, tol in ((torch.float32, card32.eval(), 2e-2),
+        top = ref.abs().max().item()
+        for dtype, m, rel in ((torch.float32, card32.eval(), 2e-2),
                               (torch.bfloat16, model.eval(), 5e-2)):
             out = m(x.cuda().to(dtype)).float().cpu()
-            err = (out - ref).abs().max().item()
-            emit(phase="reduced_card_vs_cpu", dtype=str(dtype)[6:],
-                 shape=list(x.shape), max_abs_err=err, tol=tol)
-            if not (err <= tol and torch.isfinite(out).all()):
-                raise AssertionError(f"reduced {dtype}: {err} > {tol}")
-    return model, lq_root, launches
+            err, tol = (out - ref).abs().max().item(), rel * top
+            emit(phase="reduced_card_vs_cpu", path=name, dtype=str(dtype)[6:],
+                 shape=list(x.shape), max_abs_err=err, tol=tol,
+                 ref_abs_max=top)
+            if not (out.shape == ref.shape and err <= tol
+                    and torch.isfinite(out).all()):
+                raise AssertionError(f"{name} reduced {dtype}: {err} > {tol}")
+    del cpu, card32
+
+
+def network_opt(path):
+    import yaml
+
+    with open(os.path.join(ROOT, path)) as f:
+        return yaml.safe_load(f)
+
+
+def inference_paths(tmp):
+    """The three inference paths (module docstring, phase 4); returns
+    {name: (model, clip root, frames per window, input (h, w), launches)}."""
+    import torch
+
+    from realvsr_tpu_torch.models import define_g
+    from realvsr_tpu_torch.models.edvr import EDVRNoUp
+
+    bf = torch.bfloat16
+    clip = write_clip(tmp, seed=2)
+    paths = {}
+
+    cfg = dict(nf=64, nc=3, nframes=NFRAMES, groups=8, front_RBs=5,
+               back_RBs=10, w_TSA=False, dcn_max_offset=R_INFER)
+    model = EDVRNoUp(**cfg, device="cuda", dtype=bf,
+                     generator=torch.Generator().manual_seed(0))
+    randomise_offset_convs(model, seed=1)
+    launches = drive_path("edvr_noup", model, clip, NFRAMES, CLIP, (H, W),
+                          tmp)
+    card_vs_cpu("edvr_noup", lambda dev: EDVRNoUp(**cfg, device=dev), model,
+                (1, NFRAMES, 64, 128, 3))
+    paths["edvr_noup"] = (model, clip, NFRAMES, (H, W), launches)
+
+    # name, recipe, weight seed, std of the offset convs' random weights
+    for name, recipe, seed, std in (("tdan", TDAN_CFG, 20, 0.5),
+                                    ("edvr_x4", EDVRX4_CFG, 30, 1.0)):
+        opt = network_opt(recipe)
+        n, scale = opt["network_G"]["nframes"], opt["scale"]
+
+        def build(dev, dtype=torch.float32, seed=seed, opt=opt):
+            return define_g(opt, device=dev, dtype=dtype,
+                            generator=torch.Generator().manual_seed(seed),
+                            dcn_max_offset=R_INFER)
+
+        model = build("cuda", bf)
+        randomise_offset_convs(model, seed=seed + 1, std=std)
+        if name == "tdan":   # the flagship's clip: same frames, same size
+            lq, frames, hw, small = clip, CLIP, (H, W), (64, 128)
+        else:                # a clip at the Vimeo90K LR size
+            frames, hw, small = n, (VIMEO_H, VIMEO_W), (64, 64)
+            lq = write_clip(tmp, seed + 2, frames, *hw)
+        launches = drive_path(name, model, lq, n, frames,
+                              (hw[0] * scale, hw[1] * scale), tmp)
+        card_vs_cpu(name, build, model, (1, n, *small, 3))
+        paths[name] = (model, lq, n, hw, launches)
+    return paths
 
 
 def _train_opt(tmp, dtype):
@@ -417,11 +579,11 @@ def training_slice(tmp, profile=False):
     representative for the steps/s)."""
     import torch
 
-    from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3
-    from realvsr_tpu_torch.ops.kernels.dcn import dcn_bwd, dcn_fwd
     from realvsr_tpu_torch.train.trainer import Trainer
 
-    kernels = {"dcn_fwd": dcn_fwd, "dcn_bwd": dcn_bwd, "conv3x3": conv3x3}
+    kernels = counters()
+    per_step = {"dcn_fwd": 4, "dcn_bwd": 4, "conv3x3": 41,
+                "conv3x3_fused": 0, "dcn_block": 0}
     results, r = {}, train_r()
     # PyTorch's defaults, as the recipe runs: cuDNN convs in TF32, like the
     # kernels; the checks around this phase run cuDNN in full f32
@@ -461,7 +623,7 @@ def training_slice(tmp, profile=False):
             raise AssertionError(f"{len(steps)} steps run, {TRAIN_STEPS} "
                                  "asked")
         for i, st in enumerate(steps):
-            if st["launches"] != {"dcn_fwd": 4, "dcn_bwd": 4, "conv3x3": 41}:
+            if st["launches"] != per_step:
                 raise AssertionError(f"step {i}: launches {st['launches']}")
             if not all(torch.isfinite(v).item() for v in st["logs"].values()):
                 raise AssertionError(f"step {i}: losses {st['logs']}")
@@ -583,25 +745,56 @@ def time_dcn_bwd():
     return row
 
 
+def block_path():
+    """Kernel 5's path: the block DCN API at the L1 shape, ±4, with the
+    counts set to 0 just before it and read just after."""
+    import torch
+
+    from realvsr_tpu_torch.ops.deform_conv_block import (
+        modulated_deform_conv_block)
+
+    x, off, mask, wgt, bias = dcn_inputs(DCN_CASES[0][1], torch.bfloat16, 5)
+    zero_counts()
+    out = modulated_deform_conv_block(x, off, mask, wgt, bias,
+                                      deformable_groups=8,
+                                      max_offset=R_INFER)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    emit(phase="path", path="block_api", shape=DCN_CASES[0][1],
+         max_offset=R_INFER, launches=launches)
+    expect = dict(dcn_fwd=0, conv3x3=0, conv3x3_fused=0, dcn_bwd=0,
+                  dcn_block=1)
+    if launches != expect or not torch.isfinite(out).all():
+        raise AssertionError(f"block API path: launches {launches}")
+    return launches
+
+
 def time_kernels():
     import torch
     import torch.nn.functional as F
 
-    from realvsr_tpu_torch.ops.deform_conv import apply_act
+    from realvsr_tpu_torch.ops.deform_conv import (apply_act,
+                                                   modulated_deform_conv_plain)
+    from realvsr_tpu_torch.ops.deform_conv_block import (
+        modulated_deform_conv_block)
     from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_plain
     from realvsr_tpu_torch.ops.kernels.dcn import dcn_fwd, dcn_fwd_plain
 
     bf = torch.bfloat16
     rows = {}
+
+    def dcn_bound(x, off, mask, wgt, bias, out):
+        # tensor cores: the tap GEMM; f32 cores: 4 corners x (mul + add)
+        # + the mask, per sampled element
+        p = x.shape[0] * x.shape[1] * x.shape[2]
+        k = 9 * x.shape[3]
+        return bound(nbytes(x, off, mask, wgt, bias, out), 2 * p * k * 64,
+                     9 * p * k, "bfloat16")
+
     for name, shape, act in DCN_CASES:
         x, off, mask, wgt, bias = dcn_inputs(shape, bf, seed=1)
         out = dcn_fwd(x, off, mask, wgt, bias, 8, act=act, max_offset=4)
-        p = x.shape[0] * x.shape[1] * x.shape[2]
-        k = 9 * x.shape[3]
-        # tensor cores: the tap GEMM; f32 cores: 4 corners x (mul + add)
-        # + the mask, per sampled element
-        b_ms, b_by = bound(nbytes(x, off, mask, wgt, bias, out),
-                           2 * p * k * 64, 9 * p * k, "bfloat16")
+        b_ms, b_by = dcn_bound(x, off, mask, wgt, bias, out)
         row = dict(
             ms=cuda_ms(lambda: dcn_fwd(x, off, mask, wgt, bias, 8, act=act,
                                        max_offset=4), 20),
@@ -611,12 +804,35 @@ def time_kernels():
         emit(timing="dcn_fwd", case=name, shape=shape, dtype="bfloat16", **row)
         rows[("dcn_fwd", name)] = row
         del x, off, mask, out
-    for name, shape, c2, act, residual in CONV_CASES:
-        x, x2, wgt, bias, res = conv_inputs(shape, c2, residual, bf, 2)
+    # the block API at L1, ±4: kernel 1's code behind kernel 5's function
+    x, off, mask, wgt, bias = dcn_inputs(DCN_CASES[0][1], bf, seed=1)
+
+    def block():
+        return modulated_deform_conv_block(x, off, mask, wgt, bias,
+                                           deformable_groups=8,
+                                           max_offset=R_INFER)
+
+    b_ms, b_by = dcn_bound(x, off, mask, wgt, bias, block())
+    row = dict(
+        ms=cuda_ms(block, 20),
+        plain_ms=cuda_ms(lambda: modulated_deform_conv_plain(
+            x, off, mask, wgt, bias, 1, 1, 1, 8, R_INFER), 3, warmup=1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    emit(timing="dcn_block", case="L1", shape=DCN_CASES[0][1],
+         max_offset=R_INFER, dtype="bfloat16", **row)
+    rows["dcn_block"] = row
+    del x, off, mask
+
+    timed = [(name, shape, c2, 64, act, True, residual)
+             for name, shape, c2, act, residual in CONV_CASES]
+    timed += WIDE_CASES
+    for name, shape, c2, cout, act, has_bias, residual in timed:
+        x, x2, wgt, bias, res = conv_inputs(shape, c2, residual, bf, 2, cout,
+                                            has_bias)
         out = conv3x3(x, wgt, bias, act, res, x2)
         p = x.shape[0] * x.shape[1] * x.shape[2]
         b_ms, b_by = bound(nbytes(x, x2, wgt, bias, res, out),
-                           2 * p * 9 * (x.shape[3] + (c2 or 0)) * 64, 0,
+                           2 * p * 9 * (x.shape[3] + (c2 or 0)) * cout, 0,
                            "bfloat16")
         xcat = x if x2 is None else torch.cat([x, x2], -1)
         x_nchw = xcat.permute(0, 3, 1, 2)  # channels_last memory, NCHW view
@@ -632,32 +848,38 @@ def time_kernels():
             plain_ms=cuda_ms(lambda: conv3x3_plain(x, wgt, bias, act, res, x2),
                              5),
             bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(library, 20))
-        emit(timing="conv3x3", case=name, shape=shape, dtype="bfloat16", **row)
-        rows[("conv3x3", name)] = row
+        kernel = "conv3x3" if cout == 64 else "conv3x3_fused"
+        emit(timing=kernel, case=name, shape=shape, cout=cout,
+             dtype="bfloat16", **row)
+        rows[(kernel, name)] = row
         del x, x2, res, out
     return rows
 
 
-def time_slice(model, lq_root):
+def time_path(name, model, lq_root, n_frames, hw):
+    """One path's restore through ``evaluate_wo_gt`` (host clock, upload and
+    download included) and its forward alone (CUDA events over 5 windows
+    of seeded noise after warm-up), bf16; peak memory over both."""
     import torch
 
     from realvsr_tpu_torch.eval.test_wo_gt import evaluate_wo_gt
 
     torch.cuda.reset_peak_memory_stats()
-    res = evaluate_wo_gt(model, None, lq_root, n_frames=NFRAMES)
-    window = torch.rand(1, NFRAMES, H, W, 3,
+    res = evaluate_wo_gt(model, None, lq_root, n_frames=n_frames)
+    window = torch.rand(1, n_frames, *hw, 3,
                         generator=torch.Generator().manual_seed(5)).cuda() \
         .to(torch.bfloat16)
     with torch.inference_mode():
         ms = cuda_ms(lambda: model(window), 5)
-    emit(timing="slice", resolution=f"{W}x{H}", nframes=NFRAMES,
-         dtype="bfloat16", forward_ms=ms, forward_frames_per_s=1e3 / ms,
+    emit(timing="slice", path=name, resolution=f"{hw[1]}x{hw[0]}",
+         nframes=n_frames, dtype="bfloat16", forward_ms=ms,
+         forward_frames_per_s=1e3 / ms,
          evaluate_wo_gt_frames_per_s=res["frames_per_s"],
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
     return window
 
 
-def profile(model, window):
+def profile(name, model, window):
     import torch
     from torch.profiler import ProfilerActivity, profile as prof
 
@@ -666,6 +888,7 @@ def profile(model, window):
         for _ in range(2):
             model(window)
         torch.cuda.synchronize()
+    print(f"--- torch.profiler, {name}, 2 forwards")
     print(p.key_averages().table(sort_by="cuda_time_total", row_limit=25))
 
 
@@ -692,25 +915,29 @@ def main() -> int:
         print(f"--- nvcc -Xptxas -v: {src}.cu\n{log.strip()}")
     emit(phase="build", seconds=time.time() - t0, built=sorted(logs))
 
+    profiling = "--profile" in sys.argv[1:]
     errs = check_kernels()
     bwd_errs = check_backward()
     with tempfile.TemporaryDirectory() as tmp:
-        model, lq_root, launches = main_path(tmp)
-        train = training_slice(tmp, "--profile" in sys.argv[1:])
+        paths = inference_paths(tmp)
+        launches = {p: v[-1] for p, v in paths.items()}
+        launches["block_api"] = block_path()
+        train = training_slice(tmp, profiling)
+        for d in train:
+            launches[f"training_{d}"] = train[d]["launches"]
         reduced_train_step()
         rows = time_kernels()
         rows["dcn_bwd"] = time_dcn_bwd()
-        window = time_slice(model, lq_root)
-        if "--profile" in sys.argv[1:]:
-            profile(model, window)
+        for p, (model, lq_root, n, hw, _) in paths.items():
+            window = time_path(p, model, lq_root, n, hw)
+            if profiling:
+                profile(p, model, window)
 
     bf = torch.bfloat16
-    # launches: the f32 training run (the recipe's precision), with each
-    # path's counts beside it
-    by_path = {name: {"inference": launches.get(name, 0),
-                      **{f"training_{d}": train[d]["launches"][name]
-                         for d in train}}
-               for name in ("dcn_fwd", "conv3x3", "dcn_bwd")}
+    # each kernel's launches on every path; ``launches`` is the one of the
+    # path that first put it on a model path (the f32 training run for the
+    # flagship's kernels, the recipe's precision)
+    by_path = {k: {p: c[k] for p, c in launches.items()} for k in counters()}
     bwd = bwd_errs[(bf, train_r(), False)]
     kernels = [
         dict(name="dcn_fwd", route="cuda",
@@ -727,6 +954,13 @@ def main() -> int:
              launches_by_path=by_path["conv3x3"],
              max_abs_err=errs[("conv3x3", "front 64->64 relu", bf)],
              **rows[("conv3x3", "front 64->64 relu")]),
+        dict(name="conv3x3_fused", route="cuda",
+             source="realvsr_tpu_torch/csrc/conv3x3.cu",
+             replaces="realvsr_tpu/ops/pallas/conv3x3_kernel.py:125",
+             launches=by_path["conv3x3_fused"]["tdan"],
+             launches_by_path=by_path["conv3x3_fused"],
+             max_abs_err=errs[("conv3x3_fused", UPCONV2, bf)],
+             **rows[("conv3x3_fused", UPCONV2)]),
         dict(name="dcn_bwd", route="cuda",
              source="realvsr_tpu_torch/csrc/dcn_bwd.cu",
              replaces="realvsr_tpu/ops/pallas/dcn_frame_kernel.py:501",
@@ -734,6 +968,14 @@ def main() -> int:
              launches_by_path=by_path["dcn_bwd"],
              max_abs_err=max(v["max_abs_err"] for v in bwd.values()),
              max_abs_err_by_output=bwd, **rows["dcn_bwd"]),
+        dict(name="dcn_block", route="cuda",
+             source="realvsr_tpu_torch/csrc/dcn_fwd.cu",
+             wrapper="realvsr_tpu_torch/ops/deform_conv_block.py",
+             replaces="realvsr_tpu/ops/pallas/dcn_block_kernel.py:82",
+             launches=by_path["dcn_block"]["block_api"],
+             launches_by_path=by_path["dcn_block"],
+             max_abs_err=errs[("dcn_block", bf, R_INFER)],
+             **rows["dcn_block"]),
     ]
     emit(phase="done", seconds=time.time() - t_start)
     print(smi())

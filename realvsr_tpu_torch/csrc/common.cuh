@@ -1,6 +1,7 @@
 // Shared pieces of the hand-written Hopper kernels: element traits, the
 // fused activations, 16-byte vector load/store, and the warp-level tensor-core
-// product of one 16-row tile against a 64-column shared-memory weight tile.
+// product of one 16-row tile against a shared-memory weight tile of 8 to 64
+// columns.
 //
 // Two element types are taken: bf16 (mma.sync m16n8k16, f32 accumulate) and
 // f32 (mma.sync m16n8k8 on TF32 operands, f32 accumulate; operands are
@@ -11,9 +12,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace rvsr {
 
-constexpr int kCout = 64;  // output channels of every kernel launch
+constexpr int kCout = 64;  // output channels of the DCN kernels
 
 enum Act { kActNone = 0, kActRelu = 1, kActLrelu = 2 };
 
@@ -100,63 +103,53 @@ __device__ __forceinline__ uint32_t ld32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// acc[nt] += A(16 x klen) * B(klen x 8) for the 8 column tiles nt of a
-// 64-column output.  a_lo / a_hi point at the K-contiguous shared-memory rows
-// of this lane's fragment rows (group and group + 8); b is [64][ldb],
-// K-contiguous.  Fragment layouts are those of the PTX ISA for
-// mma.m16n8k16 (bf16) and mma.m16n8k8 (tf32), row.col.
-template <typename T>
-__device__ __forceinline__ void warp_mma(float (&acc)[8][4], const T* a_lo,
+// acc[nt] += A(16 x klen) * B(klen x 8) for the NT column tiles nt of an
+// (8 * NT)-column output (64 columns by default).  a_lo / a_hi point at the
+// K-contiguous shared-memory rows of this lane's fragment rows (group and
+// group + 8); b is [8 * NT][ldb], K-contiguous.  Fragment layouts are those
+// of the PTX ISA for mma.m16n8k16 (bf16) and mma.m16n8k8 (tf32), row.col.
+template <typename T, int NT = 8>
+__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const T* a_lo,
                                          const T* a_hi, const T* b, int ldb,
-                                         int klen, int lane);
-
-template <>
-__device__ __forceinline__ void warp_mma<__nv_bfloat16>(
-    float (&acc)[8][4], const __nv_bfloat16* a_lo, const __nv_bfloat16* a_hi,
-    const __nv_bfloat16* b, int ldb, int klen, int lane) {
+                                         int klen, int lane) {
   const int g = lane >> 2, t = lane & 3;
-  for (int k = 0; k < klen; k += 16) {
-    const uint32_t a0 = ld32(a_lo + k + 2 * t);
-    const uint32_t a1 = ld32(a_hi + k + 2 * t);
-    const uint32_t a2 = ld32(a_lo + k + 8 + 2 * t);
-    const uint32_t a3 = ld32(a_hi + k + 8 + 2 * t);
+  if constexpr (std::is_same<T, float>::value) {
+    for (int k = 0; k < klen; k += 8) {
+      const uint32_t a0 = __float_as_uint(a_lo[k + t]);
+      const uint32_t a1 = __float_as_uint(a_hi[k + t]);
+      const uint32_t a2 = __float_as_uint(a_lo[k + t + 4]);
+      const uint32_t a3 = __float_as_uint(a_hi[k + t + 4]);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const __nv_bfloat16* br = b + (nt * 8 + g) * ldb + k;
-      mma_bf16(acc[nt], a0, a1, a2, a3, ld32(br + 2 * t), ld32(br + 8 + 2 * t));
+      for (int nt = 0; nt < NT; ++nt) {
+        const float* br = b + (nt * 8 + g) * ldb + k;
+        mma_tf32(acc[nt], a0, a1, a2, a3, __float_as_uint(br[t]),
+                 __float_as_uint(br[t + 4]));
+      }
+    }
+  } else {
+    for (int k = 0; k < klen; k += 16) {
+      const uint32_t a0 = ld32(a_lo + k + 2 * t);
+      const uint32_t a1 = ld32(a_hi + k + 2 * t);
+      const uint32_t a2 = ld32(a_lo + k + 8 + 2 * t);
+      const uint32_t a3 = ld32(a_hi + k + 8 + 2 * t);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const T* br = b + (nt * 8 + g) * ldb + k;
+        mma_bf16(acc[nt], a0, a1, a2, a3, ld32(br + 2 * t),
+                 ld32(br + 8 + 2 * t));
+      }
     }
   }
 }
 
-template <>
-__device__ __forceinline__ void warp_mma<float>(float (&acc)[8][4],
-                                                const float* a_lo,
-                                                const float* a_hi,
-                                                const float* b, int ldb,
-                                                int klen, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  for (int k = 0; k < klen; k += 8) {
-    const uint32_t a0 = __float_as_uint(a_lo[k + t]);
-    const uint32_t a1 = __float_as_uint(a_hi[k + t]);
-    const uint32_t a2 = __float_as_uint(a_lo[k + t + 4]);
-    const uint32_t a3 = __float_as_uint(a_hi[k + t + 4]);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float* br = b + (nt * 8 + g) * ldb + k;
-      mma_tf32(acc[nt], a0, a1, a2, a3, __float_as_uint(br[t]),
-               __float_as_uint(br[t + 4]));
-    }
-  }
-}
-
-// Stage the (kCout x C) weight slice of one tap into shared memory [64][ld].
-// weight is (kCout, 9, C), K-contiguous.
-template <typename T>
+// Stage the (ROWS x C) weight slice of one tap into shared memory
+// [ROWS][ld].  weight is (ROWS or more, 9, C), K-contiguous.
+template <typename T, int ROWS = kCout>
 __device__ __forceinline__ void stage_weight_tap(T* sB, const T* weight,
                                                  int tap, int C, int ld) {
   constexpr int V = Traits<T>::kVec;
   const int nv = C / V;
-  for (int it = threadIdx.x; it < kCout * nv; it += blockDim.x) {
+  for (int it = threadIdx.x; it < ROWS * nv; it += blockDim.x) {
     const int n = it / nv, kv = it - n * nv;
     float v[V];
     load_vec<T>(weight + ((size_t)n * 9 + tap) * C + kv * V, v);

@@ -1,7 +1,8 @@
 """Shared architecture blocks (``torch.nn``, NHWC activations).
 
 Counterparts of ``realvsr_tpu/models/common.py``: the reference's
-``arch_util.py`` blocks and the DCN "Pack" module.  Parameters keep the
+``arch_util.py`` blocks (with the pixel-shuffle ``Upsampler`` and the 3x3 /
+stride 2 pools of TSA) and the DCN "Pack" module.  Parameters keep the
 reference torch names and layouts (``weight`` OIHW, ``bias``), so
 ``load_state_dict(strict=True)`` takes reference ``.pth`` files and
 :func:`realvsr_tpu_torch.convert.state_dict_from_jax` output alike.
@@ -28,6 +29,7 @@ import torch.nn.functional as F
 
 from realvsr_tpu_torch.ops.deform_conv import apply_act, modulated_deform_conv
 from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3_autograd
+from realvsr_tpu_torch.ops.resize import pixel_shuffle
 
 
 def _uniform_(t: torch.Tensor, bound: float, gen: torch.Generator | None):
@@ -41,20 +43,22 @@ def _normal_(t: torch.Tensor, std: float, gen: torch.Generator | None):
 
 
 class Conv2d(nn.Module):
-    """``nn.Conv2d(cin, cout, k, stride, padding)`` on NHWC tensors, with an
-    optional fused activation, residual (added after the activation) and a
-    second input concatenated on the channels (``x2``).
+    """``nn.Conv2d(cin, cout, k, stride, padding, bias=bias)`` on NHWC
+    tensors, with an optional fused activation, residual (added after the
+    activation) and a second input concatenated on the channels (``x2``).
+    ``bias=False`` is the JAX ``use_bias=False``: no ``bias`` parameter.
 
     ``kernel=True`` marks a 3x3 / stride 1 conv that runs the hand-written
     kernel (:func:`realvsr_tpu_torch.ops.kernels.conv3x3.conv3x3_autograd`)
-    on a CUDA tensor, as the JAX package runs ``conv3x3_packed`` there; the
-    other convs go to ``F.conv2d``, as the JAX package leaves them to XLA.
+    on a CUDA tensor at any ``cout`` (``cin`` a multiple of 16), as the JAX
+    package runs ``conv3x3_packed`` / ``conv3x3_fused`` there; the other
+    convs go to ``F.conv2d``, as the JAX package leaves them to XLA.
     """
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
                  stride: int = 1, padding: int | None = None,
                  act: str | None = None, kernel: bool = False,
-                 init: str = "default"):
+                 init: str = "default", bias: bool = True):
         super().__init__()
         self.stride = stride
         self.padding = kernel_size // 2 if padding is None else padding
@@ -65,13 +69,14 @@ class Conv2d(nn.Module):
             raise ValueError("the conv3x3 kernel takes 3x3 / stride 1 / pad 1")
         self.weight = nn.Parameter(
             torch.empty(cout, cin, kernel_size, kernel_size))
-        self.bias = nn.Parameter(torch.empty(cout))
+        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
 
     def reset_parameters(self, gen: torch.Generator | None = None) -> None:
         fan_in = self.weight[0].numel()
         if self.init == "default":
             _uniform_(self.weight, 1 / math.sqrt(fan_in), gen)
-            _uniform_(self.bias, 1 / math.sqrt(fan_in), gen)
+            if self.bias is not None:
+                _uniform_(self.bias, 1 / math.sqrt(fan_in), gen)
         elif self.init == "residual":  # kaiming_normal(fan_in) * 0.1
             _normal_(self.weight, math.sqrt(2.0 / fan_in) * 0.1, gen)
             nn.init.zeros_(self.bias)
@@ -83,7 +88,8 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None,
                 x2: torch.Tensor | None = None) -> torch.Tensor:
-        weight, bias = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        weight = self.weight.to(x.dtype)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
         if self.kernel:
             return conv3x3_autograd(x, weight, bias, self.act, residual, x2)
         xin = x if x2 is None else torch.cat([x, x2], dim=-1)
@@ -176,6 +182,46 @@ class DCNPack(nn.Module):
             x, offset, mask, self.weight.to(x.dtype), self.bias.to(x.dtype),
             deformable_groups=self.deformable_groups,
             max_offset=self.max_offset, act=act)
+
+
+class Upsampler(nn.Module):
+    """Pixel-shuffle upsampler (arch_util.py:142-165): for a scale 2^n, n
+    times a 3x3 conv to 4 * n_feat channels then a x2 pixel shuffle; for 3,
+    one conv to 9 * n_feat then x3; scale 1 is the identity.  Convs
+    ``conv{i}``, on the conv3x3 kernel."""
+
+    def __init__(self, scale: int, n_feat: int):
+        super().__init__()
+        if scale & (scale - 1) == 0:
+            self.steps = [(4, 2)] * int(math.log2(scale))
+        elif scale == 3:
+            self.steps = [(9, 3)]
+        else:
+            raise NotImplementedError(f"scale {scale}")
+        for i, (mult, _) in enumerate(self.steps):
+            setattr(self, f"conv{i}", Conv2d(n_feat, mult * n_feat,
+                                             kernel=True))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, (_, r) in enumerate(self.steps):
+            x = pixel_shuffle(getattr(self, f"conv{i}")(x), r)
+        return x
+
+
+def _nchw_pool(pool, x: torch.Tensor) -> torch.Tensor:
+    return pool(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1) \
+        .contiguous()
+
+
+def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """torch MaxPool2d(3, stride=2, padding=1) on NHWC: -inf padding."""
+    return _nchw_pool(F.max_pool2d, x)
+
+
+def avg_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """torch AvgPool2d(3, stride=2, padding=1) on NHWC,
+    count_include_pad=True."""
+    return _nchw_pool(F.avg_pool2d, x)
 
 
 def reset_parameters(model: nn.Module, gen: torch.Generator | None) -> None:

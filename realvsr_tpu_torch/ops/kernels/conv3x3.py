@@ -1,21 +1,29 @@
-"""Kernel 2: NHWC 3x3 conv with a fused epilogue on Hopper (``csrc/conv3x3.cu``).
+"""Kernels 3 and 4 of the TPU table: NHWC 3x3 conv with a fused epilogue on
+Hopper (``csrc/conv3x3.cu``), at any number of output channels.
 
-Replaces ``realvsr_tpu/ops/pallas/conv3x3_kernel.py::_packed_pallas`` (public
-``conv3x3_packed``; its ``splits`` take PCD's concat inputs, here the
-second input pointer ``x2`` does).  Bound on the H100: the 64->64 convs at
-(3, 512, 1024) sit near the ridge (116 GFLOP, 0.4-0.6 GB); 128->64 is
-compute-bound (232 GFLOP).  The kernel is an implicit GEMM on the tensor
+Replaces ``realvsr_tpu/ops/pallas/conv3x3_kernel.py::_packed_pallas``
+(public ``conv3x3_packed``; its ``splits`` take PCD's concat inputs, here
+the second input pointer ``x2`` does) and ``conv3x3_kernel.py::
+conv3x3_fused`` (the same function at any output width, with the custom VJP
+``conv3x3``).  Both run one CUDA kernel.  Bound on the H100: the 64->64
+convs at (3, 512, 1024) sit near the ridge (116 GFLOP, 0.4-0.6 GB); 128->64
+is compute-bound (232 GFLOP).  The kernel is an implicit GEMM on the tensor
 cores (``mma.sync``) from an input halo held in shared memory, so the input
 is read ~1.6x rather than 9x and the epilogue (bias, activation, cast,
-residual) never leaves registers; see the source for the design.  No pair
-packing: the TPU's 128-lane layout is not carried over.
+residual) never leaves registers; it walks the output channels in tiles of
+up to 64 inside the block; see the source for the design.  No pair packing:
+the TPU's 128-lane layout is not carried over.
 
-:func:`conv3x3` launches the kernel for a CUDA tensor and counts the launch
-in ``conv3x3.launches``; for a CPU tensor it runs :func:`conv3x3_plain`.
-:func:`conv3x3_autograd` is the differentiable op: the kernel forward, and a
-backward through cuDNN's data and weight gradients in the activation dtype,
-as the JAX package's custom VJP (``conv3x3_kernel.py::_packed_core_bwd``)
-leaves its backward to stock XLA.  Unlike that VJP it does not recompute the
+:func:`conv3x3` launches the kernel for a CUDA tensor; a launch with 64
+output channels counts in ``conv3x3.launches``, one with any other width in
+``conv3x3_fused.launches``, so the two rows of the TPU table keep their own
+counts.  For a CPU tensor it runs :func:`conv3x3_plain`.
+:func:`conv3x3_fused` is the JAX-named entry (one input, no ``x2``).
+:func:`conv3x3_autograd` is the differentiable op (the counterpart of the
+JAX custom VJP ``conv3x3``): the kernel forward, and a backward through
+cuDNN's data and weight gradients in the activation dtype, as the JAX
+package's custom VJPs (``conv3x3_kernel.py::conv3x3``, ``_packed_core_bwd``)
+leave their backward to stock XLA.  Unlike those it does not recompute the
 forward: the activation's slope comes from the kernel's own output (as the
 DCN's backward does), so the gradient follows the forward's decisions — a
 bf16 recompute rounds the conv before the bias and flips the sign of some
@@ -33,9 +41,11 @@ from realvsr_tpu_torch.ops.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FUNCS = tuple(
-    (f"conv3x3_{s}", (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P))
+    (f"conv3x3_{s}", (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _P))
     for s in _build.SUFFIX.values())
 _HALO, _COUT, _SMEM_MAX = (4 + 2) * (32 + 2), 64, 232448
+LRELU_SLOPE = 0.1  # the kernel's only LeakyReLU slope, the repo's only one
 
 
 def conv3x3_plain(x, weight, bias=None, act=None, residual=None, x2=None):
@@ -50,6 +60,12 @@ def conv3x3_plain(x, weight, bias=None, act=None, residual=None, x2=None):
     return y.contiguous()
 
 
+def _tile_cols(cout: int) -> int:
+    """Output columns of the kernel's channel tile: 64 (8 mma n-tiles) from
+    cout = 33 up, else the fewest of 8, 16 or 32 that cover cout."""
+    return 64 if cout > 32 else 32 if cout > 16 else 16 if cout > 8 else 8
+
+
 def conv3x3(x: torch.Tensor, weight: torch.Tensor,
             bias: torch.Tensor | None = None, act: str | None = None,
             residual: torch.Tensor | None = None,
@@ -58,10 +74,10 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor,
     ``x2`` when given), + bias, act None / "relu" / "lrelu", cast, +
     ``residual`` (added after the activation).
 
-    x: (B, H, W, c1); x2: (B, H, W, c2) or None; weight (64, c1 + c2, 3, 3);
-    bias (64,) or None; residual (B, H, W, 64) or None.  All contiguous, of
-    one dtype, bf16 or f32 (f32 runs the tensor cores in TF32); c1 and c2
-    multiples of 16.
+    x: (B, H, W, c1); x2: (B, H, W, c2) or None; weight (cout, c1 + c2, 3,
+    3), any cout >= 1; bias (cout,) or None; residual (B, H, W, cout) or
+    None.  All contiguous, of one dtype, bf16 or f32 (f32 runs the tensor
+    cores in TF32); c1 and c2 multiples of 16.
     """
     if x.device.type == "cpu":
         return conv3x3_plain(x, weight, bias, act, residual, x2)
@@ -78,39 +94,62 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor,
     if c1 % 16 or c2 % 16:
         raise ValueError(f"conv3x3: input channels {c1}+{c2} must be "
                          "multiples of 16")
-    pad = 16 // x.element_size()
-    if (_HALO + _COUT) * (c1 + c2 + pad) * x.element_size() > _SMEM_MAX:
+    cout = weight.shape[0]
+    if cout < 1:
+        raise ValueError("conv3x3: no output channels")
+    pad, tile = 16 // x.element_size(), _tile_cols(cout)
+    if (_HALO + tile) * (c1 + c2 + pad) * x.element_size() > _SMEM_MAX:
         raise ValueError(f"conv3x3: {c1 + c2} input channels exceed shared "
                          "memory")
     dt, dev = x.dtype, x.device
     _build.check_tensor(x, "x", (b, h, w, c1), dt, dev)
     if x2 is not None:
         _build.check_tensor(x2, "x2", (b, h, w, c2), dt, dev)
-    if weight.shape[0] != _COUT:
-        raise ValueError(f"conv3x3: the kernel writes {_COUT} output "
-                         f"channels, weight has {weight.shape[0]}")
-    _build.check_tensor(weight, "weight", (_COUT, c1 + c2, 3, 3), dt, dev)
+    _build.check_tensor(weight, "weight", (cout, c1 + c2, 3, 3), dt, dev)
     if bias is not None:
-        _build.check_tensor(bias, "bias", (_COUT,), dt, dev)
+        _build.check_tensor(bias, "bias", (cout,), dt, dev)
     if residual is not None:
-        _build.check_tensor(residual, "residual", (b, h, w, _COUT), dt, dev)
-    wk = weight.permute(0, 2, 3, 1).contiguous()  # (cout, tap, cin)
-    out = torch.empty(b, h, w, _COUT, device=dev, dtype=dt)
+        _build.check_tensor(residual, "residual", (b, h, w, cout), dt, dev)
+    # (cout, tap, cin), zero rows up to whole channel tiles
+    wk = weight.permute(0, 2, 3, 1)
+    if cout % tile:
+        wk = torch.cat([wk, wk.new_zeros(tile - cout % tile, 3, 3, c1 + c2)])
+    wk = wk.contiguous()
+    out = torch.empty(b, h, w, cout, device=dev, dtype=dt)
     lib = _build.load("conv3x3", _FUNCS)
     with torch.cuda.device(dev):
         code = getattr(lib, f"conv3x3_{_build.SUFFIX[dt]}")(
             x.data_ptr(), c1, None if x2 is None else x2.data_ptr(), c2,
             wk.data_ptr(), None if bias is None else bias.data_ptr(),
             None if residual is None else residual.data_ptr(), out.data_ptr(),
-            b, h, w, _build.ACTS[act],
+            b, h, w, cout, tile, _build.ACTS[act],
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "conv3x3")
-    conv3x3.launches += 1
+    if cout == _COUT:
+        conv3x3.launches += 1
+    else:
+        conv3x3_fused.launches += 1
     return out
 
 
 conv3x3.launches = 0
 
+
+def conv3x3_fused(x: torch.Tensor, weight: torch.Tensor,
+                  bias: torch.Tensor | None = None, act: str | None = None,
+                  residual: torch.Tensor | None = None, *,
+                  alpha: float = LRELU_SLOPE) -> torch.Tensor:
+    """The JAX ``conv3x3_fused``: :func:`conv3x3` of one NHWC input at any
+    output width (weight OIHW, as the port's modules hold it).  ``alpha`` is
+    the LeakyReLU slope; the kernel has only 0.1, the one slope the repo
+    uses, and any other raises."""
+    if alpha != LRELU_SLOPE:
+        raise ValueError(f"conv3x3_fused: lrelu slope {alpha}; the kernel "
+                         f"has {LRELU_SLOPE} only")
+    return conv3x3(x, weight, bias, act, residual)
+
+
+conv3x3_fused.launches = 0
 
 
 def _grad_conv(x, weight, g_nchw):

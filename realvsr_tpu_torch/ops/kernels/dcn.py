@@ -90,6 +90,17 @@ def dcn_fwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     if x.device.type == "cpu":
         return dcn_fwd_plain(x, offset, mask, weight, bias, deformable_groups,
                              act, max_offset)
+    out = launch_fwd(x, offset, mask, weight, bias, deformable_groups, act,
+                     max_offset)
+    dcn_fwd.launches += 1
+    return out
+
+
+def launch_fwd(x, offset, mask, weight, bias, deformable_groups, act,
+               max_offset) -> torch.Tensor:
+    """Check the CUDA tensors and launch the forward kernel; the caller
+    counts the launch (:func:`dcn_fwd`, or the block API of
+    ``ops/deform_conv_block.py``, which counts its own)."""
     if act not in _build.ACTS:
         raise ValueError(f"dcn_fwd: unknown activation {act!r}")
     dg = deformable_groups
@@ -111,7 +122,6 @@ def dcn_fwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
             b, h, w, c, dg, _build.ACTS[act], *_clamp_args(max_offset),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "dcn_fwd")
-    dcn_fwd.launches += 1
     return out
 
 

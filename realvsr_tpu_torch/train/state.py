@@ -36,8 +36,8 @@ def build_optimizer(params, train_opt: dict):
     """(optimizer, scheduler) from a reference-format train config."""
     if int(train_opt.get("ft_tsa_only") or 0):
         raise NotImplementedError(
-            "ft_tsa_only freezes all but the TSA fusion, which is not ported "
-            "yet (ROADMAP, queue 1, item 3)")
+            "ft_tsa_only (training the TSA fusion alone) is not ported yet "
+            "(ROADMAP, queue 1, item 3)")
     lr = float(train_opt["lr_G"])
     betas = (float(train_opt.get("beta1") or 0.9),
              float(train_opt.get("beta2") or 0.99))

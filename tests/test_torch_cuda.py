@@ -16,7 +16,11 @@ import torch
 from realvsr_tpu_torch.ops.kernels.check import (conv3x3_plain_grads,
                                                  grad_tolerance, max_abs_err,
                                                  slope_mismatches, tolerance)
+from realvsr_tpu_torch.ops.deform_conv import modulated_deform_conv_plain
+from realvsr_tpu_torch.ops.deform_conv_block import (
+    modulated_deform_conv_block)
 from realvsr_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_autograd,
+                                                   conv3x3_fused,
                                                    conv3x3_plain)
 from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_bwd_plain,
                                                dcn_fwd, dcn_fwd_plain)
@@ -97,13 +101,81 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         conv3x3(x.transpose(1, 2).contiguous().transpose(1, 2), w)
     with pytest.raises(ValueError, match="dtype"):
         conv3x3(x.half(), w.half())
-    with pytest.raises(ValueError, match="output channels"):
-        conv3x3(x, torch.randn(32, 64, 3, 3, device=cuda))
+    with pytest.raises(ValueError, match="bias"):
+        conv3x3(x, torch.randn(32, 64, 3, 3, device=cuda),
+                torch.randn(64, device=cuda))
     with pytest.raises(ValueError, match="multiples of 16"):
         conv3x3(x[..., :40].contiguous(), w[:, :40].contiguous())
     with pytest.raises(ValueError, match="offset"):
         dcn_fwd(x, torch.zeros(1, 8, 32, 8, device=cuda),
                 torch.zeros(1, 8, 32, 72, device=cuda), w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,c2,cout,act,bias,residual", [
+    ((3, 64, 128, 64), 0, 3, None, True, False),     # TDAN reconstruction
+    ((3, 64, 128, 64), 0, 3, None, False, False),    # TDAN final_conv
+    ((3, 64, 128, 64), 0, 216, "lrelu", True, False),
+    ((1, 64, 128, 64), 0, 256, None, True, True),    # EDVR upconv2
+    ((2, 37, 45, 64), 64, 3, "relu", True, False),   # ragged, two inputs
+    ((2, 37, 45, 16), 0, 20, "lrelu", True, True),   # 4 n-tiles
+])
+def test_conv3x3_any_width_matches_plain(cuda, dtype, shape, c2, cout, act,
+                                         bias, residual):
+    b, h, w, c1 = shape
+    g = _gen(9)
+    x = torch.randn(b, h, w, c1, generator=g).to(cuda, dtype)
+    x2 = torch.randn(b, h, w, c2, generator=g).to(cuda, dtype) if c2 else None
+    wgt = ((torch.rand(cout, c1 + c2, 3, 3, generator=g) * 2 - 1)
+           / (9 * (c1 + c2)) ** 0.5).to(cuda, dtype)
+    bs = (torch.randn(cout, generator=g) * 0.1).to(cuda, dtype) \
+        if bias else None
+    res = torch.randn(b, h, w, cout, generator=g).to(cuda, dtype) \
+        if residual else None
+    n = (conv3x3.launches, conv3x3_fused.launches)
+    out = (conv3x3(x, wgt, bs, act, res, x2) if c2
+           else conv3x3_fused(x, wgt, bs, act, res))
+    torch.cuda.synchronize()
+    assert (conv3x3.launches, conv3x3_fused.launches) == (n[0], n[1] + 1)
+    ref = conv3x3_plain(x, wgt, bs, act, res, x2)
+    assert out.shape == ref.shape == (b, h, w, cout)
+    assert max_abs_err(out, ref) <= tolerance(ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv3x3_any_width_autograd_matches_plain_autograd(cuda, dtype):
+    """64 -> 3 without bias (TDAN's final_conv), as the 64-out autograd
+    test holds it."""
+    g = _gen(10)
+    x = torch.randn(2, 40, 72, 64, generator=g).to(cuda, dtype) \
+        .requires_grad_()
+    w = (torch.randn(3, 64, 3, 3, generator=g) / 24).to(cuda, dtype) \
+        .requires_grad_()
+    cot = torch.randn(2, 40, 72, 3, generator=g).to(cuda, dtype)
+    out = conv3x3_autograd(x, w)
+    ours = torch.autograd.grad(out, (x, w), cot)
+    ref = conv3x3_plain_grads(out, cot, [x, w], x, w)
+    for o, r in zip(ours, ref):
+        assert o.dtype == r.dtype and max_abs_err(o, r) <= grad_tolerance(r)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("max_offset,with_mask", [(4, True), (8, True),
+                                                  (2, False)])
+def test_block_api_matches_plain(cuda, dtype, max_offset, with_mask):
+    x, off, mask, wgt, bias = _dcn_inputs((2, 64, 128, 64), dtype, cuda,
+                                          seed=11)
+    m = mask if with_mask else None
+    n = (modulated_deform_conv_block.launches, dcn_fwd.launches)
+    out = modulated_deform_conv_block(x, off, m, wgt, bias,
+                                      deformable_groups=8,
+                                      max_offset=max_offset)
+    torch.cuda.synchronize()
+    assert (modulated_deform_conv_block.launches, dcn_fwd.launches) == \
+        (n[0] + 1, n[1])
+    ref = modulated_deform_conv_plain(x, off, m, wgt, bias, 1, 1, 1, 8,
+                                      max_offset)
+    assert max_abs_err(out, ref) <= tolerance(ref)
 
 
 def test_edvr_on_card_matches_cpu(cuda):
@@ -128,6 +200,40 @@ def test_edvr_on_card_matches_cpu(cuda):
         out = card(x.to(cuda)).cpu()
     assert (dcn_fwd.launches - n[0], conv3x3.launches - n[1]) == (4, 15)
     assert torch.isfinite(out).all()
+    assert np.abs((out - ref).numpy()).max() <= 2e-2
+
+
+@pytest.mark.parametrize("name,counts", [("TDAN", (4, 9, 2)),
+                                         ("EDVR", (4, 21, 3))])
+def test_tdan_and_edvr_x4_on_card_match_cpu(cuda, name, counts):
+    """Full width (nf 64, 8 groups), cut depth and size, f32: the card
+    (TF32 kernels) against the CPU; launches of dcn_fwd, the 64-out and
+    the other-width conv3x3."""
+    from realvsr_tpu_torch.models.edvr import EDVR
+    from realvsr_tpu_torch.models.tdan import TDAN
+
+    if name == "TDAN":
+        cls, cfg = TDAN, dict(nf=64, nframes=3, scale=1, nb_f=1, nb_b=1)
+    else:
+        cls, cfg = EDVR, dict(nf=64, nframes=5, front_RBs=1, back_RBs=1,
+                              w_TSA=True)
+    cfg.update(groups=8, dcn_max_offset=4)
+    cpu = cls(**cfg, device="cpu", generator=_gen(12)).eval()
+    g = _gen(13)
+    with torch.no_grad():
+        for pname, p in cpu.named_parameters():
+            if "conv_offset_mask" in pname:
+                p.copy_(torch.randn(p.shape, generator=g) * 0.3)
+    card = cls(**cfg, device=cuda).eval()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.rand(1, cfg["nframes"], 32, 64, 3, generator=g)
+    n = (dcn_fwd.launches, conv3x3.launches, conv3x3_fused.launches)
+    with torch.inference_mode():
+        ref = cpu(x)
+        out = card(x.to(cuda)).cpu()
+    assert (dcn_fwd.launches - n[0], conv3x3.launches - n[1],
+            conv3x3_fused.launches - n[2]) == counts
+    assert out.shape == ref.shape and torch.isfinite(out).all()
     assert np.abs((out - ref).numpy()).max() <= 2e-2
 
 

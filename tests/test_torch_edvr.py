@@ -97,26 +97,35 @@ def test_pyramid_and_fuse_modes_equal_full(models):
     assert l2.shape == (3, 16, 32, 16) and l3.shape == (3, 8, 16, 16)
 
 
-def test_define_g_builds_edvr_noup_and_names_unported_models():
-    opt = {"network_G": dict(which_model_G="EDVR_NoUp", nf=16, nc=3,
-                             nframes=3, groups=4, front_RBs=1, back_RBs=1,
-                             center=None, predeblur=False, HR_in=False,
-                             w_TSA=False)}
-    g = torch.Generator().manual_seed(3)
-    a = define_g(opt, device="cpu", generator=g)
+_NETS = {
+    "EDVR_NoUp": dict(nf=16, nc=3, nframes=3, groups=4, front_RBs=1,
+                      back_RBs=1, center=None, predeblur=False, HR_in=False,
+                      w_TSA=False),
+    "EDVR": dict(nf=16, nc=3, nframes=3, groups=4, front_RBs=1, back_RBs=1,
+                 center=None, predeblur=False, HR_in=False, w_TSA=True),
+    "TDAN": dict(nf=64, nc=3, nframes=3, nb_f=1, nb_b=1, groups=8),
+}
+
+
+@pytest.mark.parametrize("which", ["EDVR_NoUp", "EDVR", "TDAN", "TOF",
+                                   "FSTRN", "RCAN"])
+def test_define_g_builds_edvr_noup_and_names_unported_models(which):
+    """The ported generators build from their YAML keys, the same weights
+    from the same seed; the others raise, naming the ROADMAP item."""
+    opt = {"scale": 1, "network_G": dict(_NETS.get(which, {}),
+                                         which_model_G=which)}
+    if which not in _NETS:
+        with pytest.raises(NotImplementedError, match="ROADMAP, queue 1, "
+                                                      "item 5"):
+            define_g(opt, device="cpu")
+        return
+    a = define_g(opt, device="cpu", generator=torch.Generator().manual_seed(3))
     b = define_g(opt, device="cpu",
                  generator=torch.Generator().manual_seed(3))
-    assert isinstance(a, EDVRNoUp)
+    assert type(a).__name__ == which.replace("_", "")
     for (ka, va), (kb, vb) in zip(a.state_dict().items(),
                                   b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
-    for which in ("EDVR", "TDAN"):
-        opt["network_G"]["which_model_G"] = which
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            define_g(opt, device="cpu")
-    opt["network_G"].update(which_model_G="EDVR_NoUp", w_TSA=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        define_g(opt, device="cpu")
 
 
 def test_init_matches_jax_init_statistics():
