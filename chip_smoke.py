@@ -6,14 +6,16 @@
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build every kernel of the paths from ``realvsr_tpu_torch/csrc`` with
-   nvcc, in parallel, and print ``-Xptxas -v``;
+2. build every kernel from ``realvsr_tpu_torch/csrc`` with nvcc, in
+   parallel, print ``-Xptxas -v`` and one line per instantiation with its
+   registers and spills (a spill in ``conv3x3.cu`` fails the run);
 3. hold each kernel against its plain PyTorch version on the card at the
    paths' shapes, in bf16 and f32, with the tolerances of
    ``realvsr_tpu_torch/ops/kernels/check.py``: the DCN forward and the
    64-out conv3x3 at the inference shapes; the conv3x3 at other widths
    (64->3 with and without bias, 64->216 lrelu, 64->256 with a residual at
-   EDVR's upconv2 shape, 128 (64+64) -> 3 through two inputs); the block DCN
+   EDVR's upconv2 shape, 128 (64+64) -> 3 through two inputs), and one
+   shape that routes to the ``mma.sync`` kernel (16+16 -> 64); the block DCN
    API at the L1 shape clamped to ±4 and ±8; the DCN backward at one
    training sample (3, 192, 192, 64) clamped to ±8 and exact, with offsets
    of a few pixels (taps outside the image) and with zero offsets, each of
@@ -49,8 +51,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    against the CPU in f32;
 6. times: each kernel, its plain version and the one PyTorch call that
    computes the same function (where there is one) with CUDA events at the
-   paths' shapes, and each inference path's forward ms, frames/s and peak
-   memory.
+   paths' shapes (every conv3x3 case in bf16 and in f32; the f32 yardstick
+   is cuDNN with TF32 allowed, as the kernel runs), and each inference
+   path's forward ms, frames/s and peak memory.
 
 Prints one JSON line per check and timing, then the card line, the
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -92,6 +95,24 @@ def train_r() -> float:
     from realvsr_tpu_torch.tools.train import DCN_MAX_OFFSET
 
     return DCN_MAX_OFFSET
+
+
+def ptxas_lines(log: str) -> list:
+    """(kernel, registers, spill stores, spill loads) per instantiation in
+    an ``nvcc -Xptxas -v`` log."""
+    rows, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line and name:
+            parts = line.split()
+            spills = (int(parts[parts.index("spill") - 2]),
+                      int(parts[parts.index("loads") - 3]))
+        elif "Used" in line and "registers" in line and name:
+            regs = int(line.split("Used")[1].split()[0])
+            rows.append((name, regs, *spills))
+            name = None
+    return rows
 
 
 def smi() -> str:
@@ -168,17 +189,23 @@ def dcn_inputs(shape, dtype, seed):
 
 
 def conv_inputs(shape, c2, residual, dtype, seed, cout=64, bias=True):
+    """Seeded on the card (drawn in f32, then cast): a CPU draw of these
+    sizes takes seconds."""
     import torch
 
     b, h, w, c1 = shape
-    g = torch.Generator().manual_seed(seed)
-    x = torch.randn(b, h, w, c1, generator=g)
-    x2 = torch.randn(b, h, w, c2, generator=g) if c2 else None
-    wgt = (torch.rand(cout, c1 + c2, 3, 3, generator=g) * 2 - 1) \
-        / (9 * (c1 + c2)) ** 0.5
-    bs = torch.randn(cout, generator=g) * 0.1
-    res = torch.randn(b, h, w, cout, generator=g) if residual else None
-    return [None if t is None else t.to("cuda", dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*size):
+        return torch.randn(*size, generator=g, device="cuda")
+
+    x = randn(b, h, w, c1)
+    x2 = randn(b, h, w, c2) if c2 else None
+    wgt = (torch.rand(cout, c1 + c2, 3, 3, generator=g, device="cuda") * 2
+           - 1) / (9 * (c1 + c2)) ** 0.5
+    bs = randn(cout) * 0.1
+    res = randn(b, h, w, cout) if residual else None
+    return [None if t is None else t.to(dtype)
             for t in (x, x2, wgt, bs if bias else None, res)]
 
 
@@ -253,6 +280,15 @@ def check_kernels():
                  shape=shape, cout=cout, act=act, bias=bias,
                  residual=residual)
             del out, ref, x, x2, res
+        # input widths that are not whole 128-byte chunks: the mma.sync
+        # kernel (csrc/conv3x3_sync.cu), ragged tiles
+        x, x2, wgt, bias, res = conv_inputs((2, 37, 45, 16), 16, True, dtype,
+                                            4)
+        out = conv3x3(x, wgt, bias, "relu", res, x2)
+        torch.cuda.synchronize()
+        ref = conv3x3_plain(x, wgt, bias, "relu", res, x2)
+        hold(("conv3x3_sync", dtype), out, ref, case="16+16->64 relu +res",
+             shape=(2, 37, 45, 16), route="mma.sync")
         for r in (4, 8):
             x, off, mask, wgt, bias = dcn_inputs(DCN_CASES[0][1], dtype, 1)
             out = modulated_deform_conv_block(x, off, mask, wgt, bias,
@@ -409,14 +445,17 @@ def read_window(lq_root: str, n: int):
 
 
 # Per window of each inference path, from the models' routing: 64-out
-# conv3x3 = ResBlock convs + PCD offset convs (10) + HRconv, with TDAN's
+# conv3x3 = ResBlock convs + PCD offset convs (10) + HRconv, with EDVR's
+# fea_L2_conv2, fea_L3_conv2, L2_fea_conv and L1_fea_conv (4), TDAN's
 # bottle_neck and 4 offset convs and TSA's 6 3x3 convs; conv3x3 at other
-# widths = TDAN's reconstruction and final_conv, EDVR's upconv1, upconv2
-# and conv_last.
+# widths = the 4 DCNs' conv_offset_mask (64->216) and conv_last, with
+# TDAN's reconstruction and final_conv and EDVR's upconv1 and upconv2.
 EXPECT = {
-    "edvr_noup": {"dcn_fwd": 4, "conv3x3": 41, "conv3x3_fused": 0},
-    "tdan": {"dcn_fwd": 4, "conv3x3": 10 + 1 + 4 + 20, "conv3x3_fused": 2},
-    "edvr_x4": {"dcn_fwd": 4, "conv3x3": 41 + 6, "conv3x3_fused": 3},
+    "edvr_noup": {"dcn_fwd": 4, "conv3x3": 41 + 4, "conv3x3_fused": 4 + 1},
+    "tdan": {"dcn_fwd": 4, "conv3x3": 10 + 1 + 4 + 20,
+             "conv3x3_fused": 4 + 2},
+    "edvr_x4": {"dcn_fwd": 4, "conv3x3": 41 + 4 + 6,
+                "conv3x3_fused": 4 + 3},
 }
 
 
@@ -582,8 +621,8 @@ def training_slice(tmp, profile=False):
     from realvsr_tpu_torch.train.trainer import Trainer
 
     kernels = counters()
-    per_step = {"dcn_fwd": 4, "dcn_bwd": 4, "conv3x3": 41,
-                "conv3x3_fused": 0, "dcn_block": 0}
+    per_step = {"dcn_fwd": 4, "dcn_bwd": 4, **EXPECT["edvr_noup"],
+                "dcn_block": 0}
     results, r = {}, train_r()
     # PyTorch's defaults, as the recipe runs: cuDNN convs in TF32, like the
     # kernels; the checks around this phase run cuDNN in full f32
@@ -826,33 +865,39 @@ def time_kernels():
     timed = [(name, shape, c2, 64, act, True, residual)
              for name, shape, c2, act, residual in CONV_CASES]
     timed += WIDE_CASES
-    for name, shape, c2, cout, act, has_bias, residual in timed:
-        x, x2, wgt, bias, res = conv_inputs(shape, c2, residual, bf, 2, cout,
-                                            has_bias)
-        out = conv3x3(x, wgt, bias, act, res, x2)
-        p = x.shape[0] * x.shape[1] * x.shape[2]
-        b_ms, b_by = bound(nbytes(x, x2, wgt, bias, res, out),
-                           2 * p * 9 * (x.shape[3] + (c2 or 0)) * cout, 0,
-                           "bfloat16")
-        xcat = x if x2 is None else torch.cat([x, x2], -1)
-        x_nchw = xcat.permute(0, 3, 1, 2)  # channels_last memory, NCHW view
-        w_cl = wgt.contiguous(memory_format=torch.channels_last)
-        res_nchw = None if res is None else res.permute(0, 3, 1, 2)
+    for dtype in (bf, torch.float32):
+        dname = str(dtype)[6:]
+        for name, shape, c2, cout, act, has_bias, residual in timed:
+            x, x2, wgt, bias, res = conv_inputs(shape, c2, residual, dtype, 2,
+                                                cout, has_bias)
+            out = conv3x3(x, wgt, bias, act, res, x2)
+            p = x.shape[0] * x.shape[1] * x.shape[2]
+            b_ms, b_by = bound(nbytes(x, x2, wgt, bias, res, out),
+                               2 * p * 9 * (x.shape[3] + (c2 or 0)) * cout, 0,
+                               dname)
+            xcat = x if x2 is None else torch.cat([x, x2], -1)
+            x_nchw = xcat.permute(0, 3, 1, 2)  # channels_last, NCHW view
+            w_cl = wgt.contiguous(memory_format=torch.channels_last)
+            res_nchw = None if res is None else res.permute(0, 3, 1, 2)
 
-        def library():  # cuDNN conv + separate bias / act / residual
-            y = apply_act(F.conv2d(x_nchw, w_cl, bias, padding=1), act)
-            return y if res_nchw is None else y + res_nchw
+            def library():  # cuDNN conv + separate bias / act / residual
+                y = apply_act(F.conv2d(x_nchw, w_cl, bias, padding=1), act)
+                return y if res_nchw is None else y + res_nchw
 
-        row = dict(
-            ms=cuda_ms(lambda: conv3x3(x, wgt, bias, act, res, x2), 20),
-            plain_ms=cuda_ms(lambda: conv3x3_plain(x, wgt, bias, act, res, x2),
-                             5),
-            bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(library, 20))
-        kernel = "conv3x3" if cout == 64 else "conv3x3_fused"
-        emit(timing=kernel, case=name, shape=shape, cout=cout,
-             dtype="bfloat16", **row)
-        rows[(kernel, name)] = row
-        del x, x2, res, out
+            # the f32 yardstick runs cuDNN in TF32, as the kernel runs
+            torch.backends.cudnn.allow_tf32 = dtype == torch.float32
+            library_ms = cuda_ms(library, 20)
+            torch.backends.cudnn.allow_tf32 = False
+            row = dict(
+                ms=cuda_ms(lambda: conv3x3(x, wgt, bias, act, res, x2), 20),
+                plain_ms=cuda_ms(
+                    lambda: conv3x3_plain(x, wgt, bias, act, res, x2), 5),
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+            kernel = "conv3x3" if cout == 64 else "conv3x3_fused"
+            emit(timing=kernel, case=name, shape=shape, cout=cout,
+                 dtype=dname, **row)
+            rows[(kernel, name, dname)] = row
+            del x, x2, res, out
     return rows
 
 
@@ -910,10 +955,16 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.time()
-    logs = _build.build(["dcn_fwd", "conv3x3", "dcn_bwd"])
+    logs = _build.build(["dcn_fwd", "conv3x3", "conv3x3_sync", "dcn_bwd"])
     for src, log in logs.items():
         print(f"--- nvcc -Xptxas -v: {src}.cu\n{log.strip()}")
     emit(phase="build", seconds=time.time() - t0, built=sorted(logs))
+    for src, log in logs.items():
+        for kernel, regs, stores, loads in ptxas_lines(log):
+            emit(ptxas=src, kernel=kernel, registers=regs,
+                 spill_stores=stores, spill_loads=loads)
+            if src == "conv3x3" and (stores or loads):
+                raise AssertionError(f"{kernel} spills")
 
     profiling = "--profile" in sys.argv[1:]
     errs = check_kernels()
@@ -953,14 +1004,14 @@ def main() -> int:
              launches=by_path["conv3x3"]["training_float32"],
              launches_by_path=by_path["conv3x3"],
              max_abs_err=errs[("conv3x3", "front 64->64 relu", bf)],
-             **rows[("conv3x3", "front 64->64 relu")]),
+             **rows[("conv3x3", "front 64->64 relu", "bfloat16")]),
         dict(name="conv3x3_fused", route="cuda",
              source="realvsr_tpu_torch/csrc/conv3x3.cu",
              replaces="realvsr_tpu/ops/pallas/conv3x3_kernel.py:125",
              launches=by_path["conv3x3_fused"]["tdan"],
              launches_by_path=by_path["conv3x3_fused"],
              max_abs_err=errs[("conv3x3_fused", UPCONV2, bf)],
-             **rows[("conv3x3_fused", UPCONV2)]),
+             **rows[("conv3x3_fused", UPCONV2, "bfloat16")]),
         dict(name="dcn_bwd", route="cuda",
              source="realvsr_tpu_torch/csrc/dcn_bwd.cu",
              replaces="realvsr_tpu/ops/pallas/dcn_frame_kernel.py:501",

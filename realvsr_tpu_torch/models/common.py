@@ -153,10 +153,10 @@ class DCNPack(nn.Module):
     """ModulatedDeformConvPack (dcn/deform_conv.py:257-292) in the PCD-align
     mode: offsets and masks are predicted from a separate feature tensor.
 
-    ``conv_offset_mask`` (zero-initialised) gives 3*dg*9 channels split into
-    o1, o2, mask; offset = concat(o1, o2) in the (dg, tap, (dy, dx)) layout,
-    mask through the sigmoid.  ``max_offset`` clamps the offsets (None:
-    exact).
+    ``conv_offset_mask`` (zero-initialised, on the conv3x3 kernel) gives
+    3*dg*9 channels split into o1, o2, mask; offset = concat(o1, o2) in the
+    (dg, tap, (dy, dx)) layout, mask through the sigmoid.  ``max_offset``
+    clamps the offsets (None: exact).
     """
 
     def __init__(self, cin: int, cout: int, deformable_groups: int = 8,
@@ -165,7 +165,7 @@ class DCNPack(nn.Module):
         self.deformable_groups = deformable_groups
         self.max_offset = max_offset
         self.conv_offset_mask = Conv2d(cin, deformable_groups * 27, 3,
-                                       init="zeros")
+                                       kernel=True, init="zeros")
         self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3))
         self.bias = nn.Parameter(torch.empty(cout))
 

@@ -12,8 +12,14 @@ dicts load unchanged.
 On a CUDA tensor the 41 3x3 convs of the flagship that the JAX package runs
 through its Pallas conv kernel (10 front-chain, 10 PCD offset, 20
 recon-trunk convs and ``HRconv``) run the hand-written conv3x3 kernel, and
-the 4 DCNs (L3, L2, L1, cascade) the DCN kernel; the flagship's other convs
-go to ``F.conv2d`` as the JAX package leaves them to XLA.  The rest of the
+the 4 DCNs (L3, L2, L1, cascade) the DCN kernel.  So do its other 3x3 /
+stride 1 convs, where the kernel is faster than cuDNN (``PERF.md``): the
+pyramid's ``fea_L2_conv2`` / ``fea_L3_conv2``, PCD's ``L2_fea_conv`` /
+``L1_fea_conv`` (their concat as two input pointers), the DCNs'
+``conv_offset_mask`` (64 -> 216) and ``conv_last`` (64 -> 3): 45 convs at
+64 outputs and 5 at other widths per window.  ``conv_first`` (3 inputs) and
+the stride-2 convs go to ``F.conv2d``, as the JAX package leaves them to
+XLA.  The rest of the
 family adds, on the kernel: TSA's 3x3 convs (``tAtt_1``, ``tAtt_2``,
 ``sAtt_L2`` with its concat as two input pointers, ``sAtt_L3``, ``sAtt_3``,
 ``sAtt_5``), the pre-deblur ResBlocks, and EDVR's ``upconv1`` / ``upconv2``
@@ -51,12 +57,12 @@ class PCDAlign(nn.Module):
         self.L2_offset_conv2 = off(2 * nf)
         self.L2_offset_conv3 = off(nf)
         self.L2_dcnpack = dcn()
-        self.L2_fea_conv = Conv2d(2 * nf, nf, act="lrelu")
+        self.L2_fea_conv = Conv2d(2 * nf, nf, act="lrelu", kernel=True)
         self.L1_offset_conv1 = off(2 * nf)
         self.L1_offset_conv2 = off(2 * nf)
         self.L1_offset_conv3 = off(nf)
         self.L1_dcnpack = dcn()
-        self.L1_fea_conv = Conv2d(2 * nf, nf)
+        self.L1_fea_conv = Conv2d(2 * nf, nf, kernel=True)
         self.cas_offset_conv1 = off(2 * nf)
         self.cas_offset_conv2 = off(nf)
         self.cas_dcnpack = dcn()
@@ -216,9 +222,9 @@ class _EDVRBase(nn.Module):
             self.conv_first = Conv2d(nc, nf, act="lrelu")
         self.feature_extraction = Blocks(nf, front_RBs)
         self.fea_L2_conv1 = Conv2d(nf, nf, 3, 2, act="lrelu")
-        self.fea_L2_conv2 = Conv2d(nf, nf, act="lrelu")
+        self.fea_L2_conv2 = Conv2d(nf, nf, act="lrelu", kernel=True)
         self.fea_L3_conv1 = Conv2d(nf, nf, 3, 2, act="lrelu")
-        self.fea_L3_conv2 = Conv2d(nf, nf, act="lrelu")
+        self.fea_L3_conv2 = Conv2d(nf, nf, act="lrelu", kernel=True)
         self.pcd_align = PCDAlign(nf, groups, dcn_max_offset)
         self.tsa_fusion = (TSAFusion(nf, nframes, self.center_idx) if w_TSA
                            else FrameSumConv1x1(nframes, nf))
@@ -305,7 +311,7 @@ class EDVRNoUp(_EDVRBase):
         super().__init__(nf, nc, nframes, groups, front_RBs, back_RBs, center,
                          predeblur, HR_in, w_TSA, dcn_max_offset, dtype=dtype)
         self.HRconv = Conv2d(nf, 64, act="lrelu", kernel=True)
-        self.conv_last = Conv2d(64, nc)
+        self.conv_last = Conv2d(64, nc, kernel=True)
         self._init(device, generator)
 
     def head(self, fea, x_center):

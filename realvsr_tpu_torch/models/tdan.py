@@ -11,11 +11,11 @@ output load unchanged.
 On a CUDA tensor the 64-out 3x3 convs (the ResBlocks of both halves,
 ``bottle_neck`` with the reference and neighbour features as the kernel's
 two input pointers, the four offset convs) and the other-width ones
-(``reconstruction`` and ``final_conv``, 64 -> 3) run the hand-written
-conv3x3 kernel, and the 4 DCNs the DCN kernel, clamped to ±``dcn_max_offset``
-as EDVR's are.  ``initial_conv`` (3 input channels), ``feature_extractor``
-(3 frames x 3) and the DCNs' ``conv_offset_mask`` (64 -> 216) go to
-``F.conv2d``, as in EDVR.
+(``reconstruction`` and ``final_conv``, 64 -> 3, and the DCNs'
+``conv_offset_mask``, 64 -> 216) run the hand-written conv3x3 kernel, and
+the 4 DCNs the DCN kernel, clamped to ±``dcn_max_offset`` as EDVR's are.
+``initial_conv`` (3 input channels) and ``feature_extractor`` (3 frames x
+3) go to ``F.conv2d``, as in EDVR.
 """
 from __future__ import annotations
 

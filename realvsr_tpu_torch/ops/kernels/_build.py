@@ -1,11 +1,12 @@
 """Build the hand-written CUDA kernels of ``realvsr_tpu_torch/csrc`` and load
 them with ctypes.
 
-Each ``csrc/<name>.cu`` (plus the shared ``common.cuh``) is compiled by
-``nvcc`` for Hopper (``sm_90a``) into its own shared library with a plain C
-interface, at first use, into ``realvsr_tpu_torch/build/`` (listed in
-``.gitignore``).  The library's file name carries a hash of its sources and
-flags, so an edited source is rebuilt and a stale library is never loaded.
+Each ``csrc/<name>.cu`` (plus the shared headers ``csrc/*.cuh``) is
+compiled by ``nvcc`` for Hopper (``sm_90a``) into its own shared library
+with a plain C interface, at first use, into ``realvsr_tpu_torch/build/``
+(listed in ``.gitignore``).  The library's file name carries a hash of its
+sources and flags, so an edited source is rebuilt and a stale library is
+never loaded.
 :func:`build` compiles several sources at once, one ``nvcc`` process each,
 all started together.  A failed build raises.
 
@@ -31,8 +32,11 @@ BUILD_DIR = PKG / "build"
 # the C entry points' element-type suffixes and activation codes (common.cuh)
 SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 ACTS = {None: 0, "relu": 1, "lrelu": 2}
+# --split-compile=0: optimise a source's kernels on all cores at once
+# (halves the build of conv3x3.cu's 16 instantiations)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 
 def _nvcc() -> str:
@@ -49,7 +53,7 @@ def _nvcc() -> str:
 def lib_path(name: str) -> Path:
     """Library path for ``csrc/<name>.cu`` at the current sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -85,14 +89,17 @@ def build(names) -> dict[str, str]:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str, functions: tuple) -> ctypes.CDLL:
+def load(name: str, functions: tuple) -> ctypes.PyDLL:
     """Build (if needed) and load ``csrc/<name>.cu``.
 
     ``functions``: ``((symbol, (argtype, ...)), ...)``; each gets its
     ``argtypes`` and an ``int`` restype (the ``cudaError_t`` it returns).
+    The entry points are called without releasing the GIL (``PyDLL``): each
+    only checks, encodes and enqueues for microseconds, and handing the GIL
+    back and forth would make the caller wait on the data loader's threads.
     """
     build([name])
-    lib = ctypes.CDLL(str(lib_path(name)))
+    lib = ctypes.PyDLL(str(lib_path(name)))
     for symbol, argtypes in functions:
         fn = getattr(lib, symbol)
         fn.argtypes = list(argtypes)

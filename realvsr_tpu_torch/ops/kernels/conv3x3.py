@@ -5,16 +5,27 @@ Replaces ``realvsr_tpu/ops/pallas/conv3x3_kernel.py::_packed_pallas``
 (public ``conv3x3_packed``; its ``splits`` take PCD's concat inputs, here
 the second input pointer ``x2`` does) and ``conv3x3_kernel.py::
 conv3x3_fused`` (the same function at any output width, with the custom VJP
-``conv3x3``).  Both run one CUDA kernel.  Bound on the H100: the 64->64
-convs at (3, 512, 1024) sit near the ridge (116 GFLOP, 0.4-0.6 GB); 128->64
-is compute-bound (232 GFLOP).  The kernel is an implicit GEMM on the tensor
-cores (``mma.sync``) from an input halo held in shared memory, so the input
-is read ~1.6x rather than 9x and the epilogue (bias, activation, cast,
-residual) never leaves registers; it walks the output channels in tiles of
-up to 64 inside the block; see the source for the design.  No pair packing:
-the TPU's 128-lane layout is not carried over.
+``conv3x3``).  Both run one CUDA kernel: persistent blocks, ``wgmma`` on
+the whole output width (N = cout padded to one of :data:`WIDTHS`), the
+weight resident in shared memory or streamed tap by tap, the input halo
+loaded by TMA in a ring of stages, and the epilogue (bias, activation,
+cast, residual) in registers with 16-byte stores; see the source for the
+design.  No pair packing: the TPU's 128-lane layout is not carried over.
 
-:func:`conv3x3` launches the kernel for a CUDA tensor; a launch with 64
+The weight goes to the kernel as the image of its shared memory, which a
+small kernel of the same source lays out before each launch
+(:func:`pack_weight_cuda`; :func:`pack_weight` is its plain version): per
+128-byte chunk of input channels (64 bf16 or 32 f32) and tap, N rows of
+that chunk, with the 128-byte swizzle of the ``wgmma`` descriptors, in
+TF32 for f32 (:func:`round_tf32`).  :func:`conv3x3_from_packed` computes
+the conv from that image tap by tap in the kernel's order; the CPU tests
+hold it against the plain conv and the JAX kernel.
+
+Inputs whose widths are not whole chunks (c1 or c2 of 16 or 48), and cout
+above 256, run the ``mma.sync`` kernel of ``csrc/conv3x3_sync.cu`` instead,
+chosen here by shape (:func:`uses_wgmma`); no conv of the model paths does.
+
+:func:`conv3x3` launches a kernel for a CUDA tensor; a launch with 64
 output channels counts in ``conv3x3.launches``, one with any other width in
 ``conv3x3_fused.launches``, so the two rows of the TPU table keep their own
 counts.  For a CPU tensor it runs :func:`conv3x3_plain`.
@@ -36,16 +47,21 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from realvsr_tpu_torch.csrc.gen_wgmma import WIDTHS
 from realvsr_tpu_torch.ops.deform_conv import act_grad, apply_act
 from realvsr_tpu_torch.ops.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_FUNCS = tuple(
-    (f"conv3x3_{s}", (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                      _P))
-    for s in _build.SUFFIX.values())
-_HALO, _COUT, _SMEM_MAX = (4 + 2) * (32 + 2), 64, 232448
+_ARGS = (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+_FUNCS = tuple((f"conv3x3_{s}", _ARGS[:5] + (_P,) + _ARGS[5:])
+               for s in _build.SUFFIX.values()) \
+    + tuple((f"conv3x3_pack_{s}", (_P, _P, _I, _I, _I, _P))
+            for s in _build.SUFFIX.values())
+_SYNC_FUNCS = tuple((f"conv3x3_sync_{s}", _ARGS)
+                    for s in _build.SUFFIX.values())
+_HALO, _COUT, _SMEM_MAX = (4 + 2) * (32 + 2), 64, 232448  # mma.sync kernel
 LRELU_SLOPE = 0.1  # the kernel's only LeakyReLU slope, the repo's only one
+LINE = 128         # bytes of one channel chunk: a row of the swizzle
 
 
 def conv3x3_plain(x, weight, bias=None, act=None, residual=None, x2=None):
@@ -60,9 +76,109 @@ def conv3x3_plain(x, weight, bias=None, act=None, residual=None, x2=None):
     return y.contiguous()
 
 
+def chunk(dtype: torch.dtype) -> int:
+    """Input channels in one 128-byte chunk: 64 bf16, 32 f32."""
+    return LINE // dtype.itemsize
+
+
+def kernel_width(cout: int) -> int:
+    """N of the kernel's ``wgmma``: the smallest of :data:`WIDTHS` that
+    holds cout."""
+    for n in WIDTHS:
+        if n >= cout:
+            return n
+    raise ValueError(f"conv3x3: no wgmma width for {cout} outputs")
+
+
+def uses_wgmma(c1: int, c2: int, cout: int, dtype: torch.dtype) -> bool:
+    """Whether the wgmma kernel takes these widths (else the mma.sync one):
+    whole 128-byte input chunks and at most 256 outputs."""
+    ch = chunk(dtype)
+    return c1 % ch == 0 and c2 % ch == 0 and cout <= WIDTHS[-1]
+
+
+def _swizzle(t: torch.Tensor) -> torch.Tensor:
+    """The 128-byte swizzle on (..., rows, 8 units of 16 bytes, e): unit j
+    of row r moves to unit j ^ (r % 8).  Its own inverse."""
+    r = torch.arange(8).view(8, 1)
+    lead = t.shape[:-3]
+    t = t.reshape(*lead, t.shape[-3] // 8, 8, 8, t.shape[-1])
+    return t[..., r, r ^ torch.arange(8), :].reshape(*lead, -1, 8,
+                                                     t.shape[-1])
+
+
+def pack_weight(weight: torch.Tensor, n: int, ch: int) -> torch.Tensor:
+    """The kernel's shared-memory image of an OIHW weight (cout, cin, 3, 3):
+    (cin / ch, 9, n, ch) — chunk of ``ch`` input channels, tap (dy * 3 +
+    dx), output row (zeros from cout to n), channel — with each 8-row group
+    of 128-byte rows swizzled (:func:`_swizzle`), flattened.  Any dtype
+    (the tests pack indices with it)."""
+    cout, cin = weight.shape[:2]
+    w = weight.permute(2, 3, 0, 1).reshape(9, cout, cin // ch, ch)
+    w = torch.cat([w, w.new_zeros(9, n - cout, cin // ch, ch)], 1)
+    w = w.permute(2, 0, 1, 3).reshape(cin // ch, 9, n, 8, ch // 8)
+    return _swizzle(w).reshape(-1)
+
+
+def unpack_weight(packed: torch.Tensor, cout: int, cin: int, n: int,
+                  ch: int) -> torch.Tensor:
+    """(cin / ch, 9, cout, ch) from :func:`pack_weight`'s image."""
+    w = _swizzle(packed.reshape(cin // ch, 9, n, 8, ch // 8))
+    return w.reshape(cin // ch, 9, n, ch)[:, :, :cout]
+
+
+def conv3x3_from_packed(x, packed, cout, bias=None, act=None, residual=None,
+                        x2=None, ch=None):
+    """:func:`conv3x3_plain` from the packed weight (packed with ``ch``
+    channels a chunk, by default the kernel's for x's dtype), in the
+    kernel's order: per input chunk, per tap, the shifted input times that
+    tap's weight, summed in f32; then bias, act, cast, residual."""
+    xin = x if x2 is None else torch.cat([x, x2], dim=-1)
+    b, h, w, cin = xin.shape
+    ch = ch or chunk(x.dtype)
+    n = packed.numel() // (9 * cin)
+    wk = unpack_weight(packed, cout, cin, n, ch).float()
+    xp = F.pad(xin.float(), (0, 0, 1, 1, 1, 1))
+    y = xin.new_zeros(b, h, w, cout, dtype=torch.float32)
+    for c in range(cin // ch):
+        for tap in range(9):
+            dy, dx = divmod(tap, 3)
+            xs = xp[:, dy:dy + h, dx:dx + w, c * ch:(c + 1) * ch]
+            y = y + xs @ wk[c, tap].t()
+    if bias is not None:
+        y = y + bias.float()
+    y = apply_act(y, act).to(x.dtype)
+    if residual is not None:
+        y = y + residual
+    return y
+
+
+def round_tf32(t: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10-bit mantissa), to nearest with ties away from
+    0, as ``cvt.rna.tf32.f32`` rounds the kernel's other operand."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pack_weight_cuda(weight: torch.Tensor, n: int) -> torch.Tensor:
+    """:func:`pack_weight` of a CUDA weight by the kernel's own packer,
+    with f32 rounded to TF32 (:func:`round_tf32`)."""
+    cout, cin = weight.shape[:2]
+    packed = torch.empty(cin * 9 * n, device=weight.device,
+                         dtype=weight.dtype)
+    lib = _build.load("conv3x3", _FUNCS)
+    with torch.cuda.device(weight.device):
+        code = getattr(lib, f"conv3x3_pack_{_build.SUFFIX[weight.dtype]}")(
+            weight.data_ptr(), packed.data_ptr(), cout, cin, n,
+            torch.cuda.current_stream(weight.device).cuda_stream)
+    _build.check(code, "conv3x3_pack")
+    return packed
+
+
 def _tile_cols(cout: int) -> int:
-    """Output columns of the kernel's channel tile: 64 (8 mma n-tiles) from
-    cout = 33 up, else the fewest of 8, 16 or 32 that cover cout."""
+    """Output columns of the mma.sync kernel's channel tile: 64 (8 mma
+    n-tiles) from cout = 33 up, else the fewest of 8, 16 or 32 that cover
+    cout."""
     return 64 if cout > 32 else 32 if cout > 16 else 16 if cout > 8 else 8
 
 
@@ -97,11 +213,13 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor,
     cout = weight.shape[0]
     if cout < 1:
         raise ValueError("conv3x3: no output channels")
-    pad, tile = 16 // x.element_size(), _tile_cols(cout)
-    if (_HALO + tile) * (c1 + c2 + pad) * x.element_size() > _SMEM_MAX:
-        raise ValueError(f"conv3x3: {c1 + c2} input channels exceed shared "
-                         "memory")
     dt, dev = x.dtype, x.device
+    wgmma = uses_wgmma(c1, c2, cout, dt)
+    if not wgmma:
+        pad, tile = 16 // x.element_size(), _tile_cols(cout)
+        if (_HALO + tile) * (c1 + c2 + pad) * x.element_size() > _SMEM_MAX:
+            raise ValueError(f"conv3x3: {c1 + c2} input channels exceed "
+                             "shared memory")
     _build.check_tensor(x, "x", (b, h, w, c1), dt, dev)
     if x2 is not None:
         _build.check_tensor(x2, "x2", (b, h, w, c2), dt, dev)
@@ -110,21 +228,27 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor,
         _build.check_tensor(bias, "bias", (cout,), dt, dev)
     if residual is not None:
         _build.check_tensor(residual, "residual", (b, h, w, cout), dt, dev)
-    # (cout, tap, cin), zero rows up to whole channel tiles
-    wk = weight.permute(0, 2, 3, 1)
-    if cout % tile:
-        wk = torch.cat([wk, wk.new_zeros(tile - cout % tile, 3, 3, c1 + c2)])
-    wk = wk.contiguous()
+    if wgmma:  # the weight and the scratch its packer lays it out in
+        n = kernel_width(cout)
+        wk = (weight, torch.empty((c1 + c2) * 9 * n, device=dev, dtype=dt))
+        lib, name = _build.load("conv3x3", _FUNCS), "conv3x3"
+    else:   # (cout, tap, cin), zero rows up to whole channel tiles
+        n = _tile_cols(cout)
+        wt = weight.permute(0, 2, 3, 1)
+        if cout % n:
+            wt = torch.cat([wt, wt.new_zeros(n - cout % n, 3, 3, c1 + c2)])
+        wk = (wt.contiguous(),)
+        lib, name = _build.load("conv3x3_sync", _SYNC_FUNCS), "conv3x3_sync"
     out = torch.empty(b, h, w, cout, device=dev, dtype=dt)
-    lib = _build.load("conv3x3", _FUNCS)
     with torch.cuda.device(dev):
-        code = getattr(lib, f"conv3x3_{_build.SUFFIX[dt]}")(
+        code = getattr(lib, f"{name}_{_build.SUFFIX[dt]}")(
             x.data_ptr(), c1, None if x2 is None else x2.data_ptr(), c2,
-            wk.data_ptr(), None if bias is None else bias.data_ptr(),
+            *(t.data_ptr() for t in wk),
+            None if bias is None else bias.data_ptr(),
             None if residual is None else residual.data_ptr(), out.data_ptr(),
-            b, h, w, cout, tile, _build.ACTS[act],
+            b, h, w, cout, n, _build.ACTS[act],
             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(code, "conv3x3")
+    _build.check(code, name)
     if cout == _COUT:
         conv3x3.launches += 1
     else:
@@ -152,13 +276,16 @@ def conv3x3_fused(x: torch.Tensor, weight: torch.Tensor,
 conv3x3_fused.launches = 0
 
 
-def _grad_conv(x, weight, g_nchw):
-    """(d input, d weight) of a 3x3 / s1 / p1 conv of NHWC ``x`` for the
-    NCHW cotangent ``g_nchw``, in the input dtype (cuDNN on the card)."""
-    xn = x.permute(0, 3, 1, 2)
-    dx = torch.nn.grad.conv2d_input(xn.shape, weight, g_nchw, padding=1)
-    dw = torch.nn.grad.conv2d_weight(xn, weight.shape, g_nchw, padding=1)
-    return dx.permute(0, 2, 3, 1), dw
+def _grad_conv(x, weight, g_nchw, bias):
+    """(d input, d weight, d bias or None) of a 3x3 / s1 / p1 conv of NHWC
+    ``x`` for the NCHW cotangent ``g_nchw``, in the input dtype: one
+    ``convolution_backward`` with the real weight, as ``F.conv2d``'s own
+    autograd calls it (cuDNN on the card)."""
+    dx, dw, db = torch.ops.aten.convolution_backward(
+        g_nchw, x.permute(0, 3, 1, 2), weight.contiguous(),
+        [weight.shape[0]] if bias else None, [1, 1], [1, 1], [1, 1], False,
+        [0, 0], 1, [True, True, bias])
+    return dx.permute(0, 2, 3, 1), dw, db
 
 
 class _Conv3x3(torch.autograd.Function):
@@ -177,13 +304,11 @@ class _Conv3x3(torch.autograd.Function):
         g_pre = act_grad(g, out, ctx.act)
         gn = g_pre.permute(0, 3, 1, 2)
         c1 = x.shape[-1]
-        dx, dweight = _grad_conv(x, weight[:, :c1], gn)
+        dx, dweight, dbias = _grad_conv(x, weight[:, :c1], gn, ctx.has_bias)
         dx2 = None
         if x2 is not None:
-            dx2, dw2 = _grad_conv(x2, weight[:, c1:], gn)
+            dx2, dw2, _ = _grad_conv(x2, weight[:, c1:], gn, False)
             dweight = torch.cat([dweight, dw2], dim=1)
-        dbias = (g_pre.float().sum((0, 1, 2)).to(g.dtype) if ctx.has_bias
-                 else None)
         return (dx, dweight, dbias, g if ctx.has_residual else None, dx2,
                 None)
 

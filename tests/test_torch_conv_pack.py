@@ -1,0 +1,152 @@
+"""The conv3x3 kernel's weight layout, on the CPU.
+
+The kernel (``realvsr_tpu_torch/csrc/conv3x3.cu``) reads the weight as the
+image of its shared memory that ``ops/kernels/conv3x3.py::pack_weight``
+makes; the kernel itself, its packer and its walk over the output tiles
+(ragged, across images) run only on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``).
+Here, with inputs from numpy seeds in f32:
+
+* ``conv3x3_from_packed`` (the conv from the packed weight, chunk by chunk
+  and tap by tap in the kernel's order) against ``conv3x3_plain`` and
+  against the JAX ``conv3x3_fused`` in interpret mode, at cout 3, 64, 216
+  and 256, one input of 64 and two of 64 + 64, ragged H x W; tolerance
+  5e-5: the same f32 products summed in another order;
+* the packed image element by element against the layout stated in the
+  kernel's source (the kernel's own packer is held to it on the card);
+* which kernel the wrapper chooses for which widths, the TF32 rounding of
+  the f32 weight, and that the written-out wgmma header is up to date.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from realvsr_tpu.ops.pallas.conv3x3_kernel import (
+    conv3x3_fused as jax_conv3x3_fused)
+from realvsr_tpu_torch.csrc import gen_wgmma
+from realvsr_tpu_torch.ops.kernels.conv3x3 import (
+    WIDTHS, chunk, conv3x3_from_packed, conv3x3_plain, kernel_width,
+    pack_weight, round_tf32, unpack_weight, uses_wgmma)
+
+TOL = 5e-5
+COUTS = [3, 64, 216, 256]
+
+
+def _inputs(seed, cout, b=2, h=5, w=7, c1=64, c2=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, h, w, c1)).astype(np.float32)
+    x2 = rng.normal(size=(b, h, w, c2)).astype(np.float32) if c2 else None
+    wgt = (rng.normal(size=(cout, c1 + c2, 3, 3))
+           / (9 * (c1 + c2)) ** 0.5).astype(np.float32)
+    bias = rng.normal(size=(cout,)).astype(np.float32)
+    res = rng.normal(size=(b, h, w, cout)).astype(np.float32)
+    t = [None if a is None else torch.from_numpy(a)
+         for a in (x, x2, wgt, bias, res)]
+    return t, (x, x2, wgt, bias, res)
+
+
+@pytest.mark.parametrize("ch", [64, 32], ids=["bf16_layout", "f32_layout"])
+@pytest.mark.parametrize("cout,c2,act,residual", [
+    (3, 0, None, False), (64, 0, "relu", True), (216, 0, "lrelu", False),
+    (256, 0, None, True), (64, 64, "lrelu", False), (3, 64, None, False)])
+def test_packed_conv_matches_plain(ch, cout, c2, act, residual):
+    (x, x2, wgt, bias, res), _ = _inputs(cout + c2, cout, c2=c2)
+    res = res if residual else None
+    packed = pack_weight(wgt, kernel_width(cout), ch)
+    out = conv3x3_from_packed(x, packed, cout, bias, act, res, x2, ch=ch)
+    ref = conv3x3_plain(x, wgt, bias, act, res, x2)
+    assert out.shape == ref.shape == (2, 5, 7, cout)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=TOL)
+
+
+@pytest.mark.parametrize("cout", COUTS)
+def test_packed_conv_matches_jax_interpret(cout):
+    """6 x 8: ragged against the kernel's 8 x 16 tile.  The JAX kernel
+    needs W % 8 == 0, and an odd H (its row block falls to 1) gives it
+    wrong rows, so H is even here; the odd 5 x 7 is held against
+    ``conv3x3_plain`` above."""
+    (x, _, wgt, bias, res), (xn, _, wn, bn, rn) = _inputs(cout + 1, cout,
+                                                          h=6, w=8)
+    ref = jax_conv3x3_fused(jnp.asarray(xn),
+                            jnp.asarray(wn.transpose(2, 3, 1, 0)),
+                            jnp.asarray(bn), act="lrelu",
+                            residual=jnp.asarray(rn), mrows=4,
+                            interpret=True)
+    packed = pack_weight(wgt, kernel_width(cout), chunk(torch.bfloat16))
+    out = conv3x3_from_packed(x, packed, cout, bias, "lrelu", res, ch=64)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL)
+
+
+def test_packed_conv_two_inputs_matches_jax_interpret():
+    """The concat input (PCD's 64 + 64 -> 64) against the JAX kernel on the
+    concatenated input."""
+    (x, x2, wgt, bias, _), (xn, x2n, wn, bn, _) = _inputs(5, 64, h=6, w=16,
+                                                          c2=64)
+    ref = jax_conv3x3_fused(jnp.asarray(np.concatenate([xn, x2n], -1)),
+                            jnp.asarray(wn.transpose(2, 3, 1, 0)),
+                            jnp.asarray(bn), act="lrelu", mrows=4,
+                            interpret=True)
+    packed = pack_weight(wgt, 64, chunk(torch.float32))
+    out = conv3x3_from_packed(x, packed, 64, bias, "lrelu", x2=x2)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL)
+
+
+@pytest.mark.parametrize("cout,cin,ch", [(3, 64, 64), (216, 128, 32),
+                                         (64, 128, 64)])
+def test_pack_layout_is_the_kernels(cout, cin, ch):
+    """Element (o, i, dy, dx) sits at ((chunk * 9 + tap) * n + o) * ch +
+    ((k // u) ^ (o % 8)) * u + k % u, with chunk, k = divmod(i, ch), tap =
+    3 dy + dx and u = ch / 8 elements in 16 bytes; rows o >= cout are 0."""
+    n = kernel_width(cout)
+    w = torch.arange(1, cout * cin * 9 + 1, dtype=torch.int64) \
+        .view(cout, cin, 3, 3)
+    packed = pack_weight(w, n, ch)
+    assert packed.numel() == cin // ch * 9 * n * ch
+    u = ch // 8
+    want = torch.zeros_like(packed)
+    o, i, dy, dx = np.meshgrid(np.arange(cout), np.arange(cin),
+                               np.arange(3), np.arange(3), indexing="ij")
+    c, k = np.divmod(i, ch)
+    at = ((c * 9 + 3 * dy + dx) * n + o) * ch + ((k // u) ^ (o % 8)) * u \
+        + k % u
+    want[torch.from_numpy(at.reshape(-1))] = w.reshape(-1)
+    assert torch.equal(packed, want)
+    back = unpack_weight(packed, cout, cin, n, ch)
+    assert torch.equal(back, w.permute(2, 3, 0, 1).reshape(
+        9, cout, cin // ch, ch).permute(2, 0, 1, 3))
+
+
+def test_routing_by_width():
+    """Every conv of the model paths takes the wgmma kernel; widths that
+    are not whole 128-byte chunks, or cout > 256, the mma.sync one."""
+    for dt in (torch.bfloat16, torch.float32):
+        for c1, c2, cout in ((64, 0, 64), (64, 64, 64), (64, 0, 3),
+                             (64, 0, 216), (64, 0, 256), (64, 64, 3)):
+            assert uses_wgmma(c1, c2, cout, dt)
+        assert not uses_wgmma(16, 16, 64, dt)
+        assert not uses_wgmma(48, 0, 64, dt)
+        assert not uses_wgmma(64, 0, 300, dt)
+    assert [kernel_width(c) for c in (1, 3, 8, 9, 20, 64, 65, 200, 216, 217,
+                                      256)] == [8, 8, 8, 16, 32, 64, 128,
+                                                216, 216, 256, 256]
+    with pytest.raises(ValueError):
+        kernel_width(257)
+
+
+def test_round_tf32():
+    """To nearest, ties away from 0, 10 mantissa bits kept."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=10000).astype(np.float32))
+    r = round_tf32(x)
+    assert not (r.view(torch.int32) & 0x1FFF).any()
+    assert ((r - x).abs() <= x.abs() * 2.0 ** -11).all()
+    one = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12])
+    assert round_tf32(one).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10),
+                                        1.0]
+
+
+def test_wgmma_header_is_up_to_date():
+    assert gen_wgmma.HEADER.read_text() == gen_wgmma.render()
+    assert WIDTHS == gen_wgmma.WIDTHS and WIDTHS[-1] == 256
+    assert all(n % 8 == 0 for n in WIDTHS)

@@ -19,9 +19,13 @@ from realvsr_tpu_torch.ops.kernels.check import (conv3x3_plain_grads,
 from realvsr_tpu_torch.ops.deform_conv import modulated_deform_conv_plain
 from realvsr_tpu_torch.ops.deform_conv_block import (
     modulated_deform_conv_block)
-from realvsr_tpu_torch.ops.kernels.conv3x3 import (conv3x3, conv3x3_autograd,
+from realvsr_tpu_torch.ops.kernels.conv3x3 import (chunk, conv3x3,
+                                                   conv3x3_autograd,
                                                    conv3x3_fused,
-                                                   conv3x3_plain)
+                                                   conv3x3_plain,
+                                                   kernel_width, pack_weight,
+                                                   pack_weight_cuda,
+                                                   round_tf32)
 from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_bwd_plain,
                                                dcn_fwd, dcn_fwd_plain)
 
@@ -74,7 +78,11 @@ def test_dcn_kernel_matches_plain(cuda, dtype, shape, act, max_offset):
     ((3, 128, 256, 64), 0, "relu", False),
     ((3, 128, 256, 64), 0, None, True),
     ((3, 128, 256, 64), 64, "lrelu", False),
-    ((2, 37, 45, 16), 16, "relu", True),  # ragged tiles, narrow inputs
+    ((3, 37, 45, 64), 0, "relu", True),    # tile walk across images
+    ((3, 37, 45, 64), 64, "lrelu", False),  # ... with the concat input
+    ((2, 96, 512, 64), 64, None, False),   # many tiles per block
+    ((2, 37, 45, 16), 16, "relu", True),  # narrow inputs: mma.sync kernel
+    ((1, 20, 24, 48), 0, None, True),     # 48 inputs: mma.sync kernel
 ])
 def test_conv3x3_kernel_matches_plain(cuda, dtype, shape, c2, act, residual):
     b, h, w, c1 = shape
@@ -92,6 +100,20 @@ def test_conv3x3_kernel_matches_plain(cuda, dtype, shape, c2, act, residual):
     assert conv3x3.launches == n + 1
     ref = conv3x3_plain(x, wgt, bias, act, res, x2)
     assert max_abs_err(out, ref) <= tolerance(ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cout,cin", [(3, 64), (64, 128), (216, 64),
+                                      (256, 128)])
+def test_conv3x3_weight_packer_matches_plain(cuda, dtype, cout, cin):
+    """The kernel's packer lays the weight out exactly as pack_weight,
+    rounded to TF32 for f32."""
+    w = torch.randn(cout, cin, 3, 3, generator=_gen(14)).to(cuda, dtype)
+    n = kernel_width(cout)
+    ref = pack_weight(w, n, chunk(dtype))
+    if dtype == torch.float32:
+        ref = round_tf32(ref)
+    assert torch.equal(pack_weight_cuda(w, n), ref)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -118,7 +140,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     ((3, 64, 128, 64), 0, 216, "lrelu", True, False),
     ((1, 64, 128, 64), 0, 256, None, True, True),    # EDVR upconv2
     ((2, 37, 45, 64), 64, 3, "relu", True, False),   # ragged, two inputs
-    ((2, 37, 45, 16), 0, 20, "lrelu", True, True),   # 4 n-tiles
+    ((3, 37, 45, 64), 0, 216, "lrelu", True, False),  # streamed weights
+    ((3, 37, 45, 64), 0, 256, None, True, True),     # across images
+    ((2, 37, 45, 64), 64, 256, "lrelu", True, False),  # 2 chunks streamed
+    ((2, 40, 48, 64), 0, 20, "relu", True, True),    # N = 32, ragged cout
+    ((2, 37, 45, 16), 0, 20, "lrelu", True, True),   # mma.sync: 4 n-tiles
+    ((1, 20, 24, 64), 0, 300, None, True, False),    # mma.sync: cout > 256
 ])
 def test_conv3x3_any_width_matches_plain(cuda, dtype, shape, c2, cout, act,
                                          bias, residual):
@@ -198,13 +225,13 @@ def test_edvr_on_card_matches_cpu(cuda):
     with torch.inference_mode():
         ref = cpu(x)
         out = card(x.to(cuda)).cpu()
-    assert (dcn_fwd.launches - n[0], conv3x3.launches - n[1]) == (4, 15)
+    assert (dcn_fwd.launches - n[0], conv3x3.launches - n[1]) == (4, 19)
     assert torch.isfinite(out).all()
     assert np.abs((out - ref).numpy()).max() <= 2e-2
 
 
-@pytest.mark.parametrize("name,counts", [("TDAN", (4, 9, 2)),
-                                         ("EDVR", (4, 21, 3))])
+@pytest.mark.parametrize("name,counts", [("TDAN", (4, 9, 6)),
+                                         ("EDVR", (4, 25, 7))])
 def test_tdan_and_edvr_x4_on_card_match_cpu(cuda, name, counts):
     """Full width (nf 64, 8 groups), cut depth and size, f32: the card
     (TF32 kernels) against the CPU; launches of dcn_fwd, the 64-out and
@@ -339,7 +366,7 @@ def test_train_step_on_card_matches_cpu(cuda):
         grads[str(dev)] = {k: p.grad.float().cpu()
                            for k, p in model.named_parameters()}
     assert (dcn_fwd.launches - n[0], dcn_bwd.launches - n[1],
-            conv3x3.launches - n[2]) == (4, 4, 15)
+            conv3x3.launches - n[2]) == (4, 4, 19)
     assert losses["cuda"] == pytest.approx(losses["cpu"], rel=1e-3)
     for k, ref in grads["cpu"].items():
         err = (grads["cuda"][k] - ref).abs().max().item()
