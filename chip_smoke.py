@@ -8,18 +8,21 @@ Phases, each of which raises (and so exits non-zero) on failure:
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel from ``realvsr_tpu_torch/csrc`` with nvcc, in
    parallel, print ``-Xptxas -v`` and one line per instantiation with its
-   registers and spills (a spill in ``conv3x3.cu`` fails the run);
+   registers and spills (a spill in ``conv3x3.cu``, ``dcn_fwd.cu`` or
+   ``dcn_bwd.cu`` fails the run);
 3. hold each kernel against its plain PyTorch version on the card at the
    paths' shapes, in bf16 and f32, with the tolerances of
-   ``realvsr_tpu_torch/ops/kernels/check.py``: the DCN forward and the
-   64-out conv3x3 at the inference shapes; the conv3x3 at other widths
+   ``realvsr_tpu_torch/ops/kernels/check.py``: the DCN forward at ±4, ±8
+   and exact, with separate offsets and mask and with DCNPack's
+   offset/mask tensor read in place (``om``), and the 64-out conv3x3 at
+   the inference shapes; the conv3x3 at other widths
    (64->3 with and without bias, 64->216 lrelu, 64->256 with a residual at
    EDVR's upconv2 shape, 128 (64+64) -> 3 through two inputs), and one
    shape that routes to the ``mma.sync`` kernel (16+16 -> 64); the block DCN
-   API at the L1 shape clamped to ±4 and ±8; the DCN backward at one
-   training sample (3, 192, 192, 64) clamped to ±8 and exact, with offsets
-   of a few pixels (taps outside the image) and with zero offsets, each of
-   dx, doffset, dmask and dW on its own; and the conv3x3 autograd (64-out
+   API at the L1 shape clamped to ±4 and ±8; the DCN backward, in both
+   forms, at one training sample (3, 192, 192, 64) clamped to ±4, ±8 and
+   exact, with offsets of a few pixels (taps outside the image) and with
+   zero offsets, each gradient on its own; and the conv3x3 autograd (64-out
    with and without an activation, and 64->3) against autograd of its
    plain version;
 4. inference, each path through ``evaluate_wo_gt`` on a seeded synthetic
@@ -51,9 +54,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    against the CPU in f32;
 6. times: each kernel, its plain version and the one PyTorch call that
    computes the same function (where there is one) with CUDA events at the
-   paths' shapes (every conv3x3 case in bf16 and in f32; the f32 yardstick
-   is cuDNN with TF32 allowed, as the kernel runs), and each inference
-   path's forward ms, frames/s and peak memory.
+   paths' shapes (every conv3x3 case and both DCN kernels in bf16 and in
+   f32, the DCN kernels in both forms; the f32 yardstick is cuDNN with TF32
+   allowed, as the kernel runs), one ``DCNPack`` at L1 (its 64->216 conv
+   and the DCN, glue included) beside the same module through the old
+   chunk / cat / sigmoid glue and the separate-form kernel, and each
+   inference path's forward ms, frames/s and peak memory.
 
 Prints one JSON line per check and timing, then the card line, the
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -188,6 +194,15 @@ def dcn_inputs(shape, dtype, seed):
     return [t.to("cuda", dtype) for t in (x, off, mask, wgt, bias)]
 
 
+def om_of(off, mask):
+    """DCNPack's offset/mask tensor for these offsets and mask: the offsets,
+    then the mask's logits (the kernels take their sigmoid)."""
+    import torch
+
+    return torch.cat([off, torch.logit(mask.float(), eps=1e-3)
+                      .to(off.dtype)], -1).contiguous()
+
+
 def conv_inputs(shape, c2, residual, dtype, seed, cout=64, bias=True):
     """Seeded on the card (drawn in f32, then cast): a CPU draw of these
     sizes takes seconds."""
@@ -240,7 +255,9 @@ def check_kernels():
         modulated_deform_conv_block)
     from realvsr_tpu_torch.ops.kernels.check import max_abs_err, tolerance
     from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_plain
-    from realvsr_tpu_torch.ops.kernels.dcn import dcn_fwd, dcn_fwd_plain
+    from realvsr_tpu_torch.ops.kernels.dcn import (dcn_fwd, dcn_fwd_om,
+                                                   dcn_fwd_om_plain,
+                                                   dcn_fwd_plain)
 
     errs = {}
 
@@ -255,14 +272,22 @@ def check_kernels():
 
     for dtype in (torch.bfloat16, torch.float32):
         for name, shape, act in DCN_CASES:
-            for r in (None, 4):
+            for r in (None, 4, 8):
                 args = dcn_inputs(shape, dtype, seed=1)
                 out = dcn_fwd(*args, 8, act=act, max_offset=r)
                 torch.cuda.synchronize()
                 ref = dcn_fwd_plain(*args, 8, act, r)
                 hold(("dcn_fwd", name, dtype, r), out, ref, case=name,
-                     shape=shape, act=act, max_offset=r)
-                del out, ref, args
+                     shape=shape, act=act, max_offset=r, form="separate")
+                del out, ref
+                om = om_of(args[1], args[2])
+                x, _, _, wgt, bias = args
+                out = dcn_fwd_om(x, om, wgt, bias, 8, act=act, max_offset=r)
+                torch.cuda.synchronize()
+                ref = dcn_fwd_om_plain(x, om, wgt, bias, 8, act, r)
+                hold(("dcn_fwd_om", name, dtype, r), out, ref, case=name,
+                     shape=shape, act=act, max_offset=r, form="om")
+                del out, ref, args, om, x
         for name, shape, c2, act, residual in CONV_CASES:
             x, x2, wgt, bias, res = conv_inputs(shape, c2, residual, dtype, 2)
             out = conv3x3(x, wgt, bias, act, res, x2)
@@ -303,20 +328,23 @@ def check_kernels():
     return errs
 
 
-def dcn_bwd_inputs(shape, dtype, seed, zero_offsets=False):
+def dcn_bwd_inputs(shape, dtype, seed, zero_offsets=False, on_card=False):
     """x, offset, mask, weight, cotangent; offsets of std 2.5 px (taps
     outside the image at every border, some beyond ±8) or all zero (every
-    position on the grid, as at the start of training)."""
+    position on the grid, as at the start of training).  ``on_card`` draws
+    them on the card (a CPU draw at the training shape takes seconds)."""
     import torch
 
     b, h, w, c = shape
-    g = torch.Generator().manual_seed(seed)
-    x = torch.randn(b, h, w, c, generator=g)
-    off = (torch.zeros(b, h, w, 8 * 18) if zero_offsets
-           else torch.randn(b, h, w, 8 * 18, generator=g) * 2.5)
-    mask = torch.rand(b, h, w, 8 * 9, generator=g)
-    wgt = (torch.rand(64, c, 3, 3, generator=g) * 2 - 1) / (9 * c) ** 0.5
-    gout = torch.randn(b, h, w, 64, generator=g)
+    dev = "cuda" if on_card else "cpu"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, h, w, c, generator=g, device=dev)
+    off = (torch.zeros(b, h, w, 8 * 18, device=dev) if zero_offsets
+           else torch.randn(b, h, w, 8 * 18, generator=g, device=dev) * 2.5)
+    mask = torch.rand(b, h, w, 8 * 9, generator=g, device=dev)
+    wgt = (torch.rand(64, c, 3, 3, generator=g, device=dev) * 2 - 1) / (
+        9 * c) ** 0.5
+    gout = torch.randn(b, h, w, 64, generator=g, device=dev)
     return [t.to("cuda", dtype) for t in (x, off, mask, wgt, gout)]
 
 
@@ -333,30 +361,40 @@ def check_backward():
                                                      max_abs_err,
                                                      slope_mismatches)
     from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3_autograd
-    from realvsr_tpu_torch.ops.kernels.dcn import dcn_bwd, dcn_bwd_plain
+    from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_bwd_om,
+                                                   dcn_bwd_om_plain,
+                                                   dcn_bwd_plain)
 
     errs = {}
-    names = ("dx", "doffset", "dmask", "dweight")
     for dtype in (torch.bfloat16, torch.float32):
-        for r in (train_r(), None):
+        for r in (R_INFER, train_r(), None):
             for zero in (False, True):
-                args = dcn_bwd_inputs(BWD_SHAPE, dtype, 3, zero)
-                out = dcn_bwd(*args[:4], args[4], 8, r)
-                torch.cuda.synchronize()
-                ref = dcn_bwd_plain(*args[:4], args[4], 8, r)
-                row = {}
-                for name, o, rf in zip(names, out, ref):
-                    err, tol = max_abs_err(o, rf), grad_tolerance(rf)
-                    row[name] = dict(max_abs_err=err, tol=tol)
-                    if not (o.dtype == rf.dtype and o.shape == rf.shape
-                            and err <= tol and torch.isfinite(o).all()):
-                        raise AssertionError(
-                            f"dcn_bwd {name} {dtype} r={r} zero={zero}: "
-                            f"{err} > {tol}")
-                emit(check="dcn_bwd", shape=BWD_SHAPE, dtype=str(dtype)[6:],
-                     max_offset=r, zero_offsets=zero, **row)
-                errs[(dtype, r, zero)] = row
-                del out, ref, args
+                x, off, mask, wgt, gout = dcn_bwd_inputs(BWD_SHAPE, dtype, 3,
+                                                         zero)
+                om = om_of(off, mask)
+                for form, names, kernel, plain, args in (
+                        ("separate", ("dx", "doffset", "dmask", "dweight"),
+                         dcn_bwd, dcn_bwd_plain, (x, off, mask, wgt, gout)),
+                        ("om", ("dx", "dom", "dweight"), dcn_bwd_om,
+                         dcn_bwd_om_plain, (x, om, wgt, gout))):
+                    out = kernel(*args, 8, r)
+                    torch.cuda.synchronize()
+                    ref = plain(*args, 8, r)
+                    row = {}
+                    for name, o, rf in zip(names, out, ref):
+                        err, tol = max_abs_err(o, rf), grad_tolerance(rf)
+                        row[name] = dict(max_abs_err=err, tol=tol)
+                        if not (o.dtype == rf.dtype and o.shape == rf.shape
+                                and err <= tol and torch.isfinite(o).all()):
+                            raise AssertionError(
+                                f"dcn_bwd {form} {name} {dtype} r={r} "
+                                f"zero={zero}: {err} > {tol}")
+                    emit(check="dcn_bwd", form=form, shape=BWD_SHAPE,
+                         dtype=str(dtype)[6:], max_offset=r,
+                         zero_offsets=zero, **row)
+                    errs[(form, dtype, r, zero)] = row
+                    del out, ref
+                del x, off, mask, om, gout
     # conv3x3 autograd: each gradient within check.grad_tolerance of the
     # plain autograd with the slope taken from the kernel's output, and that
     # slope equal to the plain f32 one outside the rounding of 0 (check.py)
@@ -751,36 +789,93 @@ def reduced_train_step():
 
 
 def time_dcn_bwd():
-    """dcn_bwd at the L1 / cascade shape of a batch-32 step, bf16, ±8.
-    The plain version runs over the batch in chunks of 24 frames (autograd
-    of the whole batch at once would not fit in device memory)."""
+    """dcn_bwd at the L1 / cascade shape of a batch-32 step, ±8, in both
+    forms, bf16 and f32.  The plain version (bf16 only) runs over the batch
+    in chunks of 24 frames (autograd of the whole batch at once would not
+    fit in device memory)."""
     import torch
 
-    from realvsr_tpu_torch.ops.kernels.dcn import dcn_bwd, dcn_bwd_plain
+    from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_bwd_om,
+                                                   dcn_bwd_plain)
 
-    r = train_r()
-    x, off, mask, wgt, gout = dcn_bwd_inputs(TRAIN_L1, torch.bfloat16, 4)
-    outs = dcn_bwd(x, off, mask, wgt, gout, 8, r)
-    p = x.shape[0] * x.shape[1] * x.shape[2]
-    # what the function needs, once: tensor cores dS = g W^T and dW = g^T S,
-    # 2 * p * 576 * 64 each; f32 cores one sampling per (pixel, tap,
-    # channel) with its four corners' gradients, ~20 ops (the kernel's
-    # second sampling for dW is its own cost, not the function's)
-    b_ms, b_by = bound(nbytes(x, off, mask, wgt, gout, *outs),
-                       4 * p * 576 * 64, 20 * p * 576, "bfloat16")
-    del outs
+    r, rows = train_r(), {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype)[6:]
+        x, off, mask, wgt, gout = dcn_bwd_inputs(TRAIN_L1, dtype, 4,
+                                                 on_card=True)
+        om = om_of(off, mask)
+        outs = dcn_bwd(x, off, mask, wgt, gout, 8, r)
+        p = x.shape[0] * x.shape[1] * x.shape[2]
+        # what the function needs, once (the om form moves the same
+        # elements): tensor cores dS = g W^T and dW = g^T S, 2 * p * 576 *
+        # 64 each; f32 cores one sampling per (pixel, tap, channel) with its
+        # four corners' gradients, ~20 ops
+        b_ms, b_by = bound(nbytes(x, off, mask, wgt, gout, *outs),
+                           4 * p * 576 * 64, 20 * p * 576, dname)
+        del outs
 
-    def plain():
-        for i in range(0, x.shape[0], 24):
-            dcn_bwd_plain(x[i:i + 24], off[i:i + 24], mask[i:i + 24], wgt,
-                          gout[i:i + 24], 8, r)
+        def plain():
+            for i in range(0, x.shape[0], 24):
+                dcn_bwd_plain(x[i:i + 24], off[i:i + 24], mask[i:i + 24],
+                              wgt, gout[i:i + 24], 8, r)
 
-    row = dict(ms=cuda_ms(lambda: dcn_bwd(x, off, mask, wgt, gout, 8, r),
-                          5),
-               plain_ms=cuda_ms(plain, 1, warmup=1),
-               bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    emit(timing="dcn_bwd", case="L1 train", shape=TRAIN_L1, dtype="bfloat16",
-         **row)
+        row = dict(
+            ms=cuda_ms(lambda: dcn_bwd(x, off, mask, wgt, gout, 8, r), 5),
+            ms_om=cuda_ms(lambda: dcn_bwd_om(x, om, wgt, gout, 8, r), 5),
+            plain_ms=(cuda_ms(plain, 1, warmup=1)
+                      if dtype == torch.bfloat16 else None),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        emit(timing="dcn_bwd", case="L1 train", shape=TRAIN_L1, dtype=dname,
+             max_offset=r, **row)
+        rows[dname] = row
+        del x, off, mask, om, gout
+        torch.cuda.empty_cache()
+    return rows
+
+
+def time_dcnpack():
+    """One DCNPack at the L1 shape, bf16, ±4, under inference: its 64->216
+    offset/mask conv and the DCN reading that tensor in place, against the
+    same module's weights through the chunk / cat / sigmoid glue and the
+    separate-form kernel (what DCNPack ran before the in-place form)."""
+    import torch
+
+    from realvsr_tpu_torch.models.common import DCNPack, reset_parameters
+    from realvsr_tpu_torch.ops.kernels.check import max_abs_err
+    from realvsr_tpu_torch.ops.kernels.dcn import dcn_fwd
+
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(8)
+    pack = DCNPack(64, 64, 8, R_INFER)
+    reset_parameters(pack, gen)
+    pack.reset_parameters(gen)
+    randomise_offset_convs(pack, seed=9, std=0.1)  # offsets of ~2.4 px
+    pack = pack.to("cuda", bf).eval()
+    g = torch.Generator(device="cuda").manual_seed(10)
+    x, feat = (torch.randn(*DCN_CASES[0][1], generator=g, device="cuda")
+               .to(bf) for _ in range(2))
+    wgt, bias = pack.weight, pack.bias
+
+    def split():
+        o1, o2, m = torch.chunk(pack.conv_offset_mask(feat), 3, dim=-1)
+        return dcn_fwd(x, torch.cat([o1, o2], -1),
+                       torch.sigmoid(m).contiguous(), wgt, bias, 8, None,
+                       R_INFER)
+
+    with torch.inference_mode():
+        out = pack(x, feat)
+        err = max_abs_err(out, split())
+        p = x.shape[0] * x.shape[1] * x.shape[2]
+        b_ms, b_by = bound(
+            nbytes(x, feat, out, *pack.parameters()),
+            2 * p * 576 * (216 + 64), 9 * p * 576, "bfloat16")
+        row = dict(ms=cuda_ms(lambda: pack(x, feat), 20),
+                   ms_split_glue=cuda_ms(split, 20), bound_ms=b_ms,
+                   bound_by=b_by, om_vs_split_max_abs_err=err)
+    emit(timing="dcnpack", case="L1", shape=DCN_CASES[0][1], dtype="bfloat16",
+         max_offset=R_INFER, **row)
+    if not torch.isfinite(out).all():
+        raise AssertionError("DCNPack output not finite")
     return row
 
 
@@ -817,32 +912,42 @@ def time_kernels():
     from realvsr_tpu_torch.ops.deform_conv_block import (
         modulated_deform_conv_block)
     from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_plain
-    from realvsr_tpu_torch.ops.kernels.dcn import dcn_fwd, dcn_fwd_plain
+    from realvsr_tpu_torch.ops.kernels.dcn import (dcn_fwd, dcn_fwd_om,
+                                                   dcn_fwd_plain)
 
     bf = torch.bfloat16
     rows = {}
 
-    def dcn_bound(x, off, mask, wgt, bias, out):
+    def dcn_bound(x, off, mask, wgt, bias, out, dname="bfloat16"):
         # tensor cores: the tap GEMM; f32 cores: 4 corners x (mul + add)
         # + the mask, per sampled element
         p = x.shape[0] * x.shape[1] * x.shape[2]
         k = 9 * x.shape[3]
         return bound(nbytes(x, off, mask, wgt, bias, out), 2 * p * k * 64,
-                     9 * p * k, "bfloat16")
+                     9 * p * k, dname)
 
-    for name, shape, act in DCN_CASES:
-        x, off, mask, wgt, bias = dcn_inputs(shape, bf, seed=1)
-        out = dcn_fwd(x, off, mask, wgt, bias, 8, act=act, max_offset=4)
-        b_ms, b_by = dcn_bound(x, off, mask, wgt, bias, out)
-        row = dict(
-            ms=cuda_ms(lambda: dcn_fwd(x, off, mask, wgt, bias, 8, act=act,
-                                       max_offset=4), 20),
-            plain_ms=cuda_ms(lambda: dcn_fwd_plain(x, off, mask, wgt, bias, 8,
-                                                   act, 4), 3, warmup=1),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        emit(timing="dcn_fwd", case=name, shape=shape, dtype="bfloat16", **row)
-        rows[("dcn_fwd", name)] = row
-        del x, off, mask, out
+    for dtype in (bf, torch.float32):
+        dname = str(dtype)[6:]
+        for name, shape, act in DCN_CASES:
+            if dtype == torch.float32 and name != "L1":
+                continue
+            x, off, mask, wgt, bias = dcn_inputs(shape, dtype, seed=1)
+            om = om_of(off, mask)
+            out = dcn_fwd(x, off, mask, wgt, bias, 8, act=act, max_offset=4)
+            b_ms, b_by = dcn_bound(x, off, mask, wgt, bias, out, dname)
+            row = dict(
+                ms=cuda_ms(lambda: dcn_fwd(x, off, mask, wgt, bias, 8,
+                                           act=act, max_offset=4), 20),
+                ms_om=cuda_ms(lambda: dcn_fwd_om(x, om, wgt, bias, 8,
+                                                 act=act, max_offset=4), 20),
+                plain_ms=(cuda_ms(lambda: dcn_fwd_plain(
+                    x, off, mask, wgt, bias, 8, act, 4), 3, warmup=1)
+                    if dtype == bf else None),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            emit(timing="dcn_fwd", case=name, shape=shape, dtype=dname,
+                 **row)
+            rows[("dcn_fwd", name, dname)] = row
+            del x, off, mask, out, om
     # the block API at L1, ±4: kernel 1's code behind kernel 5's function
     x, off, mask, wgt, bias = dcn_inputs(DCN_CASES[0][1], bf, seed=1)
 
@@ -963,7 +1068,8 @@ def main() -> int:
         for kernel, regs, stores, loads in ptxas_lines(log):
             emit(ptxas=src, kernel=kernel, registers=regs,
                  spill_stores=stores, spill_loads=loads)
-            if src == "conv3x3" and (stores or loads):
+            if src in ("conv3x3", "dcn_fwd", "dcn_bwd") and (stores or
+                                                               loads):
                 raise AssertionError(f"{kernel} spills")
 
     profiling = "--profile" in sys.argv[1:]
@@ -978,7 +1084,9 @@ def main() -> int:
             launches[f"training_{d}"] = train[d]["launches"]
         reduced_train_step()
         rows = time_kernels()
-        rows["dcn_bwd"] = time_dcn_bwd()
+        bwd_rows = time_dcn_bwd()
+        rows["dcn_bwd"] = bwd_rows["bfloat16"]
+        time_dcnpack()
         for p, (model, lq_root, n, hw, _) in paths.items():
             window = time_path(p, model, lq_root, n, hw)
             if profiling:
@@ -989,7 +1097,7 @@ def main() -> int:
     # path that first put it on a model path (the f32 training run for the
     # flagship's kernels, the recipe's precision)
     by_path = {k: {p: c[k] for p, c in launches.items()} for k in counters()}
-    bwd = bwd_errs[(bf, train_r(), False)]
+    bwd = bwd_errs[("separate", bf, train_r(), False)]
     kernels = [
         dict(name="dcn_fwd", route="cuda",
              source="realvsr_tpu_torch/csrc/dcn_fwd.cu",
@@ -997,7 +1105,7 @@ def main() -> int:
              launches=by_path["dcn_fwd"]["training_float32"],
              launches_by_path=by_path["dcn_fwd"],
              max_abs_err=errs[("dcn_fwd", "L1", bf, 4)],
-             **rows[("dcn_fwd", "L1")]),
+             **rows[("dcn_fwd", "L1", "bfloat16")]),
         dict(name="conv3x3", route="cuda",
              source="realvsr_tpu_torch/csrc/conv3x3.cu",
              replaces="realvsr_tpu/ops/pallas/conv3x3_kernel.py:447",

@@ -59,6 +59,7 @@
 #include <cuda.h>
 
 #include "common.cuh"
+#include "sm90.cuh"
 #include "wgmma.cuh"
 
 namespace rvsr {
@@ -66,7 +67,6 @@ namespace wg {
 
 constexpr int kTH = 8, kTW = 16;                    // output tile
 constexpr int kHaloH = kTH + 2, kHaloW = kTW + 2;   // its input window
-constexpr int kLine = 128;                          // bytes: one chunk
 constexpr int kPlaneBytes = kHaloH * kHaloW * kLine;            // 23040
 constexpr int kStageBytes = (kPlaneBytes + 1023) / 1024 * 1024;  // 23552
 constexpr int kConsumers = 256, kThreads = kConsumers + 128;
@@ -86,10 +86,6 @@ struct Params {
   int tiles_x, tiles_y, ntiles;
   int halo_off, epi_off, bar_off;  // shared-memory offsets (bytes)
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
@@ -147,37 +143,6 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "[%0], [%1], %2, [%3];" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kPending)
-               : "memory");
-}
-
-// Keeps the compiler from moving reads of an accumulator across a wait.
-__device__ __forceinline__ void fence_operand(float& v) {
-  asm volatile("" : "+f"(v)::"memory");
-}
-
-// wgmma descriptor of a K-major operand with the 128-byte swizzle: rows of
-// 128 bytes, 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
 // A fragments of one tap for this warp's 16 pixels: 4 k-steps of 32 bytes
@@ -434,30 +399,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// The shared-memory image of an OIHW weight (cout, cin, 3, 3) that the
-// kernel copies: [cin / ch][tap][n][ch], the 16-byte units of each
-// 128-byte row swizzled (unit j of row o at j ^ (o & 7)), zero rows from
-// cout to n, each value rounded as the tensor cores take it (TF32 for f32).
-// ops/kernels/conv3x3.py::pack_weight is its plain version.
-template <typename T>
-__global__ void pack_weight_kernel(const T* __restrict__ w,
-                                   T* __restrict__ packed, int cout, int cin,
-                                   int n, long long total) {
-  constexpr int ch = kLine / sizeof(T), u = ch / 8;
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       e < total; e += (long long)gridDim.x * blockDim.x) {
-    const int kl = (int)(e % ch);
-    long long r = e / ch;
-    const int o = (int)(r % n);
-    r /= n;
-    const int tap = (int)(r % 9), c = (int)(r / 9);
-    const int i = c * ch + ((kl / u) ^ (o & 7)) * u + kl % u;
-    float v = 0.f;
-    if (o < cout) v = Traits<T>::to_f(w[((long long)o * cin + i) * 9 + tap]);
-    packed[e] = Traits<T>::to_mma(v);
-  }
-}
-
 // ------------------------------------------------------------------- host
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -510,16 +451,6 @@ int encode_halo(CUtensorMap* map, const void* x, int B, int H, int W, int C) {
          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncode;
-}
-
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
 }
 
 template <typename T, int N>
@@ -575,17 +506,6 @@ int launch_n(const void* x1, int c1, const void* x2, int c2,
 }
 
 template <typename T>
-int pack(const void* weight, void* packed, int cout, int cin, int n,
-         void* stream) {
-  const long long total = (long long)cin * 9 * n;
-  const int blocks = (int)((total + 255) / 256 < 1024 ? (total + 255) / 256
-                                                      : 1024);
-  pack_weight_kernel<T><<<blocks, 256, 0, (cudaStream_t)stream>>>(
-      (const T*)weight, (T*)packed, cout, cin, n, total);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
 int launch(const void* x1, int c1, const void* x2, int c2, const void* weight,
            const void* bias, const void* residual, void* out, int B, int H,
            int W, int cout, int n, int act, void* stream) {
@@ -614,12 +534,12 @@ int launch(const void* x1, int c1, const void* x2, int c2, const void* weight,
 // conv3x3_bf16 / conv3x3_f32 take.  Returns cudaGetLastError().
 extern "C" int conv3x3_pack_bf16(const void* weight, void* packed, int cout,
                                  int cin, int n, void* stream) {
-  return rvsr::wg::pack<__nv_bfloat16>(weight, packed, cout, cin, n, stream);
+  return rvsr::pack_weight<__nv_bfloat16>(weight, packed, cout, cin, n, stream);
 }
 
 extern "C" int conv3x3_pack_f32(const void* weight, void* packed, int cout,
                                 int cin, int n, void* stream) {
-  return rvsr::wg::pack<float>(weight, packed, cout, cin, n, stream);
+  return rvsr::pack_weight<float>(weight, packed, cout, cin, n, stream);
 }
 
 // x1 (B,H,W,c1) and optional x2 (B,H,W,c2): the input is their channel
@@ -636,7 +556,7 @@ extern "C" int conv3x3_bf16(const void* x1, int c1, const void* x2, int c2,
                             const void* bias, const void* residual, void* out,
                             int B, int H, int W, int cout, int n, int act,
                             void* stream) {
-  int err = rvsr::wg::pack<__nv_bfloat16>(weight, packed, cout, c1 + c2, n,
+  int err = rvsr::pack_weight<__nv_bfloat16>(weight, packed, cout, c1 + c2, n,
                                           stream);
   if (err != 0) return err;
   return rvsr::wg::launch<__nv_bfloat16>(x1, c1, x2, c2, packed, bias,
@@ -648,7 +568,7 @@ extern "C" int conv3x3_f32(const void* x1, int c1, const void* x2, int c2,
                            const void* weight, void* packed, const void* bias,
                            const void* residual, void* out, int B, int H,
                            int W, int cout, int n, int act, void* stream) {
-  int err = rvsr::wg::pack<float>(weight, packed, cout, c1 + c2, n, stream);
+  int err = rvsr::pack_weight<float>(weight, packed, cout, c1 + c2, n, stream);
   if (err != 0) return err;
   return rvsr::wg::launch<float>(x1, c1, x2, c2, packed, bias, residual, out,
                                  B, H, W, cout, n, act, stream);

@@ -1,357 +1,486 @@
 // Modulated deformable convolution (DCNv2) backward, 3x3 / stride 1 / pad 1,
-// NHWC, 64 input and 64 output channels, dg deformable groups, optional
+// NHWC, 64 input and 64 output channels in 8 deformable groups, optional
 // +-max_offset clamp of the offsets.  Given the output cotangent g (before
 // bias and activation: the wrapper undoes those), it computes
-//   dS[p, tap, ci] = sum_co g[p, co] W[co, ci, tap]
+//   dS[p, tap, ci] = sum_co g[p, co] W[co, ci, tap]   (rounded to T)
 //   dx             = the transpose of the bilinear sampling of dS * mask
 //   doffset        = dS * mask . d(sample)/d(position), zero where the clamp
 //                    cut the offset (the gate passes on [-R, R] inclusive)
-//   dmask          = dS . (unmasked sample)
+//   dmask          = dS . (unmasked sample); in the in-place form (offsets
+//                    and mask logits read from DCNPack's 216-channel tensor,
+//                    dcn_sample.cuh) times s (1 - s) of the sigmoid s, as
+//                    torch's sigmoid backward in T
 //   dW[co, ci, tap] = sum_p g[p, co] S[p, tap, ci]   (S the masked sample)
 //
 // Replaces the TPU kernel realvsr_tpu/ops/pallas/dcn_frame_kernel.py
 // `dcn_frame_fused_bwd` (with its XLA epilogues deform_conv_block.py
-// `_fold_dpg` and `_fold_dcoord`).  As there, the sampling is recomputed from
-// the inputs and no columns are saved.  Positions are exact f32 (the TPU
-// kernel's int16 positions, 128-lane panels and halo overlap-add exist for its
-// DMA rules and are not carried over): dx is scattered with f32 atomics
-// instead, as the reference CUDA col2im does.
+// `_fold_dpg` and `_fold_dcoord`, and the sigmoid / concat backward of
+// DCNPack's split).  As there, the sampling is recomputed from the inputs
+// and no columns are saved.  The TPU kernel's int16 positions, 128-lane
+// panels and halo overlap-add exist for its DMA rules and are not carried
+// over: positions are exact f32.
 //
-// Bound on the H100: per pixel it reads x, offset, mask and g (64 + 144 + 72 +
-// 64 elements) and writes dx, doffset and dmask (64 + 144 + 72): ~1.25 KB in
-// bf16, so memory-bound (the two tap GEMMs are 4 * 576 * 64 flop per pixel).
+// Bound on the H100: per pixel it reads x, the offsets and mask and g (64 +
+// 216 + 64 elements) and writes dx, the offset and mask gradients (64 +
+// 216): ~1.25 KB in bf16, 1.32 ms at 3.35 TB/s at (96, 192, 192); the two
+// tap GEMMs (2 x 2 x 576 x 64 flop a pixel) are far below the tensor
+// cores' peak.  So it is bound by memory, and in practice by the scatter of
+// dx: 4 corners x 8 channels of every (pixel, group, tap).
 //
-// Design: two launches.
-//  (a) inputs: one block per 128 consecutive pixels, 8 warps.  The block stages
-//      its 128 x 64 tile of g once; for each tap it forms dS = g . W_tap^T on
-//      the tensor cores (mma.sync) into shared memory, then one thread per
-//      (pixel, group) re-samples the four corners, writes dmask and the two
-//      offset gradients, and adds dS * mask * corner weight into an f32 dx
-//      with 16-byte atomics (four channels each).
-//  (b) weights: a grid of (blocks, 9 taps); each block walks a strided set of
-//      pixel tiles, re-samples that tap's masked columns S into shared memory
-//      (transposed) beside the transposed g tile and accumulates g^T S in
-//      registers on the tensor cores; at the end one f32 atomic per dW
-//      element per warp.  dW sums over all pixels, so per-tile atomics would
-//      put ~27,600 tiles on the same 36,864 addresses at the training shape.
-#include "common.cuh"
+// Design: one launch of persistent blocks, one per SM, each for one
+// (deformable group g, run of TH x 32 pixel tiles), TH = 16 in bf16 (512
+// threads) and 8 in f32 (256): block i takes group i % 8 and the tiles i / 8, i / 8 + gridDim.x / 8,
+// ... (each (group, tile) once; the 8 groups of a tile run side by side, so L2
+// merges their rows of the gradients).  Per tile:
+// 1. the tile's g (pixels x 64) is staged in shared memory; the group's weight
+//    slice W[:, g, :] (64 x 8 x 9) stays there for the whole launch;
+// 2. per tap, each warp forms dS for its 32 pixels on the tensor cores
+//    (mma.sync m16n8k16 / m16n8k8 TF32: a pixels x 8 x 64 product, too narrow
+//    for wgmma's 64-row tiles to pay), rounded to T;
+// 3. one thread per pixel samples its 4 corners (16 or 32 bytes each; the next
+//    tap's offsets and mask already loaded) and forms the masked sample S,
+//    dmask and the two offset gradients (from the four dS . corner sums),
+//    written straight to the gradient rows (a 4- or 8-byte pair and one mask
+//    value; consecutive lanes write consecutive pixels);
+// 4. dx: dS * mask * (corner weight) is added with shared-memory atomics into
+//    the tile's footprint for group g, 8 channels a pixel (+1 of padding
+//    against bank conflicts).  With the +-R clamp every corner of the tile lies
+//    in (TH + 2R + 3) x (32 + 2R + 3) pixels, R = ceil(max_off) up to kRfMax; a
+//    corner outside it (no clamp, or R beyond kRfMax) goes straight to dx with
+//    two 16-byte global atomics, so the exact op stays exact.  The footprint
+//    sums in int32 fixed point: an f32 atomicAdd on shared memory is a compare-
+//    and-swap loop (ATOMS.CAST.SPIN), each of its round trips paying the bank
+//    conflicts of a random scatter, where the integer add is one native
+//    instruction.  The unit is 2^-18 of a power of two above the tile's bound
+//    on a contribution, 2 max_p sum_co |g[p, co]| max |W| (x2 covers dS's
+//    rounding to T); a contribution above the bound (a mask beyond 1, or
+//    anything not finite) takes the global f32 path.  A footprint element takes
+//    at most 512 x 9 contributions of at most 2^18 units, so the sum cannot
+//    overflow, and each is rounded by at most 2^-19 of the bound.  After the 9
+//    taps the footprint is flushed into the f32 dx with one 16-byte atomic per
+//    4 channels of each touched pixel (at most ~7 a pixel and group at R = 8
+//    and TH = 16, against 72 corner atomics before) and zeroed;
+// 5. dW: S goes to shared memory transposed, and each warp adds its share of
+//    g^T S (a 16-row co tile x 8 ci x 128 pixels, ldmatrix.trans for g^T) into
+//    registers; they hold the block's dW[:, g, :] over all its tiles (36 a
+//    thread) and are added to dW with one set of f32 atomics at the end.  So no
+//    second launch re-samples the taps.
+// dx and dW are summed in f32 (the footprint in fixed point); atomics make the
+// order of the f32 sums vary from run to run.
+#include "dcn_sample.cuh"
+#include "sm90.cuh"
 
 namespace rvsr {
+namespace bwd {
 
-constexpr int kTileM = 128;
-constexpr int kThreads = 256;
-constexpr int kC = 64;  // input channels of the backward kernel (= kCout)
+// A tile is TH rows of kTW pixels, one pixel a thread (TH * kTW threads):
+// 16 rows in bf16, one 512-thread block per SM (one copy of the group's
+// weight and ~50 KB of L1 left for the gathers), 8 in f32, whose g tile
+// takes twice the room.
+constexpr int kTW = 32;
+template <typename T>
+__host__ __device__ constexpr int kTileRows() {
+  return std::is_same<T, float>::value ? 8 : 16;
+}
+constexpr int kKPart = 128;   // pixels of one warp's share of dW's K
+constexpr int kRfMax = 8;     // footprint radius at most (shared memory)
+constexpr int kFpStride = 9;  // ints a footprint pixel: 8 channels + pad
+// Fixed point of the footprint: a contribution of at most the tile's bound
+// is at most 2^kFixBits units; a footprint element takes at most one
+// contribution per (pixel, tap) of the tile, 512 x 9 = 4608 < 2^13, so int32
+// sums cannot overflow.
+constexpr int kFixBits = 31 - 13;
 
-struct Corners {
-  float ty, tx, m;
-  float cw[4];
-  long long idx[4];  // element offset of the corner pixel's row of x
-  bool valid[4];
+template <typename T, int TH>
+struct Layout {
+  static constexpr int kTile = TH * kTW, kWarps = kTile / 32;
+  static constexpr int ldw = kDcnC + Traits<T>::kPad;  // sW row: co
+  static constexpr int ldg = kDcnC + Traits<T>::kPad;  // sG row: co
+  static constexpr int lds = kTile + Traits<T>::kPad;  // sS row: pixels
+  static constexpr int w_bytes = 9 * kDcnCpg * ldw * (int)sizeof(T);
+  static constexpr int g_bytes = kTile * ldg * (int)sizeof(T);
+  static constexpr int ds_bytes = kTile * kDcnCpg * 4;
+  static constexpr int s_bytes = 2 * kDcnCpg * lds * (int)sizeof(T);
+  static constexpr int red_bytes = kWarps * 4;
+  static constexpr int fixed = w_bytes + g_bytes + ds_bytes + s_bytes +
+                               red_bytes;
 };
 
-// Sampling geometry of pixel p for group g and tap (ky, kx), as dcn_fwd.cu.
-template <typename T>
-__device__ __forceinline__ Corners corners(const T* __restrict__ offset,
-                                           const T* __restrict__ mask,
-                                           long long p, int g, int tap, int H,
-                                           int W, int dg, float max_off,
-                                           int clamp, float* raw_dy,
-                                           float* raw_dx) {
-  using Tr = Traits<T>;
-  Corners c;
-  const int xo = (int)(p % W);
-  const long long q = p / W;
-  const int yo = (int)(q % H);
-  const long long b = q / H;
-  const T* op = offset + p * (dg * 18) + g * 18 + tap * 2;
-  float dy = Tr::to_f(op[0]), dx = Tr::to_f(op[1]);
-  *raw_dy = dy;
-  *raw_dx = dx;
-  if (clamp) {
-    dy = fminf(fmaxf(dy, -max_off), max_off);
-    dx = fminf(fmaxf(dx, -max_off), max_off);
-  }
-  c.m = Tr::to_f(mask[p * (dg * 9) + g * 9 + tap]);
-  const float py = (float)(yo - 1 + tap / 3) + dy;
-  const float px = (float)(xo - 1 + tap % 3) + dx;
-  const float y0 = floorf(py), x0 = floorf(px);
-  c.ty = py - y0;
-  c.tx = px - x0;
-  c.cw[0] = (1.f - c.ty) * (1.f - c.tx);
-  c.cw[1] = (1.f - c.ty) * c.tx;
-  c.cw[2] = c.ty * (1.f - c.tx);
-  c.cw[3] = c.ty * c.tx;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float cy = y0 + (float)(k >> 1), cx = x0 + (float)(k & 1);
-    c.valid[k] = cy >= 0.f && cy <= (float)(H - 1) && cx >= 0.f &&
-                 cx <= (float)(W - 1);
-    c.idx[k] = c.valid[k] ? ((b * H + (int)cy) * W + (int)cx) * kC : 0;
-  }
-  return c;
+template <int TH>
+__host__ __device__ constexpr int footprint_pixels(int rf) {
+  return (TH + 2 * rf + 3) * (kTW + 2 * rf + 3);
+}
+
+template <typename T, int TH>
+__host__ __device__ constexpr int smem_bytes(int rf) {
+  return Layout<T, TH>::fixed + footprint_pixels<TH>(rf) * kFpStride * 4;
+}
+
+// blocks per SM, as shared memory allows at kRfMax
+template <typename T, int TH>
+__host__ __device__ constexpr int min_blocks() {
+  return 2 * (smem_bytes<T, TH>(kRfMax) + 1024) <= 228 * 1024 ? 2 : 1;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    dcn_bwd_input_kernel(const T* __restrict__ x, const T* __restrict__ offset,
-                         const T* __restrict__ mask, const T* __restrict__ wt,
-                         const T* __restrict__ gout, float* __restrict__ dx,
-                         T* __restrict__ doffset, T* __restrict__ dmask, int B,
-                         int H, int W, int dg, float max_off, int clamp) {
+struct Params {
+  const T* x;
+  OffMask<T> om;
+  const T* weight;  // (64, 64, 3, 3) OIHW
+  const T* gout;
+  float* dx;
+  T* doff;  // offset gradient of pixel 0, rows of doff_stride
+  T* dmsk;  // mask (or logit) gradient of pixel 0, rows of dmsk_stride
+  int doff_stride, dmsk_stride;
+  float* dw;  // (64, 9, 64) = (cout, tap, cin)
+  int H, W, clamp, rf;
+  float max_off;
+  int tiles_x, tiles_y, ntiles;
+};
+
+// round(v) for |v| < 2^22, through the float adder: v + 1.5 * 2^23 has
+// exponent 23, so its mantissa holds v rounded to an integer (F2I runs at a
+// quarter of the FMA rate).
+__device__ __forceinline__ int to_fixed(float v) {
+  return __float_as_int(v + 12582912.f) - 0x4B400000;
+}
+
+// The largest of each thread's v over the block (v >= 0), through red.
+template <int kWarps>
+__device__ __forceinline__ float block_max(float v, float* red, int warp,
+                                           int lane) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float m = red[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red[w]);
+  return m;
+}
+
+template <typename T, int TH>
+__global__ void __launch_bounds__(TH * kTW, (min_blocks<T, TH>()))
+    dcn_bwd_kernel(const __grid_constant__ Params<T> p) {
   using Tr = Traits<T>;
+  using L = Layout<T, TH>;
+  constexpr int kTH = TH, kTile = L::kTile, kThreads = kTile;
+  constexpr int kWarps = L::kWarps;
   constexpr int V = Tr::kVec;
-  constexpr int ld = kC + Tr::kPad;
-  constexpr int ldd = kC + 4;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sG = reinterpret_cast<T*>(smem_raw);  // [kTileM][ld] g tile (p, co)
-  T* sW = sG + kTileM * ld;                // [kC][ld] W_tap^T (ci, co)
-  float* sD = reinterpret_cast<float*>(sW + kC * ld);  // [kTileM][ldd] dS
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sW = reinterpret_cast<T*>(smem);  // [tap][ci][co]
+  T* sG = reinterpret_cast<T*>(smem + L::w_bytes);  // [pixel][co]
+  float* sDS = reinterpret_cast<float*>(smem + L::w_bytes + L::g_bytes);
+  T* sS = reinterpret_cast<T*>(smem + L::w_bytes + L::g_bytes +
+                               L::ds_bytes);  // [2][ci][pixel]
+  float* sRed = reinterpret_cast<float*>(smem + L::fixed - L::red_bytes);
+  int* fp = reinterpret_cast<int*>(smem + L::fixed);  // [fy][fx][9]
 
-  const int cpg = kC / dg;
-  const int nv = cpg / V;
-  const long long P = (long long)B * H * W;
-  const long long p0 = (long long)blockIdx.x * kTileM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = blockIdx.x % kDcnGroups;
+  const int slot = blockIdx.x / kDcnGroups;
+  const int nslots = gridDim.x / kDcnGroups;
+  const int fh = kTH + 2 * p.rf + 3, fw = kTW + 2 * p.rf + 3;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int H = p.H, W = p.W;
 
-  for (int it = threadIdx.x; it < kTileM * (kC / V); it += kThreads) {
-    const int pl = it / (kC / V), kv = it % (kC / V);
-    float v[V];
-    if (p0 + pl < P) {
-      load_vec<T>(gout + (p0 + pl) * kC + kv * V, v);
-    } else {
-#pragma unroll
-      for (int j = 0; j < V; ++j) v[j] = 0.f;
-    }
-    store_vec_mma<T>(sG + pl * ld + kv * V, v);
+  float wmax = 0.f;
+  for (int i = tid; i < 9 * kDcnCpg * kDcnC; i += kThreads) {
+    const int co = i % kDcnC, ci = (i / kDcnC) % kDcnCpg,
+              tap = i / (kDcnC * kDcnCpg);
+    const T v = Tr::to_mma(
+        Tr::to_f(p.weight[(co * kDcnC + g * kDcnCpg + ci) * 9 + tap]));
+    sW[(tap * kDcnCpg + ci) * L::ldw + co] = v;
+    wmax = fmaxf(wmax, fabsf(Tr::to_f(v)));
   }
+  for (int i = tid; i < fh * fw * kFpStride; i += kThreads) fp[i] = 0;
+  wmax = block_max<kWarps>(wmax, sRed, warp, lane);  // also orders sW, fp
 
-  const int r = warp * 16 + (lane >> 2), t = lane & 3;
-  for (int tap = 0; tap < 9; ++tap) {
-    stage_weight_tap<T>(sW, wt, tap, kC, ld);
-    // also orders the previous tap's reads of sD before this tap's writes
-    __syncthreads();
-    float acc[8][4];
+  // dW[co][tap][g * 8 + ci] partial sums: co = 16 (warp & 3) + lane / 4
+  // (+ 8), ci = 2 (lane & 3) (+ 1), over pixels of half (warp >> 2)
+  float accw[9][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+  for (int t = 0; t < 9; ++t)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[nt][j] = 0.f;
-    warp_mma<T>(acc, sG + r * ld, sG + (r + 8) * ld, sW, ld, kC, lane);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)  // dS rounded to T, as autograd of the
-        // plain op rounds it through the cast of the columns
-        sD[(r + (j >> 1) * 8) * ldd + nt * 8 + 2 * t + (j & 1)] =
-            Tr::to_f(Tr::from_f(acc[nt][j]));
-    __syncthreads();
+    for (int j = 0; j < 4; ++j) accw[t][j] = 0.f;
+  const int ly = tid / kTW, lx = tid % kTW;  // this thread's pixel
 
-    for (int it = threadIdx.x; it < kTileM * dg; it += kThreads) {
-      const int g = it % dg, pl = it / dg;
-      const long long p = p0 + pl;
-      if (p >= P) continue;
-      float raw_dy, raw_dx;
-      const Corners c = corners<T>(offset, mask, p, g, tap, H, W, dg, max_off,
-                                   clamp, &raw_dy, &raw_dx);
-      float dm = 0.f, dty = 0.f, dtx = 0.f;
-      for (int v = 0; v < nv; ++v) {
-        const int ch = g * cpg + v * V;
-        float e[4][V];
+  for (int tile = slot; tile < p.ntiles; tile += nslots) {
+    const int tcol = tile % p.tiles_x, rest = tile / p.tiles_x;
+    const int trow = rest % p.tiles_y, b = rest / p.tiles_y;
+    const int y = trow * kTH + ly, x = tcol * kTW + lx;
+    const bool ok = y < H && x < W;
+    const int pix = ok ? (b * H + y) * W + x : 0;
+    const int fy0 = trow * kTH - 1 - p.rf, fx0 = tcol * kTW - 1 - p.rf;
+
+    for (int i = tid; i < kTile * (kDcnC / V); i += kThreads) {
+      const int r = i / (kDcnC / V), v = i % (kDcnC / V);
+      const int yy = trow * kTH + r / kTW, xx = tcol * kTW + r % kTW;
+      float e[V];
+      if (yy < H && xx < W) {
+        load_vec<T>(p.gout + (size_t)((b * H + yy) * W + xx) * kDcnC + v * V,
+                    e);
+      } else {
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (c.valid[k]) {
-            load_vec<T>(x + c.idx[k] + ch, e[k]);
-          } else {
+        for (int j = 0; j < V; ++j) e[j] = 0.f;
+      }
+      store_vec_mma<T>(sG + r * L::ldg + v * V, e);
+    }
+    __syncthreads();
+    // The tile's bound on |dS| (rounding to T included: the factor 2):
+    // |dS[p, tap, ci]| <= sum_co |g[p, co]| max |W|.  It sets the fixed
+    // point's scale, a power of two.
+    float gsum = 0.f;
+#pragma unroll 8
+    for (int co = 0; co < kDcnC; ++co)
+      gsum += fabsf(Tr::to_f(sG[tid * L::ldg + co]));
+    const float bound =
+        2.f * block_max<kWarps>(gsum, sRed, warp, lane) * wmax;
+    int ex;
+    frexpf(bound, &ex);  // bound <= 2^ex
+    const bool fixed_ok = bound > 0.f && bound <= 3.0e38f;
+    const float to_fix = fixed_ok ? ldexpf(1.f, kFixBits - ex) : 0.f;
+    const float lim = fixed_ok ? bound : -1.f;  // else all go global
+
+    // tap t + 1's offsets and mask are loaded while tap t runs
+    float n_dy = 0.f, n_dx = 0.f, n_m = 0.f;
+    if (ok) load_off_mask(p.om, pix, g, 0, n_dy, n_dx, n_m);
 #pragma unroll
-            for (int j = 0; j < V; ++j) e[k][j] = 0.f;
-          }
+    for (int tap = 0; tap < 9; ++tap) {
+      const float dy = n_dy, dx = n_dx, m = n_m;
+      if (ok && tap < 8) load_off_mask(p.om, pix, g, tap + 1, n_dy, n_dx, n_m);
+      // 1. dS for the warp's 32 pixels (its own threads' pixels)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int r = warp * 32 + mt * 16 + (lane >> 2);
+        float c[1][4] = {{0.f, 0.f, 0.f, 0.f}};
+        warp_mma<T, 1>(c, sG + r * L::ldg, sG + (r + 8) * L::ldg,
+                       sW + tap * kDcnCpg * L::ldw, L::ldw, kDcnC, lane);
+        // rounded to T, as autograd of the plain op rounds it through the
+        // cast of the columns
+        const int col = 2 * (lane & 3);
+        *reinterpret_cast<float2*>(sDS + r * kDcnCpg + col) = make_float2(
+            Tr::to_f(Tr::from_f(c[0][0])), Tr::to_f(Tr::from_f(c[0][1])));
+        *reinterpret_cast<float2*>(sDS + (r + 8) * kDcnCpg + col) =
+            make_float2(Tr::to_f(Tr::from_f(c[0][2])),
+                        Tr::to_f(Tr::from_f(c[0][3])));
+      }
+      __syncwarp();
+
+      // 2.-4. this thread's pixel
+      float S[kDcnCpg];
+#pragma unroll
+      for (int i = 0; i < kDcnCpg; ++i) S[i] = 0.f;
+      if (ok) {
+        const Corners c =
+            corners(dy, dx, pix, y, x, tap, H, W, p.max_off, p.clamp);
+        GroupCorners<T> e;
+        gather(e, p.x, c, g);
+        const float4 d0 = *reinterpret_cast<const float4*>(sDS + tid * 8);
+        const float4 d1 = *reinterpret_cast<const float4*>(sDS + tid * 8 + 4);
+        const float ds[kDcnCpg] = {d0.x, d0.y, d0.z, d0.w,
+                                   d1.x, d1.y, d1.z, d1.w};
+        float val[kDcnCpg];
+        blend(val, e, c);
+        // E_k = dS . (corner k): dmask = sum_k w_k E_k, and the position
+        // gradients are m times differences of the E_k (one-sided at
+        // integer positions, ty = 0: v(y0 + 1) - v(y0))
+        float E[4] = {0.f, 0.f, 0.f, 0.f}, dv[kDcnCpg], amax = 0.f;
+#pragma unroll
+        for (int i = 0; i < kDcnCpg; ++i) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) E[k] += ds[i] * corner_value(e, k, i);
+          dv[i] = ds[i] * m;
+          amax = fmaxf(amax, fabsf(dv[i]));
+          S[i] = val[i] * m;
         }
-        const float* ds = sD + pl * ldd + ch;
-        float dv[V];
+        const float dm = c.cw[0] * E[0] + c.cw[1] * E[1] + c.cw[2] * E[2] +
+                         c.cw[3] * E[3];
+        const float dty =
+            m * ((1.f - c.tx) * (E[2] - E[0]) + c.tx * (E[3] - E[1]));
+        const float dtx =
+            m * ((1.f - c.ty) * (E[1] - E[0]) + c.ty * (E[3] - E[2]));
+        float dvq[kDcnCpg];  // dv in the footprint's fixed-point units
 #pragma unroll
-        for (int j = 0; j < V; ++j) {
-          const float val = e[0][j] * c.cw[0] + e[1][j] * c.cw[1] +
-                            e[2][j] * c.cw[2] + e[3][j] * c.cw[3];
-          const float dsj = ds[j];
-          dm += dsj * val;
-          dv[j] = dsj * c.m;
-          // one-sided at integer positions (ty = 0): v(y0 + 1) - v(y0)
-          dty += dv[j] * ((1.f - c.tx) * (e[2][j] - e[0][j]) +
-                          c.tx * (e[3][j] - e[1][j]));
-          dtx += dv[j] * ((1.f - c.ty) * (e[1][j] - e[0][j]) +
-                          c.ty * (e[3][j] - e[2][j]));
-        }
-        // one 16-byte atomic per four channels (sm_90), each element
-        // added atomically on its own
+        for (int i = 0; i < kDcnCpg; ++i) dvq[i] = dv[i] * to_fix;
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           if (!c.valid[k]) continue;
-          float4* dst = reinterpret_cast<float4*>(dx + c.idx[k] + ch);
           const float w = c.cw[k];
+          const int cy = c.y0 + (k >> 1) - fy0, cx = c.x0 + (k & 1) - fx0;
+          if (cy >= 0 && cy < fh && cx >= 0 && cx < fw && amax * w <= lim) {
+            int* f = fp + (cy * fw + cx) * kFpStride;
 #pragma unroll
-          for (int q = 0; q < V / 4; ++q)
-            atomicAdd(dst + q, make_float4(dv[4 * q] * w, dv[4 * q + 1] * w,
-                                           dv[4 * q + 2] * w,
-                                           dv[4 * q + 3] * w));
-        }
-      }
-      const bool pass_y = !clamp || (raw_dy >= -max_off && raw_dy <= max_off);
-      const bool pass_x = !clamp || (raw_dx >= -max_off && raw_dx <= max_off);
-      T* od = doffset + p * (dg * 18) + g * 18 + tap * 2;
-      od[0] = Tr::from_f(pass_y ? dty : 0.f);
-      od[1] = Tr::from_f(pass_x ? dtx : 0.f);
-      dmask[p * (dg * 9) + g * 9 + tap] = Tr::from_f(dm);
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    dcn_bwd_weight_kernel(const T* __restrict__ x, const T* __restrict__ offset,
-                          const T* __restrict__ mask,
-                          const T* __restrict__ gout, float* __restrict__ dw,
-                          int B, int H, int W, int dg, float max_off,
-                          int clamp) {
-  using Tr = Traits<T>;
-  constexpr int V = Tr::kVec;
-  constexpr int ldp = kTileM + Tr::kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sGt = reinterpret_cast<T*>(smem_raw);  // [kC][ldp] g^T (co, p)
-  T* sSt = sGt + kC * ldp;                  // [kC][ldp] S^T (ci, p)
-
-  const int tap = blockIdx.y;
-  const int cpg = kC / dg;
-  const int nv = cpg / V;
-  const long long P = (long long)B * H * W;
-  const long long ntiles = (P + kTileM - 1) / kTileM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // warp -> 16 output-channel rows x all 64 input channels, over one half
-  // of the tile's pixels (the K dimension of g^T S)
-  const int mrow = (warp & 3) * 16 + (lane >> 2);
-  const int khalf = (warp >> 2) * (kTileM / 2);
-
-  float acc[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[nt][j] = 0.f;
-
-  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const long long p0 = tile * kTileM;
-    for (int it = threadIdx.x; it < kTileM * (kC / V); it += kThreads) {
-      const int pl = it % kTileM, kv = it / kTileM;
-      float v[V];
-      if (p0 + pl < P) {
-        load_vec<T>(gout + (p0 + pl) * kC + kv * V, v);
-      } else {
-#pragma unroll
-        for (int j = 0; j < V; ++j) v[j] = 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < V; ++j) sGt[(kv * V + j) * ldp + pl] = Tr::to_mma(v[j]);
-    }
-    for (int it = threadIdx.x; it < kTileM * dg * nv; it += kThreads) {
-      const int pl = it % kTileM, gv = it / kTileM;
-      const int g = gv / nv, ch = g * cpg + (gv % nv) * V;
-      const long long p = p0 + pl;
-      float vals[V];
-#pragma unroll
-      for (int j = 0; j < V; ++j) vals[j] = 0.f;
-      if (p < P) {
-        float raw_dy, raw_dx;
-        const Corners c = corners<T>(offset, mask, p, g, tap, H, W, dg,
-                                     max_off, clamp, &raw_dy, &raw_dx);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (c.valid[k]) {
-            float e[V];
-            load_vec<T>(x + c.idx[k] + ch, e);
-#pragma unroll
-            for (int j = 0; j < V; ++j) vals[j] += e[j] * c.cw[k];
+            for (int i = 0; i < kDcnCpg; ++i)
+              atomicAdd(f + i, to_fixed(dvq[i] * w));
+          } else {
+            float4* d = reinterpret_cast<float4*>(
+                p.dx + (size_t)c.pix[k] * kDcnC + g * kDcnCpg);
+            atomicAdd(d, make_float4(dv[0] * w, dv[1] * w, dv[2] * w,
+                                     dv[3] * w));
+            atomicAdd(d + 1, make_float4(dv[4] * w, dv[5] * w, dv[6] * w,
+                                         dv[7] * w));
           }
         }
-#pragma unroll
-        for (int j = 0; j < V; ++j) vals[j] *= c.m;
+        const float gy = c.pass_y ? dty : 0.f, gx = c.pass_x ? dtx : 0.f;
+        T* od = p.doff + (size_t)pix * p.doff_stride + g * 18 + 2 * tap;
+        if constexpr (std::is_same<T, float>::value) {
+          *reinterpret_cast<float2*>(od) = make_float2(gy, gx);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(od) =
+              __floats2bfloat162_rn(gy, gx);
+        }
+        float gm = Tr::to_f(Tr::from_f(dm));
+        if (p.om.logits) gm = gm * (1.f - m) * m;
+        p.dmsk[(size_t)pix * p.dmsk_stride + g * 9 + tap] = Tr::from_f(gm);
       }
+      T* sSb = sS + (tap & 1) * kDcnCpg * L::lds;
 #pragma unroll
-      for (int j = 0; j < V; ++j) sSt[(ch + j) * ldp + pl] = Tr::to_mma(vals[j]);
+      for (int i = 0; i < kDcnCpg; ++i)
+        sSb[i * L::lds + tid] = Tr::to_mma(S[i]);
+      __syncthreads();
+
+      // 5. dW[:, tap] += g^T S over this warp's half of the pixels
+      const int m0 = 16 * (warp & 3), k00 = (warp >> 2) * kKPart;
+      const int gq = lane >> 2, t4 = lane & 3;
+      if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+        for (int k0 = k00; k0 < k00 + kKPart; k0 += 8) {
+          const float* r0 = sG + (k0 + t4) * L::ldg + m0 + gq;
+          const float* r1 = sG + (k0 + t4 + 4) * L::ldg + m0 + gq;
+          const float* bs = sSb + gq * L::lds + k0 + t4;
+          mma_tf32(accw[tap], __float_as_uint(r0[0]), __float_as_uint(r0[8]),
+                   __float_as_uint(r1[0]), __float_as_uint(r1[8]),
+                   __float_as_uint(bs[0]), __float_as_uint(bs[4]));
+        }
+      } else {
+        const int mi = lane >> 3;  // which 8 x 8 matrix this lane addresses
+#pragma unroll
+        for (int k0 = k00; k0 < k00 + kKPart; k0 += 16) {
+          uint32_t a[4];
+          ldmatrix_x4_trans(
+              a, smem_u32(sG + (k0 + (lane & 7) + 8 * (mi >> 1)) * L::ldg +
+                          m0 + 8 * (mi & 1)));
+          const T* bs = sSb + gq * L::lds + k0 + 2 * t4;
+          mma_bf16(accw[tap], a[0], a[1], a[2], a[3], ld32(bs),
+                   ld32(bs + 8));
+        }
+      }
     }
+    // every footprint atomic and every read of sG and sS done
     __syncthreads();
-    warp_mma<T>(acc, sGt + mrow * ldp + khalf, sGt + (mrow + 8) * ldp + khalf,
-                sSt + khalf, ldp, kTileM / 2, lane);
-    __syncthreads();
+
+    // flush the footprint into dx (only what was touched) and zero it
+    const float from_fix = fixed_ok ? ldexpf(1.f, ex - kFixBits) : 0.f;
+    for (int i = tid; i < fh * fw * 2; i += kThreads) {
+      const int q = i >> 1, h = i & 1;
+      int* f = fp + q * kFpStride + 4 * h;
+      const int v0 = f[0], v1 = f[1], v2 = f[2], v3 = f[3];
+      if (v0 | v1 | v2 | v3) {
+        // only corners inside the image were added
+        const int yy = fy0 + q / fw, xx = fx0 + q % fw;
+        atomicAdd(reinterpret_cast<float4*>(
+                      p.dx + (size_t)((b * H + yy) * W + xx) * kDcnC +
+                      g * kDcnCpg + 4 * h),
+                  make_float4(v0 * from_fix, v1 * from_fix, v2 * from_fix,
+                              v3 * from_fix));
+        f[0] = f[1] = f[2] = f[3] = 0;
+      }
+    }
+    // the next tile's __syncthreads (after its g tile) orders these zeros
+    // before its footprint atomics
   }
 
-  const int t = lane & 3;
+  const int gq = lane >> 2, t4 = lane & 3;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int tap = 0; tap < 9; ++tap)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int co = mrow + (j >> 1) * 8, ci = nt * 8 + 2 * t + (j & 1);
-      atomicAdd(dw + ((size_t)co * 9 + tap) * kC + ci, acc[nt][j]);
+      const int co = 16 * (warp & 3) + gq + 8 * (j >> 1);
+      const int ci = 2 * t4 + (j & 1);
+      atomicAdd(p.dw + (co * 9 + tap) * kDcnC + g * kDcnCpg + ci,
+                accw[tap][j]);
     }
 }
 
-template <typename T>
-int launch(const void* x, const void* offset, const void* mask,
-           const void* wt, const void* gout, void* dx, void* doffset,
-           void* dmask, void* dw, int B, int H, int W, int dg, float max_off,
-           int clamp, void* stream) {
-  using Tr = Traits<T>;
-  const size_t smem_a = (size_t)(kTileM + kC) * (kC + Tr::kPad) * sizeof(T) +
-                        (size_t)kTileM * (kC + 4) * sizeof(float);
-  const size_t smem_b = (size_t)2 * kC * (kTileM + Tr::kPad) * sizeof(T);
-  cudaFuncSetAttribute(dcn_bwd_input_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem_a);
-  cudaFuncSetAttribute(dcn_bwd_weight_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem_b);
-  const long long P = (long long)B * H * W;
-  const long long tiles = (P + kTileM - 1) / kTileM;
-  if (tiles > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    dcn_bwd_input_kernel<T><<<(unsigned)tiles, kThreads, smem_a, s>>>(
-        (const T*)x, (const T*)offset, (const T*)mask, (const T*)wt,
-        (const T*)gout, (float*)dx, (T*)doffset, (T*)dmask, B, H, W, dg,
-        max_off, clamp);
-    int dev = 0, sms = 132;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    // about 4 blocks per SM over the 9 taps
-    const long long per_tap = (4LL * sms + 8) / 9;
-    const unsigned nbx = (unsigned)(tiles < per_tap ? tiles : per_tap);
-    dcn_bwd_weight_kernel<T><<<dim3(nbx, 9), kThreads, smem_b, s>>>(
-        (const T*)x, (const T*)offset, (const T*)mask, (const T*)gout,
-        (float*)dw, B, H, W, dg, max_off, clamp);
+// Error code of the host side, beside cudaGetLastError()'s.
+constexpr int kErrRadius = 9101;
+
+template <typename T, int TH>
+int launch_th(Params<T> p, int B, int rf, void* stream) {
+  p.tiles_x = (p.W + kTW - 1) / kTW;
+  p.tiles_y = (p.H + TH - 1) / TH;
+  p.ntiles = B * p.tiles_x * p.tiles_y;
+  static bool attribute_set = false;
+  if (!attribute_set) {
+    cudaFuncSetAttribute(dcn_bwd_kernel<T, TH>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem_bytes<T, TH>(kRfMax));
+    attribute_set = true;
   }
+  const int cap = min_blocks<T, TH>() * sm_count() / kDcnGroups;
+  const int slots = p.ntiles < cap ? p.ntiles : cap;
+  if (slots > 0)
+    dcn_bwd_kernel<T, TH><<<slots * kDcnGroups, TH * kTW,
+                            smem_bytes<T, TH>(rf), (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-}  // namespace rvsr
-
-// x (B,H,W,64); offset (B,H,W,dg*18) laid out (dg, tap, (dy,dx)); mask
-// (B,H,W,dg*9) after the sigmoid; wt (64, 9, 64) = (cin, tap, cout); gout
-// (B,H,W,64) the cotangent of the output before bias and activation.
-// Outputs: dx (B,H,W,64) f32 and dw (64, 9, 64) = (cout, tap, cin) f32, both
-// accumulated with atomics and so zeroed by the caller; doffset and dmask in
-// the input layouts and type.  clamp != 0 clips every offset to
-// [-max_off, max_off] and zeroes the offset gradient beyond it.  Returns
-// cudaGetLastError().
-extern "C" int dcn_bwd_bf16(const void* x, const void* offset, const void* mask,
-                            const void* wt, const void* gout, void* dx,
-                            void* doffset, void* dmask, void* dw, int B, int H,
-                            int W, int dg, float max_off, int clamp,
-                            void* stream) {
-  return rvsr::launch<__nv_bfloat16>(x, offset, mask, wt, gout, dx, doffset,
-                                     dmask, dw, B, H, W, dg, max_off, clamp,
-                                     stream);
+template <typename T>
+int entry(const void* x, const void* off, int off_stride, const void* msk,
+          int msk_stride, int logits, const void* weight, const void* gout,
+          void* dx, void* doff, int doff_stride, void* dmsk, int dmsk_stride,
+          void* dw, int B, int H, int W, float max_off, int clamp, int rf,
+          void* stream) {
+  if (rf < 0 || rf > kRfMax) return kErrRadius;
+  Params<T> p;
+  p.x = (const T*)x;
+  p.om = OffMask<T>{(const T*)off, (const T*)msk, off_stride, msk_stride,
+                    logits};
+  p.weight = (const T*)weight;
+  p.gout = (const T*)gout;
+  p.dx = (float*)dx;
+  p.doff = (T*)doff;
+  p.dmsk = (T*)dmsk;
+  p.doff_stride = doff_stride;
+  p.dmsk_stride = dmsk_stride;
+  p.dw = (float*)dw;
+  p.H = H, p.W = W, p.clamp = clamp, p.rf = rf, p.max_off = max_off;
+  return launch_th<T, kTileRows<T>()>(p, B, rf, stream);
 }
 
-extern "C" int dcn_bwd_f32(const void* x, const void* offset, const void* mask,
-                           const void* wt, const void* gout, void* dx,
-                           void* doffset, void* dmask, void* dw, int B, int H,
-                           int W, int dg, float max_off, int clamp,
-                           void* stream) {
-  return rvsr::launch<float>(x, offset, mask, wt, gout, dx, doffset, dmask, dw,
-                             B, H, W, dg, max_off, clamp, stream);
+}  // namespace bwd
+}  // namespace rvsr
+
+// x (B,H,W,64); offsets and mask as dcn_fwd.cu reads them (strides, and
+// logits != 0 for the mask's logits); weight (64, 64, 3, 3) OIHW; gout
+// (B,H,W,64) the cotangent of the output before bias and activation.
+// Outputs: dx (B,H,W,64) f32 and dw (64, 9, 64) = (cout, tap, cin) f32, both
+// summed with atomics and so zeroed by the caller; the offset gradient at
+// doff + p * doff_stride and the mask gradient (the logits' where
+// logits != 0) at dmsk + p * dmsk_stride, in the input type.  clamp != 0
+// clips every offset to [-max_off, max_off] and zeroes the offset gradient
+// beyond it.  rf: the dx footprint's radius (0 ... 8; ceil(max_off) where
+// that fits).  Returns cudaGetLastError(), or 9101 (rf out of range).
+extern "C" int dcn_bwd_bf16(const void* x, const void* off, int off_stride,
+                            const void* msk, int msk_stride, int logits,
+                            const void* weight, const void* gout, void* dx,
+                            void* doff, int doff_stride, void* dmsk,
+                            int dmsk_stride, void* dw, int B, int H, int W,
+                            float max_off, int clamp, int rf, void* stream) {
+  return rvsr::bwd::entry<__nv_bfloat16>(
+      x, off, off_stride, msk, msk_stride, logits, weight, gout, dx, doff,
+      doff_stride, dmsk, dmsk_stride, dw, B, H, W, max_off, clamp, rf,
+      stream);
+}
+
+extern "C" int dcn_bwd_f32(const void* x, const void* off, int off_stride,
+                           const void* msk, int msk_stride, int logits,
+                           const void* weight, const void* gout, void* dx,
+                           void* doff, int doff_stride, void* dmsk,
+                           int dmsk_stride, void* dw, int B, int H, int W,
+                           float max_off, int clamp, int rf, void* stream) {
+  return rvsr::bwd::entry<float>(x, off, off_stride, msk, msk_stride, logits,
+                                 weight, gout, dx, doff, doff_stride, dmsk,
+                                 dmsk_stride, dw, B, H, W, max_off, clamp, rf,
+                                 stream);
 }

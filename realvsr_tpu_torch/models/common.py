@@ -27,7 +27,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from realvsr_tpu_torch.ops.deform_conv import apply_act, modulated_deform_conv
+from realvsr_tpu_torch.ops.deform_conv import (apply_act,
+                                               modulated_deform_conv_om)
 from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3_autograd
 from realvsr_tpu_torch.ops.resize import pixel_shuffle
 
@@ -155,8 +156,12 @@ class DCNPack(nn.Module):
 
     ``conv_offset_mask`` (zero-initialised, on the conv3x3 kernel) gives
     3*dg*9 channels split into o1, o2, mask; offset = concat(o1, o2) in the
-    (dg, tap, (dy, dx)) layout, mask through the sigmoid.  ``max_offset``
-    clamps the offsets (None: exact).
+    (dg, tap, (dy, dx)) layout, mask through the sigmoid.  concat(o1, o2)
+    is the first 2*dg*9 channels as they lie, so the DCN takes the tensor
+    whole (:func:`~realvsr_tpu_torch.ops.deform_conv.
+    modulated_deform_conv_om`): on the card the kernels read the offsets in
+    place and take the sigmoid themselves, with no chunk, concat or sigmoid
+    tensor.  ``max_offset`` clamps the offsets (None: exact).
     """
 
     def __init__(self, cin: int, cout: int, deformable_groups: int = 8,
@@ -175,13 +180,10 @@ class DCNPack(nn.Module):
 
     def forward(self, x: torch.Tensor, offset_feat: torch.Tensor,
                 act: str | None = None) -> torch.Tensor:
-        o1, o2, m = torch.chunk(self.conv_offset_mask(offset_feat), 3, dim=-1)
-        offset = torch.cat([o1, o2], dim=-1)
-        mask = torch.sigmoid(m).contiguous()
-        return modulated_deform_conv(
-            x, offset, mask, self.weight.to(x.dtype), self.bias.to(x.dtype),
-            deformable_groups=self.deformable_groups,
-            max_offset=self.max_offset, act=act)
+        return modulated_deform_conv_om(
+            x, self.conv_offset_mask(offset_feat), self.weight.to(x.dtype),
+            self.bias.to(x.dtype), self.deformable_groups, self.max_offset,
+            act)
 
 
 class Upsampler(nn.Module):

@@ -21,7 +21,9 @@ dcn_autograd`, 3x3 / stride 1 / pad 1) and a CPU tensor to
 :func:`modulated_deform_conv_plain`, which autograd differentiates; its
 ``clamp`` passes the offset gradient on [-R, R] inclusive, as the JAX
 package's clip (``deform_conv_block.py::_fold_dcoord``) and the backward
-kernel do.
+kernel do.  :func:`modulated_deform_conv_om` is the same op fed with
+DCNPack's ``conv_offset_mask`` output as it is (:func:`split_om`): the
+kernels read it in place and take the sigmoid themselves.
 """
 from __future__ import annotations
 
@@ -132,6 +134,36 @@ def modulated_deform_conv_plain(x: torch.Tensor, offset: torch.Tensor,
     if bias is not None:
         acc = acc + bias.float()
     return apply_act(acc, act).reshape(b, ho, wo, cout).to(x.dtype)
+
+
+def split_om(om: torch.Tensor, deformable_groups: int):
+    """(offset, mask) of DCNPack's (..., dg*27) offset/mask tensor: the
+    first dg*18 channels are concat(o1, o2), the offsets in the (dg, tap,
+    (dy, dx)) layout, and the mask is the sigmoid of the rest
+    (``realvsr_tpu/models/common.py::DCNPack``)."""
+    n = deformable_groups * 18
+    return om[..., :n], torch.sigmoid(om[..., n:])
+
+
+def modulated_deform_conv_om(x: torch.Tensor, om: torch.Tensor,
+                             weight: torch.Tensor,
+                             bias: torch.Tensor | None = None,
+                             deformable_groups: int = 8,
+                             max_offset: float | None = None,
+                             act: str | None = None) -> torch.Tensor:
+    """Differentiable DCNv2 3x3 / stride 1 / pad 1 from ``om`` (B, H, W,
+    dg*27), DCNPack's ``conv_offset_mask`` output: for a CUDA tensor the
+    kernels read it in place (:func:`realvsr_tpu_torch.ops.kernels.dcn.
+    dcn_om_autograd`); for a CPU tensor :func:`modulated_deform_conv_plain`
+    of :func:`split_om`."""
+    if x.device.type == "cpu":
+        return modulated_deform_conv_plain(
+            x, *split_om(om, deformable_groups), weight, bias, 1, 1, 1,
+            deformable_groups, max_offset, act)
+    from realvsr_tpu_torch.ops.kernels.dcn import dcn_om_autograd
+
+    return dcn_om_autograd(x, om, weight, bias, deformable_groups, act=act,
+                           max_offset=max_offset)
 
 
 def modulated_deform_conv(x: torch.Tensor, offset: torch.Tensor,

@@ -1,54 +1,130 @@
 """Kernels 1 and 2: DCNv2 forward and backward on Hopper
-(``csrc/dcn_fwd.cu``, ``csrc/dcn_bwd.cu``).
+(``csrc/dcn_fwd.cu``, ``csrc/dcn_bwd.cu``, sampling in
+``csrc/dcn_sample.cuh``).
 
 The forward replaces ``realvsr_tpu/ops/pallas/dcn_frame_kernel.py::
 dcn_frame_fused`` (input prep ``realvsr_tpu/ops/deform_conv_block.py::
 _frame_prep``), the backward ``dcn_frame_kernel.py::dcn_frame_fused_bwd``
 with its XLA epilogues ``_fold_dpg`` / ``_fold_dcoord``.  Both are bound on
-the H100 by memory: the forward moves ~1.1 GB (x, offset, mask, out) for
+the H100 by memory: the forward moves ~1.1 GB (x, offsets, mask, out) for
 116 GFLOP at the L1 shape (3, 512, 1024, 64); the backward ~1.25 KB per
-pixel (x, offset, mask, g read; dx, doffset, dmask written) for 4 * 576 *
-64 flop.  Both keep the sampled columns out of device memory (the backward
-recomputes them) and run the tap products on the tensor cores
-(``mma.sync``); see the sources for the designs.  Positions are exact f32:
+pixel (x, offsets, mask, g read; dx and the offset and mask gradients
+written) for 4 * 576 * 64 flop.  The forward keeps its weight resident and
+overlaps the gathers of tap t + 1 with wgmma on tap t; the backward takes
+one deformable group per block, sums dx in a shared-memory footprint and
+folds dW into the same pass; see the sources.  Positions are exact f32:
 the TPU kernels' int16 fixed-point positions and lane panels are not
-carried over.
+carried over.  Both take 64 input channels in 8 deformable groups.
 
-:func:`dcn_fwd` and :func:`dcn_bwd` launch their kernels for a CUDA tensor
-and count the launch in ``.launches``; for a CPU tensor they run
-:func:`dcn_fwd_plain` / :func:`dcn_bwd_plain`.  :func:`dcn_autograd` is
-the differentiable op: forward :func:`dcn_fwd`, backward :func:`dcn_bwd`
-after the fused activation and bias are undone here, as the JAX package
-adds the bias outside its kernel and leaves its gradient to XLA.
+Two forms of the offsets and mask, one kernel each way:
+
+* separate: ``offset`` (B, H, W, dg*18) and ``mask`` (B, H, W, dg*9) after
+  the sigmoid — :func:`dcn_fwd`, :func:`dcn_bwd`, :func:`dcn_autograd`;
+* in place: ``om``, DCNPack's (B, H, W, dg*27) ``conv_offset_mask`` output
+  (offsets in channels [0, dg*18), mask logits after them), read where it
+  lies; the kernels take the sigmoid of the logits (rounded to the input
+  dtype, as ``torch.sigmoid`` rounds) and the backward writes one
+  (B, H, W, dg*27) gradient, the logits' part times s (1 - s) —
+  :func:`dcn_fwd_om`, :func:`dcn_bwd_om`, :func:`dcn_om_autograd`.  No
+  chunk, concat or sigmoid tensor is made.
+
+Each launches its kernel for a CUDA tensor (or raises on what the kernel
+does not take) and counts the launch in ``dcn_fwd.launches`` /
+``dcn_bwd.launches``; for a CPU tensor it runs the plain version beside it
+(``*_plain``).  The autograd forms undo the fused activation and bias
+before the backward kernel, as the JAX package adds the bias outside its
+kernel and leaves its gradient to XLA.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from realvsr_tpu_torch.ops.deform_conv import (act_grad,
-                                               modulated_deform_conv_plain)
+                                               modulated_deform_conv_plain,
+                                               split_om)
 from realvsr_tpu_torch.ops.kernels import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# x, off, off_stride, msk, msk_stride, logits, weight, packed, bias, out,
+# B, H, W, act, max_off, clamp, stream
 _FWD_FUNCS = tuple(
-    (f"dcn_fwd_{s}", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
-                      _P))
+    (f"dcn_fwd_{s}", (_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I,
+                      _I, _F, _I, _P))
     for s in _build.SUFFIX.values())
+# x, off, off_stride, msk, msk_stride, logits, weight, gout, dx, doff,
+# doff_stride, dmsk, dmsk_stride, dw, B, H, W, max_off, clamp, rf, stream
 _BWD_FUNCS = tuple(
-    (f"dcn_bwd_{s}", (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                      _I, _P))
+    (f"dcn_bwd_{s}", (_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I,
+                      _P, _I, _I, _I, _F, _I, _I, _P))
     for s in _build.SUFFIX.values())
-_TILE_M, _COUT, _SMEM_MAX = 128, 64, 232448
+C, GROUPS, COUT = 64, 8, 64   # the kernels' input channels, groups, outputs
+_SMEM_MAX, _LINE = 232448, 128
+# tile rows of both kernels (dcn_fwd.cu, dcn_bwd.cu: kTileRows), of 16
+# pixels (forward) or 32 (backward); each runs one block per SM, of 32
+# threads a row
+TILE_ROWS = {torch.bfloat16: 16, torch.float32: 8}
+BWD_TW = 32                   # dcn_bwd.cu: kTW
+RF_MAX = 8                    # dcn_bwd.cu: kRfMax
+_FP_STRIDE = 9                # dcn_bwd.cu: kFpStride
+
+
+def fwd_smem_bytes(dtype: torch.dtype) -> int:
+    """Shared memory of a forward block (``dcn_fwd.cu::smem_bytes``): the
+    resident packed weight and two A stages of a tile's pixels."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    chunks = C * es // _LINE
+    return chunks * (9 * COUT + 2 * TILE_ROWS[dtype] * 16) * _LINE
+
+
+def footprint_radius(max_offset: float | None) -> int:
+    """The backward's dx footprint radius: every corner of a tile with
+    offsets clamped to ±R lies within ceil(R) + 1 (+ 2 below and right) of
+    it; beyond :data:`RF_MAX`, and with no clamp, corners outside go to the
+    global path."""
+    if max_offset is None:
+        return RF_MAX
+    return min(max(math.ceil(float(max_offset)), 0), RF_MAX)
+
+
+def footprint(tile_y0: int, tile_x0: int, rf: int, th: int):
+    """(y0, x0, rows, cols) of the footprint of the backward tile of ``th``
+    rows whose first pixel is (tile_y0, tile_x0) (``dcn_bwd.cu``: fy0, fx0,
+    fh, fw)."""
+    return (tile_y0 - 1 - rf, tile_x0 - 1 - rf, th + 2 * rf + 3,
+            BWD_TW + 2 * rf + 3)
+
+
+def bwd_smem_bytes(dtype: torch.dtype, rf: int) -> int:
+    """Shared memory of a backward block (``dcn_bwd.cu::smem_bytes``)."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    pad = 16 // es
+    th = TILE_ROWS[dtype]
+    px = th * BWD_TW
+    fixed = (9 * 8 * (C + pad) * es + px * (C + pad) * es + px * 8 * 4
+             + 2 * 8 * (px + pad) * es + px // 8)
+    _, _, fh, fw = footprint(0, 0, rf, th)
+    return fixed + fh * fw * _FP_STRIDE * 4
+
+
+def bwd_grid(b: int, h: int, w: int, sms: int, dtype: torch.dtype):
+    """The backward's walk: for each block of its grid, (group, tiles); a
+    tile is ``(b * tiles_y + ty) * tiles_x + tx`` (``dcn_bwd.cu``)."""
+    th = TILE_ROWS[dtype]
+    ntiles = b * -(-h // th) * -(-w // BWD_TW)
+    slots = min(ntiles, sms // GROUPS)
+    return [(i % GROUPS, list(range(i // GROUPS, ntiles, slots)))
+            for i in range(slots * GROUPS)]
 
 
 def _clamp_args(max_offset):
     return (0.0, 0) if max_offset is None else (float(max_offset), 1)
 
 
-def _check_common(name, x, offset, mask, dg):
-    """Validate what both kernels read; returns (b, h, w, c)."""
+def _check_x(name, x, dg):
+    """Validate the input both kernels read; returns (b, h, w)."""
     if not x.is_cuda:
         raise ValueError(f"{name}: no kernel for device {x.device}")
     if x.dtype not in _build.SUFFIX:
@@ -56,15 +132,51 @@ def _check_common(name, x, offset, mask, dg):
     if x.dim() != 4:
         raise ValueError(f"{name}: x must be (B, H, W, C)")
     b, h, w, c = x.shape
-    vec = 16 // x.element_size()
-    if c % 16 or c % dg or (c // dg) % vec:
-        raise ValueError(f"{name}: C={c} with dg={dg} needs C % 16 == 0 and "
-                         f"C/dg % {vec} == 0")
+    if c != C or dg != GROUPS:
+        raise ValueError(f"{name}: the kernel takes C = {C} in {GROUPS} "
+                         f"deformable groups, got C = {c}, dg = {dg}")
+    if b * h * w >= 2 ** 31:
+        raise ValueError(f"{name}: {b * h * w} pixels exceed 32-bit indices")
+    _build.check_tensor(x, "x", (b, h, w, c), x.dtype, x.device)
+    return b, h, w
+
+
+def _sources(x, offset, mask, om, dg):
+    """(offset ptr, its pixel stride, mask ptr, its stride, logits) for the
+    kernels, after checking the tensors they come from."""
+    b, h, w, _ = x.shape
     dt, dev = x.dtype, x.device
-    _build.check_tensor(x, "x", (b, h, w, c), dt, dev)
+    if om is not None:
+        _build.check_tensor(om, "om", (b, h, w, dg * 27), dt, dev)
+        return (om.data_ptr(), dg * 27, om.data_ptr() + dg * 18
+                * om.element_size(), dg * 27, 1)
     _build.check_tensor(offset, "offset", (b, h, w, dg * 18), dt, dev)
     _build.check_tensor(mask, "mask", (b, h, w, dg * 9), dt, dev)
-    return b, h, w, c
+    return offset.data_ptr(), dg * 18, mask.data_ptr(), dg * 9, 0
+
+
+def _launch_fwd(x, offset, mask, om, weight, bias, dg, act, max_offset):
+    if act not in _build.ACTS:
+        raise ValueError(f"dcn_fwd: unknown activation {act!r}")
+    b, h, w = _check_x("dcn_fwd", x, dg)
+    src = _sources(x, offset, mask, om, dg)
+    dt, dev = x.dtype, x.device
+    if fwd_smem_bytes(dt) > _SMEM_MAX:
+        raise ValueError("dcn_fwd: shared memory exceeded")
+    _build.check_tensor(weight, "weight", (COUT, C, 3, 3), dt, dev)
+    if bias is not None:
+        _build.check_tensor(bias, "bias", (COUT,), dt, dev)
+    out = torch.empty(b, h, w, COUT, device=dev, dtype=dt)
+    packed = torch.empty(C * 9 * COUT, device=dev, dtype=dt)
+    lib = _build.load("dcn_fwd", _FWD_FUNCS)
+    with torch.cuda.device(dev):
+        code = getattr(lib, f"dcn_fwd_{_build.SUFFIX[dt]}")(
+            x.data_ptr(), *src, weight.data_ptr(), packed.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            b, h, w, _build.ACTS[act], *_clamp_args(max_offset),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, "dcn_fwd")
+    return out
 
 
 def dcn_fwd_plain(x, offset, mask, weight, bias=None, deformable_groups=8,
@@ -75,17 +187,24 @@ def dcn_fwd_plain(x, offset, mask, weight, bias=None, deformable_groups=8,
         max_offset, act)
 
 
+def dcn_fwd_om_plain(x, om, weight, bias=None, deformable_groups=8,
+                     act=None, max_offset=None):
+    """:func:`dcn_fwd_plain` from DCNPack's offset/mask tensor ``om``."""
+    return dcn_fwd_plain(x, *split_om(om, deformable_groups), weight, bias,
+                         deformable_groups, act, max_offset)
+
+
 def dcn_fwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
             weight: torch.Tensor, bias: torch.Tensor | None = None,
             deformable_groups: int = 8, act: str | None = None,
             max_offset: float | None = None) -> torch.Tensor:
     """DCNv2 3x3 / s1 / p1 forward with fused bias and activation.
 
-    x: (B, H, W, C) contiguous NHWC; offset: (B, H, W, dg*9*2) laid out
+    x: (B, H, W, 64) contiguous NHWC; offset: (B, H, W, dg*9*2) laid out
     (dg, tap, (dy, dx)); mask: (B, H, W, dg*9) after the sigmoid; weight
-    (64, C, 3, 3); bias (64,) or None; act None / "relu" / "lrelu";
-    max_offset None (exact) or R (offsets clamped to [-R, R]).  All of one
-    dtype, bf16 or f32 (f32 runs the tensor cores in TF32).
+    (64, 64, 3, 3); bias (64,) or None; act None / "relu" / "lrelu";
+    max_offset None (exact) or R (offsets clamped to [-R, R]); dg = 8.  All
+    of one dtype, bf16 or f32 (f32 runs the tensor cores in TF32).
     """
     if x.device.type == "cpu":
         return dcn_fwd_plain(x, offset, mask, weight, bias, deformable_groups,
@@ -96,36 +215,46 @@ def dcn_fwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     return out
 
 
-def launch_fwd(x, offset, mask, weight, bias, deformable_groups, act,
-               max_offset) -> torch.Tensor:
-    """Check the CUDA tensors and launch the forward kernel; the caller
-    counts the launch (:func:`dcn_fwd`, or the block API of
-    ``ops/deform_conv_block.py``, which counts its own)."""
-    if act not in _build.ACTS:
-        raise ValueError(f"dcn_fwd: unknown activation {act!r}")
-    dg = deformable_groups
-    b, h, w, c = _check_common("dcn_fwd", x, offset, mask, dg)
-    if (_TILE_M + _COUT) * (c + 16 // x.element_size()) * x.element_size() \
-            > _SMEM_MAX:
-        raise ValueError(f"dcn_fwd: C={c} exceeds shared memory")
-    dt, dev = x.dtype, x.device
-    _build.check_tensor(weight, "weight", (_COUT, c, 3, 3), dt, dev)
-    if bias is not None:
-        _build.check_tensor(bias, "bias", (_COUT,), dt, dev)
-    wk = weight.permute(0, 2, 3, 1).contiguous()  # (cout, tap, cin)
-    out = torch.empty(b, h, w, _COUT, device=dev, dtype=dt)
-    lib = _build.load("dcn_fwd", _FWD_FUNCS)
-    with torch.cuda.device(dev):
-        code = getattr(lib, f"dcn_fwd_{_build.SUFFIX[dt]}")(
-            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), wk.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
-            b, h, w, c, dg, _build.ACTS[act], *_clamp_args(max_offset),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(code, "dcn_fwd")
+def dcn_fwd_om(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
+               bias: torch.Tensor | None = None, deformable_groups: int = 8,
+               act: str | None = None,
+               max_offset: float | None = None) -> torch.Tensor:
+    """:func:`dcn_fwd` with the offsets and mask logits read in place from
+    ``om`` (B, H, W, dg*27); counted in ``dcn_fwd.launches``."""
+    if x.device.type == "cpu":
+        return dcn_fwd_om_plain(x, om, weight, bias, deformable_groups, act,
+                                max_offset)
+    out = _launch_fwd(x, None, None, om, weight, bias, deformable_groups,
+                      act, max_offset)
+    dcn_fwd.launches += 1
     return out
 
 
+def launch_fwd(x, offset, mask, weight, bias, deformable_groups, act,
+               max_offset) -> torch.Tensor:
+    """Check the CUDA tensors and launch the forward kernel on the separate
+    offsets and mask; the caller counts the launch (:func:`dcn_fwd`, or the
+    block API of ``ops/deform_conv_block.py``, which counts its own)."""
+    return _launch_fwd(x, offset, mask, None, weight, bias,
+                       deformable_groups, act, max_offset)
+
+
 dcn_fwd.launches = 0
+
+
+def _grads(x, offset, mask, om, weight, g, deformable_groups, max_offset):
+    """Autograd of the plain op (no bias, no activation) for the output
+    cotangent ``g``, w.r.t. x, the offsets and mask (or ``om``) and the
+    weight."""
+    with torch.enable_grad():
+        srcs = (offset, mask) if om is None else (om,)
+        leaves = [t.detach().requires_grad_() for t in (x, *srcs, weight)]
+        off_mask = (leaves[1:3] if om is None
+                    else split_om(leaves[1], deformable_groups))
+        out = modulated_deform_conv_plain(
+            leaves[0], *off_mask, leaves[-1], None, 1, 1, 1,
+            deformable_groups, max_offset, None)
+        return torch.autograd.grad(out, leaves, g)
 
 
 def dcn_bwd_plain(x, offset, mask, weight, g, deformable_groups=8,
@@ -133,12 +262,49 @@ def dcn_bwd_plain(x, offset, mask, weight, g, deformable_groups=8,
     """The backward kernel's function in plain PyTorch: the gradients of
     :func:`modulated_deform_conv_plain` (no bias, no activation) with
     output cotangent ``g``.  Returns (dx, doffset, dmask, dweight)."""
-    with torch.enable_grad():
-        leaves = [t.detach().requires_grad_()
-                  for t in (x, offset, mask, weight)]
-        out = modulated_deform_conv_plain(
-            *leaves, None, 1, 1, 1, deformable_groups, max_offset, None)
-        return torch.autograd.grad(out, leaves, g)
+    return _grads(x, offset, mask, None, weight, g, deformable_groups,
+                  max_offset)
+
+
+def dcn_bwd_om_plain(x, om, weight, g, deformable_groups=8,
+                     max_offset=None):
+    """:func:`dcn_bwd_plain` from ``om``: the gradients through DCNPack's
+    split and sigmoid.  Returns (dx, dom, dweight), dom (B, H, W, dg*27)."""
+    return _grads(x, None, None, om, weight, g, deformable_groups,
+                  max_offset)
+
+
+def _launch_bwd(x, offset, mask, om, weight, g, dg, max_offset):
+    b, h, w = _check_x("dcn_bwd", x, dg)
+    src = _sources(x, offset, mask, om, dg)
+    dt, dev = x.dtype, x.device
+    rf = footprint_radius(max_offset)
+    if bwd_smem_bytes(dt, rf) > _SMEM_MAX:
+        raise ValueError("dcn_bwd: shared memory exceeded")
+    _build.check_tensor(weight, "weight", (COUT, C, 3, 3), dt, dev)
+    _build.check_tensor(g, "g", (b, h, w, COUT), dt, dev)
+    dx = torch.zeros(b, h, w, C, device=dev, dtype=torch.float32)
+    dw = torch.zeros(COUT, 9, C, device=dev, dtype=torch.float32)
+    if om is None:
+        doffset, dmask = torch.empty_like(offset), torch.empty_like(mask)
+        dsts = (doffset.data_ptr(), dg * 18, dmask.data_ptr(), dg * 9)
+    else:
+        dom = torch.empty_like(om)
+        dsts = (dom.data_ptr(), dg * 27,
+                dom.data_ptr() + dg * 18 * dom.element_size(), dg * 27)
+    lib = _build.load("dcn_bwd", _BWD_FUNCS)
+    with torch.cuda.device(dev):
+        code = getattr(lib, f"dcn_bwd_{_build.SUFFIX[dt]}")(
+            x.data_ptr(), *src, weight.data_ptr(), g.data_ptr(),
+            dx.data_ptr(), *dsts, dw.data_ptr(), b, h, w,
+            *_clamp_args(max_offset), rf,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, "dcn_bwd")
+    dcn_bwd.launches += 1
+    dweight = dw.view(COUT, 3, 3, C).permute(0, 3, 1, 2).to(dt)
+    if om is None:
+        return dx.to(dt), doffset, dmask, dweight
+    return dx.to(dt), dom, dweight
 
 
 def dcn_bwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
@@ -147,40 +313,36 @@ def dcn_bwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     """DCNv2 3x3 / s1 / p1 backward: (dx, doffset, dmask, dweight) for the
     output cotangent ``g`` (B, H, W, 64), taken before bias and activation.
 
-    Same inputs and layouts as :func:`dcn_fwd`, with C = 64.  dx and
-    dweight are summed in f32 with atomics (the order of the sums changes
-    from run to run) and cast to the input dtype; doffset is zero where
-    the clamp cut the offset (the gate passes on [-R, R] inclusive).
+    Same inputs and layouts as :func:`dcn_fwd`.  dx and dweight are summed
+    in f32 with atomics (the order of the sums changes from run to run) and
+    cast to the input dtype; doffset is zero where the clamp cut the offset
+    (the gate passes on [-R, R] inclusive).
     """
     if x.device.type == "cpu":
         return dcn_bwd_plain(x, offset, mask, weight, g, deformable_groups,
                              max_offset)
-    dg = deformable_groups
-    b, h, w, c = _check_common("dcn_bwd", x, offset, mask, dg)
-    if c != _COUT:
-        raise ValueError(f"dcn_bwd: the kernel takes C = {_COUT}, got {c}")
-    dt, dev = x.dtype, x.device
-    _build.check_tensor(weight, "weight", (_COUT, c, 3, 3), dt, dev)
-    _build.check_tensor(g, "g", (b, h, w, _COUT), dt, dev)
-    wt = weight.permute(1, 2, 3, 0).contiguous()  # (cin, tap, cout)
-    dx = torch.zeros(b, h, w, c, device=dev, dtype=torch.float32)
-    dw = torch.zeros(_COUT, 9, c, device=dev, dtype=torch.float32)
-    doffset = torch.empty_like(offset)
-    dmask = torch.empty_like(mask)
-    lib = _build.load("dcn_bwd", _BWD_FUNCS)
-    with torch.cuda.device(dev):
-        code = getattr(lib, f"dcn_bwd_{_build.SUFFIX[dt]}")(
-            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), wt.data_ptr(),
-            g.data_ptr(), dx.data_ptr(), doffset.data_ptr(), dmask.data_ptr(),
-            dw.data_ptr(), b, h, w, dg, *_clamp_args(max_offset),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(code, "dcn_bwd")
-    dcn_bwd.launches += 1
-    dweight = dw.view(_COUT, 3, 3, c).permute(0, 3, 1, 2)
-    return dx.to(dt), doffset, dmask, dweight.to(dt)
+    return _launch_bwd(x, offset, mask, None, weight, g, deformable_groups,
+                       max_offset)
+
+
+def dcn_bwd_om(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
+               g: torch.Tensor, deformable_groups: int = 8,
+               max_offset: float | None = None):
+    """:func:`dcn_bwd` from ``om``: (dx, dom, dweight), dom the gradient of
+    ``om`` (B, H, W, dg*27) — the offset gradient as it is and the mask
+    gradient times s (1 - s); counted in ``dcn_bwd.launches``."""
+    if x.device.type == "cpu":
+        return dcn_bwd_om_plain(x, om, weight, g, deformable_groups,
+                                max_offset)
+    return _launch_bwd(x, None, None, om, weight, g, deformable_groups,
+                       max_offset)
 
 
 dcn_bwd.launches = 0
+
+
+def _bias_grad(g_pre, has_bias, dtype):
+    return g_pre.float().sum((0, 1, 2)).to(dtype) if has_bias else None
 
 
 class _DCN(torch.autograd.Function):
@@ -199,9 +361,26 @@ class _DCN(torch.autograd.Function):
         g_pre = act_grad(g, out, act).contiguous()
         dx, doffset, dmask, dweight = dcn_bwd(x, offset, mask, weight, g_pre,
                                               dg, max_offset)
-        dbias = (g_pre.float().sum((0, 1, 2)).to(g.dtype) if has_bias
-                 else None)
-        return dx, doffset, dmask, dweight, dbias, None, None, None
+        return (dx, doffset, dmask, dweight,
+                _bias_grad(g_pre, has_bias, g.dtype), None, None, None)
+
+
+class _DCNOm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, om, weight, bias, dg, act, max_offset):
+        out = dcn_fwd_om(x, om, weight, bias, dg, act, max_offset)
+        ctx.save_for_backward(x, om, weight, None if act is None else out)
+        ctx.conf = (dg, act, max_offset, bias is not None)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, om, weight, out = ctx.saved_tensors
+        dg, act, max_offset, has_bias = ctx.conf
+        g_pre = act_grad(g, out, act).contiguous()
+        dx, dom, dweight = dcn_bwd_om(x, om, weight, g_pre, dg, max_offset)
+        return (dx, dom, dweight, _bias_grad(g_pre, has_bias, g.dtype), None,
+                None, None)
 
 
 def dcn_autograd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
@@ -213,3 +392,13 @@ def dcn_autograd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     a CPU tensor)."""
     return _DCN.apply(x, offset, mask, weight, bias, deformable_groups, act,
                       max_offset)
+
+
+def dcn_om_autograd(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
+                    bias: torch.Tensor | None = None,
+                    deformable_groups: int = 8, act: str | None = None,
+                    max_offset: float | None = None) -> torch.Tensor:
+    """Differentiable :func:`dcn_fwd_om`: backward :func:`dcn_bwd_om`, so
+    the gradient of ``om`` comes out whole."""
+    return _DCNOm.apply(x, om, weight, bias, deformable_groups, act,
+                        max_offset)

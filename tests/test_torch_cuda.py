@@ -26,8 +26,11 @@ from realvsr_tpu_torch.ops.kernels.conv3x3 import (chunk, conv3x3,
                                                    kernel_width, pack_weight,
                                                    pack_weight_cuda,
                                                    round_tf32)
-from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_bwd_plain,
-                                               dcn_fwd, dcn_fwd_plain)
+from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_bwd_om,
+                                               dcn_bwd_om_plain,
+                                               dcn_bwd_plain, dcn_fwd,
+                                               dcn_fwd_om, dcn_fwd_om_plain,
+                                               dcn_fwd_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -45,30 +48,46 @@ def _gen(seed):
     return torch.Generator().manual_seed(seed)
 
 
-def _dcn_inputs(shape, dtype, dev, seed=0, dg=8):
+def _dcn_inputs(shape, dtype, dev, seed=0, dg=8, std=2.5):
     b, h, w, c = shape
     g = _gen(seed)
     x = torch.randn(b, h, w, c, generator=g)
-    off = torch.randn(b, h, w, dg * 18, generator=g) * 2.5  # some beyond ±4
-    mask = torch.rand(b, h, w, dg * 9, generator=g)
+    off = torch.randn(b, h, w, dg * 18, generator=g) * std  # std 2.5: some
+    mask = torch.rand(b, h, w, dg * 9, generator=g)         # beyond ±4
     wgt = (torch.rand(64, c, 3, 3, generator=g) * 2 - 1) / (9 * c) ** 0.5
     bias = torch.randn(64, generator=g) * 0.1
     return [t.to(dev, dtype) for t in (x, off, mask, wgt, bias)]
 
 
+def _om(off, mask):
+    """DCNPack's offset/mask tensor: the offsets, then mask logits."""
+    return torch.cat([off, torch.logit(mask.float(), eps=1e-3)
+                      .to(off.dtype)], -1).contiguous()
+
+
+@pytest.mark.parametrize("om", [False, True], ids=["separate", "om"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape,act,max_offset", [
     ((3, 128, 256, 64), "lrelu", 4),     # the L3 DCN
     ((1, 37, 45, 64), None, None),       # ragged tile edges
     ((2, 64, 128, 64), None, 4),
+    ((2, 13, 70, 64), "relu", 8),        # ragged, fewer rows than a tile
 ])
-def test_dcn_kernel_matches_plain(cuda, dtype, shape, act, max_offset):
+def test_dcn_kernel_matches_plain(cuda, dtype, shape, act, max_offset, om):
+    """Both forms: the separate offsets and mask, and DCNPack's
+    offset/mask tensor read in place (sigmoid in the kernel)."""
     x, off, mask, wgt, bias = _dcn_inputs(shape, dtype, cuda)
     n = dcn_fwd.launches
-    out = dcn_fwd(x, off, mask, wgt, bias, 8, act=act, max_offset=max_offset)
+    if om:
+        t = _om(off, mask)
+        out = dcn_fwd_om(x, t, wgt, bias, 8, act=act, max_offset=max_offset)
+        ref = dcn_fwd_om_plain(x, t, wgt, bias, 8, act, max_offset)
+    else:
+        out = dcn_fwd(x, off, mask, wgt, bias, 8, act=act,
+                      max_offset=max_offset)
+        ref = dcn_fwd_plain(x, off, mask, wgt, bias, 8, act, max_offset)
     torch.cuda.synchronize()
     assert dcn_fwd.launches == n + 1
-    ref = dcn_fwd_plain(x, off, mask, wgt, bias, 8, act, max_offset)
     assert out.shape == ref.shape and out.dtype == dtype
     assert max_abs_err(out, ref) <= tolerance(ref)
 
@@ -131,6 +150,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="offset"):
         dcn_fwd(x, torch.zeros(1, 8, 32, 8, device=cuda),
                 torch.zeros(1, 8, 32, 72, device=cuda), w)
+    with pytest.raises(ValueError, match="om"):
+        dcn_fwd_om(x, torch.zeros(1, 8, 32, 144, device=cuda), w)
+    with pytest.raises(ValueError, match="om must be contiguous"):
+        dcn_bwd_om(x, torch.zeros(1, 8, 32, 432, device=cuda)[..., :216], w,
+                   torch.zeros(1, 8, 32, 64, device=cuda))
+    with pytest.raises(ValueError, match="deformable groups"):
+        dcn_fwd_om(x, torch.zeros(1, 8, 32, 108, device=cuda), w,
+                   deformable_groups=4)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -264,28 +291,41 @@ def test_tdan_and_edvr_x4_on_card_match_cpu(cuda, name, counts):
     assert np.abs((out - ref).numpy()).max() <= 2e-2
 
 
+@pytest.mark.parametrize("om", [False, True], ids=["separate", "om"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape,max_offset,zero", [
-    ((1, 37, 45, 64), 8, False),     # ragged tile edges, taps outside
-    ((2, 48, 64, 64), None, False),
-    ((2, 48, 64, 64), 2, False),     # many offsets beyond the clamp
-    ((1, 32, 40, 64), None, True),   # on the grid: one-sided differences
+@pytest.mark.parametrize("shape,max_offset,std", [
+    ((1, 37, 45, 64), 8, 2.5),       # ragged tile edges, taps outside
+    ((2, 48, 64, 64), None, 2.5),
+    ((2, 48, 64, 64), 2, 2.5),       # many offsets beyond the clamp
+    ((1, 32, 40, 64), None, 0.0),    # on the grid: one-sided differences
+    # corners outside the dx footprint: the global path (no clamp, and a
+    # clamp wider than the footprint's radius of 8)
+    ((1, 40, 72, 64), None, 12.0),
+    ((1, 40, 72, 64), 12, 12.0),
 ])
-def test_dcn_bwd_kernel_matches_plain(cuda, dtype, shape, max_offset, zero):
-    x, off, mask, wgt, _ = _dcn_inputs(shape, dtype, cuda, seed=4)
-    if zero:
-        off = torch.zeros_like(off)
+def test_dcn_bwd_kernel_matches_plain(cuda, dtype, shape, max_offset, std,
+                                      om):
+    x, off, mask, wgt, _ = _dcn_inputs(shape, dtype, cuda, seed=4, std=std)
     g = torch.randn(*shape[:3], 64, generator=_gen(5)).to(cuda, dtype)
     n = dcn_bwd.launches
-    out = dcn_bwd(x, off, mask, wgt, g, 8, max_offset)
+    if om:
+        t = _om(off, mask)
+        out = dcn_bwd_om(x, t, wgt, g, 8, max_offset)
+        ref = dcn_bwd_om_plain(x, t, wgt, g, 8, max_offset)
+        names = ("dx", "dom", "dweight")
+        doff = out[1][..., :8 * 18]
+    else:
+        out = dcn_bwd(x, off, mask, wgt, g, 8, max_offset)
+        ref = dcn_bwd_plain(x, off, mask, wgt, g, 8, max_offset)
+        names = ("dx", "doffset", "dmask", "dweight")
+        doff = out[1]
     torch.cuda.synchronize()
     assert dcn_bwd.launches == n + 1
-    ref = dcn_bwd_plain(x, off, mask, wgt, g, 8, max_offset)
-    for name, o, r in zip(("dx", "doffset", "dmask", "dweight"), out, ref):
+    for name, o, r in zip(names, out, ref):
         assert o.shape == r.shape and o.dtype == r.dtype, name
         assert max_abs_err(o, r) <= grad_tolerance(r), name
     if max_offset is not None:
-        assert not out[1][off.abs() > max_offset].any()
+        assert not doff[off.abs() > max_offset].any()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
