@@ -52,14 +52,40 @@ Phases, each of which raises (and so exits non-zero) on failure:
    steps/s after warm-up, the device's idle time between steps and peak
    memory printed; then one full-width Split step at 64x64 on the card
    against the CPU in f32;
-6. times: each kernel, its plain version and the one PyTorch call that
+6. the evaluation slice:
+   - both DCN kernels at 16 channels in 4 groups (``csrc/dcn_narrow.cu``,
+     the repo's debug configs' width) at the debug config's L1 shape
+     (12, 64, 64, 16), both forms, bf16 and f32, ±4, ±8 and exact,
+     against their plain versions; then
+     ``configs/train/debug_EDVR_woTSA_Split_synthetic.yml`` through the
+     port's Trainer as the training command line runs it (16 iterations,
+     validation and checkpoints at 8 and 16) with exact launch counts per
+     step, and one of its steps at 64x64 on the card against the CPU;
+   - streaming (``eval/streaming.py``) at full width with the inference
+     phase's weights: the flagship's 5-frame 1024x512 clip (run, run_lazy,
+     run_scan, run_scan_clips) and EDVR x4 + TSA's 7-frame 448x256 clip
+     against the sliding window, with launches held to one pyramid per new
+     frame and one fuse per output frame;
+   - tiled 1080p (``eval/tiled.py``): the flagship at 1920x1088 in
+     576x1024 tiles, overlap 32, batched against the tile loop and both
+     against the full frame beyond the receptive field of every inner
+     tile edge; ``--flip_test`` at 1024x512 against the four flipped
+     forwards;
+   - LPIPS / DISTS (seeded random VGG16) and NIQE / BRISQUE on the card
+     against the CPU;
+7. times: each kernel, its plain version and the one PyTorch call that
    computes the same function (where there is one) with CUDA events at the
    paths' shapes (every conv3x3 case and both DCN kernels in bf16 and in
    f32, the DCN kernels in both forms; the f32 yardstick is cuDNN with TF32
    allowed, as the kernel runs), one ``DCNPack`` at L1 (its 64->216 conv
    and the DCN, glue included) beside the same module through the old
    chunk / cat / sigmoid glue and the separate-form kernel, and each
-   inference path's forward ms, frames/s and peak memory.
+   inference path's forward ms, frames/s and peak memory; the narrow DCN
+   kernels beside their plain versions; streaming run_scan frames/s on a
+   12-frame 1024x512 clip and on two, beside one window's forward and its
+   pyramid and fuse halves; tiled 1080p beside the full frame; the flip
+   test; LPIPS, DISTS, NIQE and BRISQUE ms per 1024x512 frame; peak
+   memory of each.
 
 Prints one JSON line per check and timing, then the card line, the
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -69,6 +95,7 @@ of each inference model.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -739,11 +766,18 @@ def training_slice(tmp, profile=False):
     return results
 
 
-def reduced_train_step():
-    """One full-width Split step at 64x64, batch 2, f32: the card against
-    the CPU from the same weights and batch.  The card runs the kernels in
-    TF32 through ~45 layers and back: loss to 1e-3 relative, each gradient
-    to 5e-2 of its largest magnitude."""
+FULL_WIDTH = dict(nf=64, nc=3, nframes=3, groups=8, front_RBs=5, back_RBs=10,
+                  w_TSA=False)
+DEBUG_NET = dict(nf=16, nc=3, nframes=3, groups=4, front_RBs=1, back_RBs=1,
+                 w_TSA=False)   # configs/train/debug_EDVR_woTSA_Split_synthetic.yml
+
+
+def reduced_train_step(net=FULL_WIDTH, recipe=RECIPE):
+    """One Split step (the full-width recipe's by default) at 64x64, batch
+    2, f32: the card against the CPU from the same weights and batch.  The
+    card runs the kernels in TF32 (the narrow DCN in f32) through ~45
+    layers and back: loss to 1e-3 relative, each gradient to 5e-2 of its
+    largest magnitude."""
     import numpy as np
     import torch
     import yaml
@@ -753,11 +787,10 @@ def reduced_train_step():
     from realvsr_tpu_torch.train.state import create_train_state
     from realvsr_tpu_torch.train.wrappers import make_split_train_step
 
-    with open(os.path.join(ROOT, RECIPE)) as f:
+    with open(os.path.join(ROOT, recipe)) as f:
         opt = yaml.safe_load(f)
     opt.pop("augment")
-    cfg = dict(nf=64, nc=3, nframes=3, groups=8, front_RBs=5, back_RBs=10,
-               w_TSA=False, dcn_max_offset=train_r())
+    cfg = dict(net, dcn_max_offset=train_r())
     cpu = EDVRNoUp(**cfg, device="cpu",
                    generator=torch.Generator().manual_seed(12))
     randomise_offset_convs(cpu, seed=13, std=0.5)
@@ -781,7 +814,7 @@ def reduced_train_step():
                   / g.abs().max().clamp_min(1e-30)).item(), k)
                 for k, g in grads["cpu"].items())
     emit(phase="reduced_train_step_card_vs_cpu", shape=[2, 3, 64, 64, 3],
-         losses=losses, loss_rel_err=loss_rel, loss_tol=1e-3,
+         nf=cfg["nf"], groups=cfg["groups"], losses=losses, loss_rel_err=loss_rel, loss_tol=1e-3,
          worst_grad_rel_err=worst[0], worst_grad=worst[1], grad_tol=5e-2)
     if not (loss_rel <= 1e-3 and worst[0] <= 5e-2):
         raise AssertionError(f"card vs CPU step: loss {loss_rel}, "
@@ -1042,6 +1075,516 @@ def profile(name, model, window):
     print(p.key_averages().table(sort_by="cuda_time_total", row_limit=25))
 
 
+# --------------------------------------------------------------------------
+# The evaluation slice: the narrow DCN, streaming, tiled 1080p, metrics.
+
+DEBUG_CFG = os.path.join("configs", "train",
+                         "debug_EDVR_woTSA_Split_synthetic.yml")
+NARROW_SHAPE = (12, 64, 64, 16)  # the debug config's L1 / cascade DCN
+# per training step of the debug config (nf 16, 1 + 1 ResBlocks), from the
+# model's routing: the 64-out conv3x3 is HRconv (16 -> 64); the other widths
+# are the ResBlocks' 4 convs, fea_L2_conv2 / fea_L3_conv2, PCD's 10 offset
+# convs and L2_fea_conv / L1_fea_conv, the 4 conv_offset_mask (16 -> 108)
+# and conv_last
+DEBUG_STEP = {"dcn_fwd": 4, "dcn_bwd": 4, "conv3x3": 1, "conv3x3_fused": 23,
+              "dcn_block": 0}
+# the front end (mode="pyramid") of every EDVR path: the 5 front ResBlocks'
+# 10 convs, fea_L2_conv2 and fea_L3_conv2; the rest of a window is "fuse"
+PYRAMID = {"conv3x3": 12}
+STREAM_REL = 1e-2   # streamed vs sliding window, of the output's max |.|
+TILE_HW, TILE_OVERLAP, HD = (576, 1024), 32, (1088, 1920)
+STREAM_FRAMES = 12  # the timed stream
+METRIC_REL = 1e-3   # LPIPS / DISTS card vs CPU, both f32
+
+
+def fuse_counts(path):
+    """Launches of one ``mode="fuse"`` call of an inference path."""
+    return {k: v - PYRAMID.get(k, 0) for k, v in EXPECT[path].items()}
+
+
+def narrow_inputs(dtype, seed):
+    """x, offset (std 2.5 px), mask, weight, bias, cotangent at the debug
+    config's DCN shape, 16 channels in 4 groups, on the card."""
+    import torch
+
+    b, h, w, c = NARROW_SHAPE
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, h, w, c, generator=g)
+    off = torch.randn(b, h, w, 4 * 18, generator=g) * 2.5
+    mask = torch.rand(b, h, w, 4 * 9, generator=g)
+    wgt = (torch.rand(c, c, 3, 3, generator=g) * 2 - 1) / (9 * c) ** 0.5
+    bias = torch.randn(c, generator=g) * 0.1
+    gout = torch.randn(b, h, w, c, generator=g)
+    return [t.to("cuda", dtype) for t in (x, off, mask, wgt, bias, gout)]
+
+
+def check_narrow():
+    """Both DCN kernels at 16 channels in 4 groups (``csrc/dcn_narrow.cu``),
+    both forms, bf16 and f32, ±4, ±8 and exact, against their plain
+    versions with the tolerances of ``ops/kernels/check.py``.  Returns
+    {(kernel, form, dtype, r): max abs err (largest over the outputs)}."""
+    import torch
+
+    from realvsr_tpu_torch.ops.kernels.check import (grad_tolerance,
+                                                     max_abs_err, tolerance)
+    from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_bwd_om,
+                                                   dcn_bwd_om_plain,
+                                                   dcn_bwd_plain, dcn_fwd,
+                                                   dcn_fwd_om,
+                                                   dcn_fwd_om_plain,
+                                                   dcn_fwd_plain)
+
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for r in (4, 8, None):
+            x, off, mask, wgt, bias, gout = narrow_inputs(dtype, 21)
+            om = om_of(off, mask)
+            for form, fwd, fwd_ref, bwd, bwd_ref, names in (
+                    ("separate",
+                     lambda: dcn_fwd(x, off, mask, wgt, bias, 4, "lrelu", r),
+                     lambda: dcn_fwd_plain(x, off, mask, wgt, bias, 4,
+                                           "lrelu", r),
+                     lambda: dcn_bwd(x, off, mask, wgt, gout, 4, r),
+                     lambda: dcn_bwd_plain(x, off, mask, wgt, gout, 4, r),
+                     ("dx", "doffset", "dmask", "dweight")),
+                    ("om",
+                     lambda: dcn_fwd_om(x, om, wgt, bias, 4, "lrelu", r),
+                     lambda: dcn_fwd_om_plain(x, om, wgt, bias, 4, "lrelu",
+                                              r),
+                     lambda: dcn_bwd_om(x, om, wgt, gout, 4, r),
+                     lambda: dcn_bwd_om_plain(x, om, wgt, gout, 4, r),
+                     ("dx", "dom", "dweight"))):
+                out, grads = fwd(), bwd()
+                torch.cuda.synchronize()
+                ref, grefs = fwd_ref(), bwd_ref()
+                row = {"out": dict(max_abs_err=max_abs_err(out, ref),
+                                   tol=tolerance(ref))}
+                ok = (out.shape == ref.shape and torch.isfinite(out).all()
+                      and row["out"]["max_abs_err"] <= row["out"]["tol"])
+                for name, o, rf in zip(names, grads, grefs):
+                    row[name] = dict(max_abs_err=max_abs_err(o, rf),
+                                     tol=grad_tolerance(rf))
+                    ok = ok and (o.shape == rf.shape and o.dtype == rf.dtype
+                                 and torch.isfinite(o).all()
+                                 and row[name]["max_abs_err"]
+                                 <= row[name]["tol"])
+                emit(check="dcn_narrow", form=form, shape=NARROW_SHAPE,
+                     groups=4, dtype=str(dtype)[6:], max_offset=r, **row)
+                if not ok:
+                    raise AssertionError(f"dcn narrow {form} {dtype} r={r}: "
+                                         f"{row}")
+                dname = str(dtype)[6:]
+                errs[("dcn_fwd", form, dname, r)] = row["out"]["max_abs_err"]
+                errs[("dcn_bwd", form, dname, r)] = max(
+                    row[n]["max_abs_err"] for n in names)
+    return errs
+
+
+def narrow_training(tmp):
+    """``python -m realvsr_tpu_torch.tools.train -opt DEBUG_CFG --device
+    cuda`` as the command line runs it (the config parsed as is: nf 16, 4
+    groups, 16 iterations at 64x64 batch 4, validation and checkpoints at
+    8 and 16, DCN clamp ±8), through the port's Trainer, with the offset
+    convs randomised before the loop; the counts set to 0 just before the
+    run and read just after; per step the launches held to DEBUG_STEP,
+    finite losses; every parameter moved, both validations finite, the
+    checkpoints written."""
+    import torch
+
+    from realvsr_tpu_torch.core.config import parse
+    from realvsr_tpu_torch.train.trainer import Trainer
+
+    opt = parse(os.path.join(ROOT, DEBUG_CFG), is_train=True,
+                root=os.path.join(tmp, "debug"))
+    trainer = Trainer(opt, device="cuda", dcn_max_offset=train_r())
+    randomise_offset_convs(trainer.model, seed=22, std=0.5)
+    before = {k: v.detach().clone()
+              for k, v in trainer.model.named_parameters()}
+    kernels, steps, vals = counters(), [], []
+    inner, inner_val = trainer.train_step, trainer.validate
+
+    def step(state, batch, gen):
+        n0 = {k: f.launches for k, f in kernels.items()}
+        state, logs = inner(state, batch, gen)
+        steps.append(dict(launches={k: f.launches - n0[k]
+                                    for k, f in kernels.items()},
+                          logs={k: v.item() for k, v in logs.items()}))
+        return state, logs
+
+    def validate(at):
+        psnr = inner_val(at)
+        vals.append((at, psnr))
+        return psnr
+
+    trainer.train_step, trainer.validate = step, validate
+    zero_counts()
+    t0 = time.time()
+    trainer.train()
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = read_counts()
+    moved = sum(not torch.equal(before[k], v.detach())
+                for k, v in trainer.model.named_parameters())
+    saved = sorted(os.listdir(opt["path"]["models"]))
+    emit(phase="training_debug_nf16", config=DEBUG_CFG, steps=len(steps),
+         seconds=seconds, launches=launches,
+         launches_per_step=steps[-1]["launches"] if steps else None,
+         losses=[st["logs"] for st in steps], validation_psnr=vals,
+         params_moved=moved, params=len(before), checkpoints=saved)
+    niter = int(opt["train"]["niter"])
+    if len(steps) != niter:
+        raise AssertionError(f"{len(steps)} steps run, {niter} asked")
+    for i, st in enumerate(steps):
+        if st["launches"] != DEBUG_STEP:
+            raise AssertionError(f"debug step {i}: launches {st['launches']}")
+        if not all(math.isfinite(v) for v in st["logs"].values()):
+            raise AssertionError(f"debug step {i}: losses {st['logs']}")
+    if moved != len(before):
+        raise AssertionError(f"{len(before) - moved} parameters did not move")
+    if [a for a, _ in vals] != [8, 16] or not all(math.isfinite(p)
+                                                  for _, p in vals):
+        raise AssertionError(f"validation {vals}")
+    if not {"8_G.pth", "16_G.pth", "latest_G.pth"} <= set(saved):
+        raise AssertionError(f"checkpoints {saved}")
+    del trainer, before
+    torch.cuda.empty_cache()
+    return launches, steps[-1]["launches"]
+
+
+def time_narrow():
+    """Both narrow DCN kernels at the debug shape, bf16 and f32, ±8 (the
+    training clamp), separate form, beside their plain versions."""
+    import torch
+
+    from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_bwd_plain,
+                                                   dcn_fwd, dcn_fwd_plain)
+
+    r, rows = train_r(), {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype)[6:]
+        x, off, mask, wgt, bias, gout = narrow_inputs(dtype, 23)
+        out = dcn_fwd(x, off, mask, wgt, bias, 4, None, r)
+        grads = dcn_bwd(x, off, mask, wgt, gout, 4, r)
+        p = x.shape[0] * x.shape[1] * x.shape[2]
+        k = 9 * x.shape[3]
+        # forward: the tap products (2 p k 16, at the tensor cores' rate
+        # for the dtype, the card's best for them, whatever the kernel
+        # runs them on) and the sampling, ~9 f32 ops a sampled element;
+        # backward: dS and dW (2 x 2 p k 16) and ~20 f32 ops a sampled
+        # element with its corners' gradients
+        fwd_bytes = nbytes(x, off, mask, wgt, bias, out)
+        bwd_bytes = nbytes(x, off, mask, wgt, gout, *grads)
+        for name, fn, plain, moved, tc_ops, f32_ops in (
+                ("dcn_fwd", lambda: dcn_fwd(x, off, mask, wgt, bias, 4,
+                                            None, r),
+                 lambda: dcn_fwd_plain(x, off, mask, wgt, bias, 4, None, r),
+                 fwd_bytes, 2 * p * k * 16, 9 * p * k),
+                ("dcn_bwd", lambda: dcn_bwd(x, off, mask, wgt, gout, 4, r),
+                 lambda: dcn_bwd_plain(x, off, mask, wgt, gout, 4, r),
+                 bwd_bytes, 4 * p * k * 16, 20 * p * k)):
+            b_ms, b_by = bound(moved, tc_ops, f32_ops, dname)
+            row = dict(ms=cuda_ms(fn, 50), plain_ms=cuda_ms(plain, 5),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            emit(timing=name, case="narrow C16 dg4", shape=NARROW_SHAPE,
+                 dtype=dname, max_offset=r, **row)
+            rows[(name, dname)] = row
+    return rows
+
+
+def peak_gib():
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def hold_close(what, out, ref, rel=STREAM_REL, **info):
+    """``out`` within ``rel`` of ``ref``'s largest magnitude (both on the
+    host in f32); emits the largest difference seen."""
+    import torch
+
+    top = ref.abs().max().item()
+    err = (out - ref).abs().max().item()
+    emit(check=what, max_abs_err=err, tol=rel * top, ref_abs_max=top,
+         bit_equal=bool(torch.equal(out, ref)), **info)
+    if not (out.shape == ref.shape and torch.isfinite(out).all()
+            and err <= rel * top):
+        raise AssertionError(f"{what}: {err} > {rel * top}")
+
+
+def streaming_phase(paths, tmp):
+    """StreamingRunner at full width with the inference phase's weights:
+    the flagship on its 5-frame 1024x512 clip (run, run_lazy, run_scan,
+    run_scan_clips) and EDVR x4 + TSA on its 7-frame 448x256 clip (run),
+    each against the sliding window that evaluate_wo_gt runs
+    (make_forward + sliding_window_infer); the counts set to 0 just before
+    each run and held to one pyramid per new frame and one fuse per output
+    frame.  Then the timed stream: run_scan on a 12-frame 1024x512 clip and
+    run_scan_clips on two, beside one window's forward and the pyramid and
+    fuse halves of it."""
+    import numpy as np
+    import torch
+
+    from realvsr_tpu_torch.data.imageio import read_img_seq
+    from realvsr_tpu_torch.eval.sliding_window import (make_forward,
+                                                       sliding_window_infer)
+    from realvsr_tpu_torch.eval.streaming import StreamingRunner
+
+    launches = {}
+    for name in ("edvr_noup", "edvr_x4"):
+        model, lq, n, _, _ = paths[name]
+        frames = read_img_seq(os.path.join(lq, "000"), color="YCbCr")
+        t = frames.shape[0]
+        ref = torch.stack([torch.from_numpy(o) for _, o in
+                           sliding_window_infer(make_forward(model), frames,
+                                                n, device="cuda")])
+        runner = StreamingRunner(model, device="cuda")
+        zero_counts()
+        out = runner.run(frames)
+        torch.cuda.synchronize()
+        got = read_counts()
+        expect = {k: t * (PYRAMID.get(k, 0) + fuse_counts(name).get(k, 0))
+                  for k in counters()}
+        emit(phase="path", path=f"streaming_{name}", frames=t,
+             launches=got, launches_expected=expect)
+        if got != expect:
+            raise AssertionError(f"streaming {name}: launches {got}, "
+                                 f"expected {expect}")
+        launches[f"streaming_{name}"] = got
+        # one pyramid and one fuse on their own: the split of a window
+        one = runner._frames(frames[:1])
+        zero_counts()
+        pyr = runner._pyramid(one)
+        torch.cuda.synchronize()
+        split = {"pyramid": read_counts()}
+        zero_counts()
+        runner._fuse((pyr,) * n, one)
+        torch.cuda.synchronize()
+        split["fuse"] = read_counts()
+        want = {"pyramid": {k: PYRAMID.get(k, 0) for k in counters()},
+                "fuse": {k: fuse_counts(name).get(k, 0) for k in counters()}}
+        emit(phase="streaming_split", path=name, launches=split)
+        if split != want:
+            raise AssertionError(f"streaming {name}: {split}, expected "
+                                 f"{want}")
+        out = out.float().cpu()
+        hold_close(f"streaming_{name}_run_vs_sliding_window", out, ref,
+                   frames=t, shape=list(out.shape))
+        lazy = torch.stack(list(runner.run_lazy(frames))).float().cpu()
+        hold_close(f"streaming_{name}_lazy_vs_run", lazy, out)
+        if n != 3:
+            continue
+        zero_counts()
+        scan = runner.run_scan(frames)
+        torch.cuda.synchronize()
+        if read_counts() != expect:
+            raise AssertionError(f"run_scan {name}: launches {read_counts()}")
+        scan = scan.float().cpu()
+        hold_close(f"streaming_{name}_scan_vs_run", scan, out)
+        clips = np.stack([frames, frames[::-1]])
+        both = runner.run_scan_clips(clips).float().cpu()
+        for b in range(2):
+            hold_close(f"streaming_{name}_clips_vs_scan", both[b],
+                       runner.run_scan(clips[b]).float().cpu(), clip=b)
+
+    # times, bf16, the flagship: a 12-frame clip and two
+    model, lq, n, hw, _ = paths["edvr_noup"]
+    long_clip = write_clip(tmp, seed=40, frames=STREAM_FRAMES)
+    frames = read_img_seq(os.path.join(long_clip, "000"), color="YCbCr")
+    runner = StreamingRunner(model, device="cuda")
+    fr = torch.from_numpy(frames).cuda()
+    clips = torch.stack([fr, fr.flip(0)])
+    rows = {}
+    for key, fn, count in (
+            ("run_scan", lambda: runner.run_scan(fr), STREAM_FRAMES),
+            ("run_scan_clips_2", lambda: runner.run_scan_clips(clips),
+             2 * STREAM_FRAMES)):
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(fn, 3, warmup=1)
+        rows[key] = dict(ms=ms, frames=count, frames_per_s=count / ms * 1e3,
+                         peak_mem_gib=peak_gib())
+    one = runner._frames(frames[:1])
+    window = runner._frames(frames[:n])[None]
+    with torch.inference_mode():
+        pyr = runner._pyramid(one)
+        rows["window_forward_ms"] = cuda_ms(lambda: model(window), 10)
+        rows["pyramid_ms"] = cuda_ms(lambda: runner._pyramid(one), 10)
+        rows["fuse_ms"] = cuda_ms(lambda: runner._fuse((pyr,) * n, one), 10)
+    emit(timing="streaming", path="edvr_noup", resolution=f"{hw[1]}x{hw[0]}",
+         dtype="bfloat16", **rows)
+    return launches, rows
+
+
+def tiled_phase(paths, tmp):
+    """The flagship at 1920x1088 in 576x1024 tiles, overlap 32 (4 tiles):
+    make_batched_tiled_forward (its launches one model call's) against
+    tiled_forward, and both against the full-frame forward on the pixels
+    farther than receptive_field_rows(5, 10, 4) from every inner tile
+    edge; then --flip_test at 1024x512 through the test CLIs' restorer
+    against the mean of the four flipped forwards; times of each."""
+    import torch
+
+    from realvsr_tpu_torch.eval.sliding_window import (flipx4_forward,
+                                                       make_forward)
+    from realvsr_tpu_torch.eval.tiled import (make_batched_tiled_forward,
+                                              make_tiled_forward,
+                                              receptive_field_rows,
+                                              tile_grid)
+    from realvsr_tpu_torch.data.imageio import read_img_seq
+    from realvsr_tpu_torch.tools._cli import parse_args, restorer
+
+    model, lq, n, hw, _ = paths["edvr_noup"]
+    hd = write_clip(tmp, seed=41, frames=n, h=HD[0], w=HD[1])
+    window = read_window(hd, n)[0]                       # (3, 1088, 1920, 3)
+    batched = make_batched_tiled_forward(model, tile_hw=TILE_HW,
+                                         overlap=TILE_OVERLAP, device="cuda")
+    loop = make_tiled_forward(model, tile_hw=TILE_HW, overlap=TILE_OVERLAP,
+                              device="cuda")
+    zero_counts()
+    out = batched(window)
+    torch.cuda.synchronize()
+    got = read_counts()
+    expect = dict(EXPECT["edvr_noup"], dcn_bwd=0, dcn_block=0)
+    (th, tw), tiles = tile_grid(*HD, TILE_HW, TILE_OVERLAP)
+    emit(phase="path", path="tiled_1080p", tiles=len(tiles), launches=got,
+         launches_expected=expect)
+    if got != expect or len(tiles) != 4:
+        raise AssertionError(f"tiled: {len(tiles)} tiles, launches {got}")
+    out = out.float().cpu()
+    hold_close("tiled_batched_vs_loop", out, loop(window), tiles=len(tiles))
+    forward = make_forward(model)
+    full = forward(window).float().cpu()
+    rf = receptive_field_rows(5, 10, R_INFER)
+    keep = torch.zeros(HD, dtype=torch.bool)
+    for ty, tx, (vy0, vy1, vx0, vx1) in tiles:
+        ys = torch.arange(vy0, vy1)[:, None]
+        xs = torch.arange(vx0, vx1)[None, :]
+        far = torch.ones(vy1 - vy0, vx1 - vx0, dtype=torch.bool)
+        if ty > 0:
+            far &= ys - ty >= rf
+        if ty + th < HD[0]:
+            far &= ty + th - 1 - ys >= rf
+        if tx > 0:
+            far &= xs - tx >= rf
+        if tx + tw < HD[1]:
+            far &= tx + tw - 1 - xs >= rf
+        keep[vy0:vy1, vx0:vx1] = far
+    hold_close("tiled_vs_full_frame_beyond_receptive_field", out[keep],
+               full[keep], receptive_field_rows=rf,
+               pixels_compared=int(keep.sum()), of=keep.numel())
+
+    # --flip_test at 1024x512: the restorer's frame 1 (window 0, 1, 2)
+    frames = read_img_seq(os.path.join(lq, "000"), color="YCbCr")
+    restore = restorer(parse_args(["-opt", "test.yml", "--flip_test"], ""),
+                       {"datasets": {"test": {}}, "network_G": {"nframes": n}},
+                       model)
+    flipped = dict(restore(frames))[1]
+    w3 = torch.from_numpy(frames[:n]).cuda()
+    with torch.inference_mode():
+        mean = sum(forward(w3.flip(d)).float().flip(d) if d else
+                   forward(w3).float() for d in ((), (-2,), (-3,), (-3, -2)))
+    hold_close("flip_test_vs_four_flipped_forwards",
+               torch.from_numpy(flipped), mean.cpu() / 4)
+
+    rows = {}
+    for key, fn, count in (
+            ("tiled_batched_1080p", lambda: batched(window), 1),
+            ("full_frame_1080p", lambda: forward(window), 1),
+            ("flip_test_1024x512", lambda: flipx4_forward(forward, w3), 1)):
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(fn, 3, warmup=1)
+        rows[key] = dict(ms=ms, frames_per_s=count / ms * 1e3,
+                         peak_mem_gib=peak_gib())
+    emit(timing="tiled", tile=TILE_HW, overlap=TILE_OVERLAP, tiles=len(tiles),
+         dtype="bfloat16", **rows)
+    return {"tiled_1080p": got}, rows
+
+
+def write_libsvm(tmp):
+    """A libsvm model (3 seeded support vectors) and range file in the
+    BRISQUE release's format (the card's machine has no scikit-learn to
+    fit one)."""
+    import numpy as np
+
+    rng = np.random.default_rng(42)
+    sv, coef = rng.random((3, 36)), rng.normal(0, 1, 3)
+    lines = ["svm_type epsilon_svr", "kernel_type rbf", "gamma 0.05",
+             "nr_class 2", "total_sv 3", "rho -0.3", "SV"]
+    lines += [" ".join([f"{c:.8f}"] + [f"{j + 1}:{v[j]:.8f}"
+                                        for j in range(36)])
+              for c, v in zip(coef, sv)]
+    mp, rp = os.path.join(tmp, "allmodel"), os.path.join(tmp, "allrange")
+    with open(mp, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(rp, "w") as f:
+        f.write("\n".join(["-1 1"] + [f"{j + 1} {-1.0 - j / 36} {3.0 + j}"
+                                      for j in range(36)]) + "\n")
+    return mp, rp
+
+
+def metrics_phase(paths, tmp):
+    """LPIPS and DISTS with seeded random VGG16 weights on a batch of two
+    1024x512 frames (the clip and a noisy copy), the card against the CPU
+    in f32 (METRIC_REL); NIQE fitted by fit_niqe_model on the clip's
+    frames and BRISQUE with a libsvm file written here, the card against
+    the CPU in float64; times per 1024x512 frame."""
+    import numpy as np
+    import torch
+
+    from realvsr_tpu_torch.data.imageio import read_gray
+    from realvsr_tpu_torch.eval import brisque, niqe, perceptual
+
+    _, lq, _, hw, _ = paths["edvr_noup"]
+    x = read_window(lq, 2)[0]
+    g = torch.Generator(device="cuda").manual_seed(43)
+    y = (x + 0.05 * torch.randn(x.shape, generator=g, device="cuda")).clamp(
+        0, 1)
+    card = perceptual.init_lpips_params(with_dists=True, device="cuda")
+    cpu = perceptual.init_lpips_params(with_dists=True, device="cpu")
+    rows = {}
+    for name, fn in (("lpips", perceptual.lpips), ("dists", perceptual.dists)):
+        on_card = fn(card, x, y).cpu()
+        on_cpu = fn(cpu, x.cpu(), y.cpu())
+        err = ((on_card - on_cpu).abs() / on_cpu.abs()).max().item()
+        emit(check=f"{name}_card_vs_cpu", scores_card=on_card.tolist(),
+             scores_cpu=on_cpu.tolist(), max_rel_err=err, tol=METRIC_REL)
+        if not err <= METRIC_REL:
+            raise AssertionError(f"{name}: card vs CPU {err}")
+        torch.cuda.reset_peak_memory_stats()
+        rows[name] = dict(ms_per_frame=cuda_ms(lambda: fn(card, x[:1], y[:1]),
+                                               5),
+                          peak_mem_gib=peak_gib())
+    model_card = niqe.fit_niqe_model(lq, device="cuda")
+    model_cpu = niqe.fit_niqe_model(lq, device="cpu")
+    mu_err = float(np.abs(model_card["mu"] - model_cpu["mu"]).max()
+                   / np.abs(model_cpu["mu"]).max())
+    mp, rp = write_libsvm(tmp)
+    svm = brisque.load_libsvm_model(mp, rp)
+    img = read_gray(os.path.join(lq, "000", "00002.png"))
+    scores = {}
+    for name, fn in (("niqe", lambda dev: niqe.niqe_score(img, model_cpu,
+                                                          device=dev)),
+                     ("brisque", lambda dev: brisque.brisque_score(
+                         img, svm, device=dev))):
+        scores[name] = (fn("cuda"), fn("cpu"))
+        torch.cuda.reset_peak_memory_stats()
+        rows[name] = dict(ms_per_frame=cuda_ms(lambda: fn("cuda"), 5),
+                          peak_mem_gib=peak_gib())
+    feats = (brisque.brisque_features(img, "cuda").cpu(),
+             brisque.brisque_features(img, "cpu"))
+    f_err = ((feats[0] - feats[1]).abs().max()
+             / feats[1].abs().max()).item()
+    rel = {k: abs(a / b - 1) for k, (a, b) in scores.items()}
+    emit(check="no_reference_card_vs_cpu", niqe_mu_max_rel_err=mu_err,
+         brisque_features_max_rel_err=f_err, scores=scores,
+         score_rel_err=rel, tol_features=1e-6, tol_scores=1e-4)
+    if not (mu_err <= 1e-6 and f_err <= 1e-6
+            and all(v <= 1e-4 for v in rel.values())):
+        raise AssertionError(f"no-reference metrics card vs CPU: {mu_err} "
+                             f"{f_err} {rel}")
+    emit(timing="metrics", resolution=f"{hw[1]}x{hw[0]}", **rows)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1060,7 +1603,8 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.time()
-    logs = _build.build(["dcn_fwd", "conv3x3", "conv3x3_sync", "dcn_bwd"])
+    logs = _build.build(["dcn_fwd", "conv3x3", "conv3x3_sync", "dcn_bwd",
+                         "dcn_narrow"])
     for src, log in logs.items():
         print(f"--- nvcc -Xptxas -v: {src}.cu\n{log.strip()}")
     emit(phase="build", seconds=time.time() - t0, built=sorted(logs))
@@ -1068,13 +1612,14 @@ def main() -> int:
         for kernel, regs, stores, loads in ptxas_lines(log):
             emit(ptxas=src, kernel=kernel, registers=regs,
                  spill_stores=stores, spill_loads=loads)
-            if src in ("conv3x3", "dcn_fwd", "dcn_bwd") and (stores or
-                                                               loads):
+            if src in ("conv3x3", "dcn_fwd", "dcn_bwd", "dcn_narrow") and (
+                    stores or loads):
                 raise AssertionError(f"{kernel} spills")
 
     profiling = "--profile" in sys.argv[1:]
     errs = check_kernels()
     bwd_errs = check_backward()
+    narrow_errs = check_narrow()
     with tempfile.TemporaryDirectory() as tmp:
         paths = inference_paths(tmp)
         launches = {p: v[-1] for p, v in paths.items()}
@@ -1083,9 +1628,15 @@ def main() -> int:
         for d in train:
             launches[f"training_{d}"] = train[d]["launches"]
         reduced_train_step()
+        launches["training_debug_nf16"], debug_step = narrow_training(tmp)
+        reduced_train_step(DEBUG_NET, DEBUG_CFG)
+        for phase in (streaming_phase, tiled_phase):
+            launches.update(phase(paths, tmp)[0])
+        metrics_phase(paths, tmp)
         rows = time_kernels()
         bwd_rows = time_dcn_bwd()
         rows["dcn_bwd"] = bwd_rows["bfloat16"]
+        narrow_rows = time_narrow()
         time_dcnpack()
         for p, (model, lq_root, n, hw, _) in paths.items():
             window = time_path(p, model, lq_root, n, hw)
@@ -1098,6 +1649,23 @@ def main() -> int:
     # flagship's kernels, the recipe's precision)
     by_path = {k: {p: c[k] for p, c in launches.items()} for k in counters()}
     bwd = bwd_errs[("separate", bf, train_r(), False)]
+
+    def c16(kernel):
+        """The narrow instantiation's numbers (C = 16 in 4 groups): its
+        error at bf16 ±8 (every case beside it), time at the debug shape
+        and launches on the debug training path (all and its last
+        step's)."""
+        by_case = {f"{form} {dt} r={r}": e
+                   for (k, form, dt, r), e in narrow_errs.items()
+                   if k == kernel}
+        return dict(max_abs_err_c16=narrow_errs[(kernel, "separate",
+                                                 "bfloat16", train_r())],
+                    c16=dict(narrow_rows[(kernel, "bfloat16")],
+                             shape=NARROW_SHAPE,
+                             launches=by_path[kernel]["training_debug_nf16"],
+                             launches_per_step=debug_step[kernel],
+                             max_abs_err_by_case=by_case))
+
     kernels = [
         dict(name="dcn_fwd", route="cuda",
              source="realvsr_tpu_torch/csrc/dcn_fwd.cu",
@@ -1105,7 +1673,7 @@ def main() -> int:
              launches=by_path["dcn_fwd"]["training_float32"],
              launches_by_path=by_path["dcn_fwd"],
              max_abs_err=errs[("dcn_fwd", "L1", bf, 4)],
-             **rows[("dcn_fwd", "L1", "bfloat16")]),
+             **c16("dcn_fwd"), **rows[("dcn_fwd", "L1", "bfloat16")]),
         dict(name="conv3x3", route="cuda",
              source="realvsr_tpu_torch/csrc/conv3x3.cu",
              replaces="realvsr_tpu/ops/pallas/conv3x3_kernel.py:447",
@@ -1126,7 +1694,8 @@ def main() -> int:
              launches=by_path["dcn_bwd"]["training_float32"],
              launches_by_path=by_path["dcn_bwd"],
              max_abs_err=max(v["max_abs_err"] for v in bwd.values()),
-             max_abs_err_by_output=bwd, **rows["dcn_bwd"]),
+             max_abs_err_by_output=bwd, **c16("dcn_bwd"),
+             **rows["dcn_bwd"]),
         dict(name="dcn_block", route="cuda",
              source="realvsr_tpu_torch/csrc/dcn_fwd.cu",
              wrapper="realvsr_tpu_torch/ops/deform_conv_block.py",

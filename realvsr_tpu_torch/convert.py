@@ -14,6 +14,11 @@ The naming rules are those of ``realvsr_tpu/train/torch_import.py``
   * BatchNorm ``scale`` / ``mean`` / ``var`` → ``weight`` /
     ``running_mean`` / ``running_var``,
   * everything else keeps its name.
+
+:func:`vgg16_state_dict_from_jax` and :func:`perceptual_params_from_jax`
+carry the JAX package's LPIPS / DISTS parameters (``realvsr_tpu/eval/
+perceptual.py``: 13 HWIO convs and the metric heads) to the port's
+``eval/perceptual.py``, the backbone under torchvision's ``vgg16`` names.
 """
 from __future__ import annotations
 
@@ -56,4 +61,35 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         if t.ndim == 4:
             t = t.transpose(3, 2, 0, 1)  # HWIO → OIHW
         out[flax_path_to_torch_key(path)] = torch.tensor(t)  # a copy
+    return out
+
+
+def vgg16_state_dict_from_jax(convs) -> dict[str, torch.Tensor]:
+    """The JAX package's VGG16 convs (a list of 13 ``{"kernel": HWIO,
+    "bias"}``) -> a torchvision-format state dict (``features.{i}.weight``
+    OIHW, ``features.{i}.bias``), float32."""
+    from realvsr_tpu_torch.eval.perceptual import conv_indices
+
+    indices = conv_indices()
+    if len(convs) != len(indices):
+        raise ValueError(f"expected 13 VGG16 convs, got {len(convs)}")
+    out = {}
+    for idx, conv in zip(indices, convs):
+        k = np.asarray(conv["kernel"], dtype=np.float32)
+        out[f"features.{idx}.weight"] = torch.tensor(k.transpose(3, 2, 0, 1))
+        out[f"features.{idx}.bias"] = torch.tensor(
+            np.asarray(conv["bias"], dtype=np.float32))
+    return out
+
+
+def perceptual_params_from_jax(params: Mapping[str, Any]) -> dict:
+    """JAX LPIPS / DISTS parameters (``{"convs", "lins"}`` and / or
+    ``{"alpha", "beta"}``, arrays) -> the host form the port's
+    ``eval/perceptual.py::build_params`` takes: ``{"vgg16": state dict,
+    "lins" / "alpha" / "beta": [float32 tensors]}``."""
+    out = {"vgg16": vgg16_state_dict_from_jax(params["convs"])}
+    for key in ("lins", "alpha", "beta"):
+        if key in params:
+            out[key] = [torch.tensor(np.asarray(v, dtype=np.float32))
+                        for v in params[key]]
     return out

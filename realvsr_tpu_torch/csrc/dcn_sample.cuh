@@ -1,15 +1,18 @@
-// The sampling geometry of the DCNv2 kernels (dcn_fwd.cu, dcn_bwd.cu): where
-// a (pixel, deformable group, tap) samples the input, with its four bilinear
-// corners, their weights and validity, the mask, and the gates of the offset
-// gradient.  Both kernels take 64 input channels in 8 deformable groups of
-// 8 channels: one corner of one group is 16 bytes of bf16 or 32 of f32.
+// The sampling geometry of the DCNv2 kernels (dcn_fwd.cu, dcn_bwd.cu,
+// dcn_narrow.cu): where a (pixel, deformable group, tap) samples the input,
+// with its four bilinear corners, their weights and validity, the mask, and
+// the gates of the offset gradient.  The gathers below (GroupCorners) are
+// those of dcn_fwd.cu and dcn_bwd.cu: 64 input channels in 8 deformable
+// groups of 8 channels, one corner of one group 16 bytes of bf16 or 32 of
+// f32.  dcn_narrow.cu (16 channels in 4 groups) gathers its own.
 //
 // Offsets and mask are read through a pixel stride and a channel base, so
 // one code reads either layout the wrappers pass:
-//   * separate: offset (P, 144) and mask (P, 72), the mask after the sigmoid;
-//   * in place: DCNPack's conv_offset_mask output om (P, 216), offsets in
-//     channels 0-143, mask logits in 144-215; the sigmoid is taken here and
-//     rounded to T, as torch.sigmoid of a T tensor rounds it.
+//   * separate: offset (P, dg * 18) and mask (P, dg * 9), the mask after the
+//     sigmoid;
+//   * in place: DCNPack's conv_offset_mask output om (P, dg * 27), offsets in
+//     channels [0, dg * 18), mask logits after them; the sigmoid is taken
+//     here and rounded to T, as torch.sigmoid of a T tensor rounds it.
 // Offsets of (g, tap) are the pair (dy, dx) at channel g * 18 + 2 * tap, the
 // mask at g * 9 + tap from the mask's base.
 //

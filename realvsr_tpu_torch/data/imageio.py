@@ -37,6 +37,15 @@ def read_img(path: str) -> np.ndarray:
     return img
 
 
+def read_gray(path: str) -> np.ndarray:
+    """Read an image as grayscale float64 in [0, 255] (cv2's own 8-bit
+    conversion, as the reference's no-reference metrics read frames)."""
+    img = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+    if img is None:
+        raise FileNotFoundError(path)
+    return img.astype(np.float64)
+
+
 def channel_convert(in_c: int, tar_type, img_list):
     """BGR/gray/y conversion (data/util.py:312-323); unknown types pass
     through unchanged (the reference behaviour relied on for 'ycbcr'

@@ -9,6 +9,7 @@ from __future__ import annotations
 import glob
 import logging
 import os.path as osp
+from functools import partial
 
 import numpy as np
 
@@ -26,11 +27,25 @@ def evaluate_wi_gt(model, params, lq_root: str, gt_root: str, n_frames: int,
                    crop_border: int = 0, flip_test: bool = False,
                    save_folder: str | None = None) -> dict:
     """Evaluate over all sequence subfolders; returns the summary dict.
-    ``params``: a state dict to load into ``model``, or None."""
+    ``params``: a state dict to load into ``model``, or None.  Restores
+    through the sliding window (:func:`restore_wi_gt` takes the other
+    restores)."""
+    restore = partial(sliding_window_infer, make_forward(model, params),
+                      n_frames=n_frames, padding=padding, flip_test=flip_test,
+                      device=next(model.parameters()).device)
+    return restore_wi_gt(restore, lq_root, gt_root, n_frames, color,
+                         crop_border, save_folder)
+
+
+def restore_wi_gt(restore, lq_root: str, gt_root: str, n_frames: int,
+                  color: str = "YCbCr", crop_border: int = 0,
+                  save_folder: str | None = None) -> dict:
+    """:func:`evaluate_wi_gt` with the restore given: ``restore(frames)``
+    yields (frame index, float32 numpy output) over a (T, H, W, C) sequence
+    (the sliding window, its tiles or a stream; the test CLIs'
+    ``tools/_cli.py::restorer``)."""
     subfolders = sorted(glob.glob(osp.join(lq_root, "*")))
     border_frame = n_frames // 2
-    forward = make_forward(model, params)
-    device = next(model.parameters()).device
 
     names, psnr_l, psnr_c_l, psnr_b_l = [], [], [], []
     ssim_l, ssim_c_l, ssim_b_l = [], [], []
@@ -51,10 +66,7 @@ def evaluate_wi_gt(model, params, lq_root: str, gt_root: str, n_frames: int,
         sums = dict(pc=0.0, pb=0.0, sc=0.0, sb=0.0)
         n_center = n_border = 0
 
-        for idx, out in sliding_window_infer(forward, imgs, n_frames,
-                                             padding=padding,
-                                             flip_test=flip_test,
-                                             device=device):
+        for idx, out in restore(imgs):
             if save_folder:
                 bgr = np.clip(ycbcr2bgr_np(np.clip(out, 0, 1).astype(np.float64))
                               if color == "YCbCr" else out[..., ::-1], 0, 1)

@@ -8,6 +8,7 @@ import glob
 import logging
 import os.path as osp
 import time
+from functools import partial
 
 import numpy as np
 
@@ -24,20 +25,28 @@ def evaluate_wo_gt(model, params, lq_root: str, n_frames: int,
                    flip_test: bool = False,
                    save_folder: str | None = None) -> dict:
     """``params``: a state dict to load into ``model``, or None.  Runs on
-    the device that holds the model's weights."""
+    the device that holds the model's weights, through the sliding window
+    (:func:`restore_wo_gt` takes the other restores)."""
+    restore = partial(sliding_window_infer, make_forward(model, params),
+                      n_frames=n_frames, padding=padding, flip_test=flip_test,
+                      device=next(model.parameters()).device)
+    return restore_wo_gt(restore, lq_root, color, save_folder)
+
+
+def restore_wo_gt(restore, lq_root: str, color: str = "YCbCr",
+                  save_folder: str | None = None) -> dict:
+    """:func:`evaluate_wo_gt` with the restore given: ``restore(frames)``
+    yields (frame index, float32 numpy output) over a (T, H, W, C) sequence
+    (the sliding window, its tiles or a stream; the test CLIs'
+    ``tools/_cli.py::restorer``)."""
     subfolders = sorted(glob.glob(osp.join(lq_root, "*")))
-    forward = make_forward(model, params)
-    device = next(model.parameters()).device
     total_time, total_frames = 0.0, 0
 
     for subfolder in subfolders:
         name = osp.basename(subfolder)
         imgs = read_img_seq(subfolder, color=color)
         t0 = time.time()
-        for idx, out in sliding_window_infer(forward, imgs, n_frames,
-                                             padding=padding,
-                                             flip_test=flip_test,
-                                             device=device):
+        for idx, out in restore(imgs):
             if save_folder:
                 bgr = np.clip(
                     ycbcr2bgr_np(np.clip(out, 0, 1).astype(np.float64))

@@ -1,6 +1,6 @@
 """Kernels 1 and 2: DCNv2 forward and backward on Hopper
-(``csrc/dcn_fwd.cu``, ``csrc/dcn_bwd.cu``, sampling in
-``csrc/dcn_sample.cuh``).
+(``csrc/dcn_fwd.cu``, ``csrc/dcn_bwd.cu``, and ``csrc/dcn_narrow.cu`` at
+16 channels; sampling in ``csrc/dcn_sample.cuh``).
 
 The forward replaces ``realvsr_tpu/ops/pallas/dcn_frame_kernel.py::
 dcn_frame_fused`` (input prep ``realvsr_tpu/ops/deform_conv_block.py::
@@ -15,6 +15,14 @@ one deformable group per block, sums dx in a shared-memory footprint and
 folds dW into the same pass; see the sources.  Positions are exact f32:
 the TPU kernels' int16 fixed-point positions and lane panels are not
 carried over.  Both take 64 input channels in 8 deformable groups.
+
+At the width of the repo's debug configs, 16 input channels in 4
+deformable groups (16 outputs), both run ``csrc/dcn_narrow.cu`` instead: a
+simple kernel each way (one pixel a thread, the tap products on the f32
+cores, dx and dW summed with f32 atomics), as the 64-wide layouts (128-byte
+weight chunks, 8-channel dx footprints) do not fit 4 channels a group.  The
+wrappers pick the instantiation from the tensors' widths (:data:`WIDTHS`)
+and raise on any other; nothing falls back to the plain version.
 
 Two forms of the offsets and mask, one kernel each way:
 
@@ -60,7 +68,21 @@ _BWD_FUNCS = tuple(
     (f"dcn_bwd_{s}", (_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I,
                       _P, _I, _I, _I, _F, _I, _I, _P))
     for s in _build.SUFFIX.values())
-C, GROUPS, COUT = 64, 8, 64   # the kernels' input channels, groups, outputs
+# x, off, off_stride, msk, msk_stride, logits, weight, bias, out, B, H, W,
+# act, max_off, clamp, stream; then the backward's, as dcn_bwd's without rf
+_NARROW_FUNCS = tuple(
+    (f"dcn_narrow_fwd_{s}", (_P, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I,
+                             _I, _F, _I, _P))
+    for s in _build.SUFFIX.values()) + tuple(
+    (f"dcn_narrow_bwd_{s}", (_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P,
+                             _I, _P, _I, _I, _I, _F, _I, _P))
+    for s in _build.SUFFIX.values())
+C, GROUPS, COUT = 64, 8, 64   # dcn_fwd.cu / dcn_bwd.cu: channels, groups, outputs
+NARROW = (16, 4)              # dcn_narrow.cu: 16 channels (and outputs), 4 groups
+# the (input channels, deformable groups) the kernels take; outputs = inputs
+WIDTHS = ((C, GROUPS), NARROW)
+NARROW_RUN = 256              # dcn_narrow.cu: kThreads, pixels of a block / run
+NARROW_BLOCKS_PER_SM = 4      # dcn_narrow.cu: kBwdBlocksPerSm
 _SMEM_MAX, _LINE = 232448, 128
 # tile rows of both kernels (dcn_fwd.cu, dcn_bwd.cu: kTileRows), of 16
 # pixels (forward) or 32 (backward); each runs one block per SM, of 32
@@ -71,9 +93,12 @@ RF_MAX = 8                    # dcn_bwd.cu: kRfMax
 _FP_STRIDE = 9                # dcn_bwd.cu: kFpStride
 
 
-def fwd_smem_bytes(dtype: torch.dtype) -> int:
+def fwd_smem_bytes(dtype: torch.dtype, c: int = C, dg: int = GROUPS) -> int:
     """Shared memory of a forward block (``dcn_fwd.cu::smem_bytes``): the
-    resident packed weight and two A stages of a tile's pixels."""
+    resident packed weight and two A stages of a tile's pixels; at
+    :data:`NARROW` (``dcn_narrow.cu``) the f32 weight and bias."""
+    if (c, dg) == NARROW:
+        return (9 * c * c + c) * 4
     es = torch.tensor([], dtype=dtype).element_size()
     chunks = C * es // _LINE
     return chunks * (9 * COUT + 2 * TILE_ROWS[dtype] * 16) * _LINE
@@ -97,8 +122,13 @@ def footprint(tile_y0: int, tile_x0: int, rf: int, th: int):
             BWD_TW + 2 * rf + 3)
 
 
-def bwd_smem_bytes(dtype: torch.dtype, rf: int) -> int:
-    """Shared memory of a backward block (``dcn_bwd.cu::smem_bytes``)."""
+def bwd_smem_bytes(dtype: torch.dtype, rf: int, c: int = C,
+                   dg: int = GROUPS) -> int:
+    """Shared memory of a backward block (``dcn_bwd.cu::smem_bytes``); at
+    :data:`NARROW` (``dcn_narrow.cu``, no footprint) the f32 weight and a
+    run's g and S, rows padded by one."""
+    if (c, dg) == NARROW:
+        return (9 * c * c + 2 * NARROW_RUN * (c + 1)) * 4
     es = torch.tensor([], dtype=dtype).element_size()
     pad = 16 // es
     th = TILE_ROWS[dtype]
@@ -109,9 +139,17 @@ def bwd_smem_bytes(dtype: torch.dtype, rf: int) -> int:
     return fixed + fh * fw * _FP_STRIDE * 4
 
 
-def bwd_grid(b: int, h: int, w: int, sms: int, dtype: torch.dtype):
+def bwd_grid(b: int, h: int, w: int, sms: int, dtype: torch.dtype,
+             c: int = C, dg: int = GROUPS):
     """The backward's walk: for each block of its grid, (group, tiles); a
-    tile is ``(b * tiles_y + ty) * tiles_x + tx`` (``dcn_bwd.cu``)."""
+    tile is ``(b * tiles_y + ty) * tiles_x + tx`` (``dcn_bwd.cu``).  At
+    :data:`NARROW` (``dcn_narrow.cu``) a block takes every group (group
+    None) and its tiles are runs of :data:`NARROW_RUN` consecutive pixels,
+    run r the pixels ``[r * NARROW_RUN, (r + 1) * NARROW_RUN)``."""
+    if (c, dg) == NARROW:
+        runs = -(-b * h * w // NARROW_RUN)
+        blocks = min(runs, NARROW_BLOCKS_PER_SM * sms)
+        return [(None, list(range(i, runs, blocks))) for i in range(blocks)]
     th = TILE_ROWS[dtype]
     ntiles = b * -(-h // th) * -(-w // BWD_TW)
     slots = min(ntiles, sms // GROUPS)
@@ -124,7 +162,7 @@ def _clamp_args(max_offset):
 
 
 def _check_x(name, x, dg):
-    """Validate the input both kernels read; returns (b, h, w)."""
+    """Validate the input both kernels read; returns (b, h, w, c)."""
     if not x.is_cuda:
         raise ValueError(f"{name}: no kernel for device {x.device}")
     if x.dtype not in _build.SUFFIX:
@@ -132,13 +170,15 @@ def _check_x(name, x, dg):
     if x.dim() != 4:
         raise ValueError(f"{name}: x must be (B, H, W, C)")
     b, h, w, c = x.shape
-    if c != C or dg != GROUPS:
-        raise ValueError(f"{name}: the kernel takes C = {C} in {GROUPS} "
-                         f"deformable groups, got C = {c}, dg = {dg}")
+    if (c, dg) not in WIDTHS:
+        raise ValueError(
+            f"{name}: the kernels take C = {C} in {GROUPS} deformable groups "
+            f"or C = {NARROW[0]} in {NARROW[1]}, got C = {c}, dg = {dg} "
+            "(more widths: ROADMAP.md, queue 2)")
     if b * h * w >= 2 ** 31:
         raise ValueError(f"{name}: {b * h * w} pixels exceed 32-bit indices")
     _build.check_tensor(x, "x", (b, h, w, c), x.dtype, x.device)
-    return b, h, w
+    return b, h, w, c
 
 
 def _sources(x, offset, mask, om, dg):
@@ -158,23 +198,30 @@ def _sources(x, offset, mask, om, dg):
 def _launch_fwd(x, offset, mask, om, weight, bias, dg, act, max_offset):
     if act not in _build.ACTS:
         raise ValueError(f"dcn_fwd: unknown activation {act!r}")
-    b, h, w = _check_x("dcn_fwd", x, dg)
+    b, h, w, c = _check_x("dcn_fwd", x, dg)
     src = _sources(x, offset, mask, om, dg)
     dt, dev = x.dtype, x.device
-    if fwd_smem_bytes(dt) > _SMEM_MAX:
+    # the narrow kernels' shared memory is static: nvcc holds it
+    if (c, dg) != NARROW and fwd_smem_bytes(dt, c, dg) > _SMEM_MAX:
         raise ValueError("dcn_fwd: shared memory exceeded")
-    _build.check_tensor(weight, "weight", (COUT, C, 3, 3), dt, dev)
+    _build.check_tensor(weight, "weight", (c, c, 3, 3), dt, dev)
     if bias is not None:
-        _build.check_tensor(bias, "bias", (COUT,), dt, dev)
-    out = torch.empty(b, h, w, COUT, device=dev, dtype=dt)
-    packed = torch.empty(C * 9 * COUT, device=dev, dtype=dt)
-    lib = _build.load("dcn_fwd", _FWD_FUNCS)
+        _build.check_tensor(bias, "bias", (c,), dt, dev)
+    out = torch.empty(b, h, w, c, device=dev, dtype=dt)
+    sfx = _build.SUFFIX[dt]
+    if (c, dg) == NARROW:
+        fn = getattr(_build.load("dcn_narrow", _NARROW_FUNCS),
+                     f"dcn_narrow_fwd_{sfx}")
+        weights = (weight.data_ptr(),)
+    else:
+        packed = torch.empty(C * 9 * COUT, device=dev, dtype=dt)
+        fn = getattr(_build.load("dcn_fwd", _FWD_FUNCS), f"dcn_fwd_{sfx}")
+        weights = (weight.data_ptr(), packed.data_ptr())
     with torch.cuda.device(dev):
-        code = getattr(lib, f"dcn_fwd_{_build.SUFFIX[dt]}")(
-            x.data_ptr(), *src, weight.data_ptr(), packed.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
-            b, h, w, _build.ACTS[act], *_clamp_args(max_offset),
-            torch.cuda.current_stream(dev).cuda_stream)
+        code = fn(x.data_ptr(), *src, *weights,
+                  None if bias is None else bias.data_ptr(), out.data_ptr(),
+                  b, h, w, _build.ACTS[act], *_clamp_args(max_offset),
+                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "dcn_fwd")
     return out
 
@@ -200,11 +247,12 @@ def dcn_fwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
             max_offset: float | None = None) -> torch.Tensor:
     """DCNv2 3x3 / s1 / p1 forward with fused bias and activation.
 
-    x: (B, H, W, 64) contiguous NHWC; offset: (B, H, W, dg*9*2) laid out
+    x: (B, H, W, C) contiguous NHWC; offset: (B, H, W, dg*9*2) laid out
     (dg, tap, (dy, dx)); mask: (B, H, W, dg*9) after the sigmoid; weight
-    (64, 64, 3, 3); bias (64,) or None; act None / "relu" / "lrelu";
-    max_offset None (exact) or R (offsets clamped to [-R, R]); dg = 8.  All
-    of one dtype, bf16 or f32 (f32 runs the tensor cores in TF32).
+    (C, C, 3, 3); bias (C,) or None; act None / "relu" / "lrelu";
+    max_offset None (exact) or R (offsets clamped to [-R, R]); (C, dg) one
+    of :data:`WIDTHS`: (64, 8) or (16, 4).  All of one dtype, bf16 or f32
+    (at C = 64 f32 runs the tensor cores in TF32; at 16 the f32 cores).
     """
     if x.device.type == "cpu":
         return dcn_fwd_plain(x, offset, mask, weight, bias, deformable_groups,
@@ -275,16 +323,16 @@ def dcn_bwd_om_plain(x, om, weight, g, deformable_groups=8,
 
 
 def _launch_bwd(x, offset, mask, om, weight, g, dg, max_offset):
-    b, h, w = _check_x("dcn_bwd", x, dg)
+    b, h, w, c = _check_x("dcn_bwd", x, dg)
     src = _sources(x, offset, mask, om, dg)
     dt, dev = x.dtype, x.device
     rf = footprint_radius(max_offset)
-    if bwd_smem_bytes(dt, rf) > _SMEM_MAX:
+    if (c, dg) != NARROW and bwd_smem_bytes(dt, rf, c, dg) > _SMEM_MAX:
         raise ValueError("dcn_bwd: shared memory exceeded")
-    _build.check_tensor(weight, "weight", (COUT, C, 3, 3), dt, dev)
-    _build.check_tensor(g, "g", (b, h, w, COUT), dt, dev)
-    dx = torch.zeros(b, h, w, C, device=dev, dtype=torch.float32)
-    dw = torch.zeros(COUT, 9, C, device=dev, dtype=torch.float32)
+    _build.check_tensor(weight, "weight", (c, c, 3, 3), dt, dev)
+    _build.check_tensor(g, "g", (b, h, w, c), dt, dev)
+    dx = torch.zeros(b, h, w, c, device=dev, dtype=torch.float32)
+    dw = torch.zeros(c, 9, c, device=dev, dtype=torch.float32)
     if om is None:
         doffset, dmask = torch.empty_like(offset), torch.empty_like(mask)
         dsts = (doffset.data_ptr(), dg * 18, dmask.data_ptr(), dg * 9)
@@ -292,16 +340,22 @@ def _launch_bwd(x, offset, mask, om, weight, g, dg, max_offset):
         dom = torch.empty_like(om)
         dsts = (dom.data_ptr(), dg * 27,
                 dom.data_ptr() + dg * 18 * dom.element_size(), dg * 27)
-    lib = _build.load("dcn_bwd", _BWD_FUNCS)
+    sfx = _build.SUFFIX[dt]
+    if (c, dg) == NARROW:
+        fn = getattr(_build.load("dcn_narrow", _NARROW_FUNCS),
+                     f"dcn_narrow_bwd_{sfx}")
+        radius = ()
+    else:
+        fn = getattr(_build.load("dcn_bwd", _BWD_FUNCS), f"dcn_bwd_{sfx}")
+        radius = (rf,)
     with torch.cuda.device(dev):
-        code = getattr(lib, f"dcn_bwd_{_build.SUFFIX[dt]}")(
-            x.data_ptr(), *src, weight.data_ptr(), g.data_ptr(),
-            dx.data_ptr(), *dsts, dw.data_ptr(), b, h, w,
-            *_clamp_args(max_offset), rf,
-            torch.cuda.current_stream(dev).cuda_stream)
+        code = fn(x.data_ptr(), *src, weight.data_ptr(), g.data_ptr(),
+                  dx.data_ptr(), *dsts, dw.data_ptr(), b, h, w,
+                  *_clamp_args(max_offset), *radius,
+                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "dcn_bwd")
     dcn_bwd.launches += 1
-    dweight = dw.view(COUT, 3, 3, C).permute(0, 3, 1, 2).to(dt)
+    dweight = dw.view(c, 3, 3, c).permute(0, 3, 1, 2).to(dt)
     if om is None:
         return dx.to(dt), doffset, dmask, dweight
     return dx.to(dt), dom, dweight
@@ -311,7 +365,7 @@ def dcn_bwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
             weight: torch.Tensor, g: torch.Tensor,
             deformable_groups: int = 8, max_offset: float | None = None):
     """DCNv2 3x3 / s1 / p1 backward: (dx, doffset, dmask, dweight) for the
-    output cotangent ``g`` (B, H, W, 64), taken before bias and activation.
+    output cotangent ``g`` (B, H, W, C), taken before bias and activation.
 
     Same inputs and layouts as :func:`dcn_fwd`.  dx and dweight are summed
     in f32 with atomics (the order of the sums changes from run to run) and

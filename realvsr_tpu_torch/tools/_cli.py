@@ -6,10 +6,15 @@ import argparse
 import logging
 import os
 import os.path as osp
+from functools import partial
 
 import torch
 
 from realvsr_tpu_torch.core.config import parse
+from realvsr_tpu_torch.eval.sliding_window import (
+    make_forward, sliding_window_infer)
+from realvsr_tpu_torch.eval.streaming import StreamingRunner
+from realvsr_tpu_torch.eval.tiled import make_batched_tiled_forward
 from realvsr_tpu_torch.models import define_g
 from realvsr_tpu_torch.train.checkpoint import load_network
 
@@ -25,7 +30,45 @@ def parse_args(argv, doc: str) -> argparse.Namespace:
                         help="clamp DCN offsets to ±R (default: exact)")
     parser.add_argument("--save_imgs", action="store_true")
     parser.add_argument("--flip_test", action="store_true")
+    parser.add_argument("--streaming", action="store_true",
+                        help="restore each sequence as a stream, each "
+                             "frame's pyramid computed once (EDVR models)")
+    parser.add_argument("--tile", type=int, nargs=2, metavar=("H", "W"),
+                        default=None,
+                        help="restore each window in H x W tiles, run as "
+                             "one batch on the device")
+    parser.add_argument("--overlap", type=int, default=32,
+                        help="pixels of overlap of the tiles (--tile)")
     return parser.parse_args(argv)
+
+
+def restorer(args, opt, model):
+    """``frames (T, H, W, C) -> iterator of (frame index, float32 numpy
+    output)`` as the arguments ask, on the device that holds the model's
+    weights: ``--streaming`` through
+    :meth:`~realvsr_tpu_torch.eval.streaming.StreamingRunner.run_lazy`
+    (EDVR models; no flips, no tiles); else the sliding window of the
+    model's ``nframes``, each window restored whole or, with ``--tile H W``,
+    in tiles run as one batch
+    (:func:`~realvsr_tpu_torch.eval.tiled.make_batched_tiled_forward`),
+    ``--flip_test`` averaging its four flipped forwards."""
+    padding = opt["datasets"]["test"].get("padding") or "replicate"
+    device = next(model.parameters()).device
+    if args.streaming:
+        if args.flip_test or args.tile is not None:
+            raise ValueError("streaming takes no flip test and no tiles")
+        runner = StreamingRunner(model, None, padding, device)
+        return lambda frames: enumerate(
+            out.float().cpu().numpy() for out in runner.run_lazy(frames))
+    if args.tile is not None:
+        forward = make_batched_tiled_forward(
+            model, None, tuple(args.tile), args.overlap,
+            int(opt.get("scale") or 1), device)
+    else:
+        forward = make_forward(model)
+    return partial(sliding_window_infer, forward,
+                   n_frames=opt["network_G"]["nframes"], padding=padding,
+                   flip_test=args.flip_test, device=device)
 
 
 def setup_logger(log_dir: str, name: str = "base") -> logging.Logger:

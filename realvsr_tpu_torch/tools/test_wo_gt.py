@@ -4,23 +4,25 @@
 
 Runs on ``--device`` (default ``cuda``); ``path.pretrain_model_G`` is a
 torch state dict (a reference ``.pth``).
+
+``--flip_test`` averages the four flipped forwards of each window;
+``--streaming`` restores each sequence as a stream, each frame's pyramid
+computed once (EDVR models); ``--tile H W [--overlap P]`` restores each
+window in H x W tiles run as one batch on the device.
 """
 from __future__ import annotations
 
-from realvsr_tpu_torch.eval.test_wo_gt import evaluate_wo_gt
-from realvsr_tpu_torch.tools._cli import parse_args, setup
+from realvsr_tpu_torch.eval.test_wo_gt import restore_wo_gt
+from realvsr_tpu_torch.tools._cli import parse_args, restorer, setup
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv, __doc__)
     opt, results_root, model = setup(args)
     ds = opt["datasets"]["test"]
-    return evaluate_wo_gt(
-        model, None, lq_root=ds["dataroot_LQ"],
-        n_frames=opt["network_G"]["nframes"],
+    return restore_wo_gt(
+        restorer(args, opt, model), lq_root=ds["dataroot_LQ"],
         color=ds.get("color") or "YCbCr",
-        padding=ds.get("padding") or "replicate",
-        flip_test=args.flip_test,
         save_folder=results_root if args.save_imgs else None)
 
 

@@ -411,3 +411,140 @@ def test_train_step_on_card_matches_cpu(cuda):
     for k, ref in grads["cpu"].items():
         err = (grads["cuda"][k] - ref).abs().max().item()
         assert err <= 5e-2 * ref.abs().max().item(), k
+
+
+def _narrow_inputs(shape, dtype, dev, seed=0, std=2.5):
+    """16 channels in 4 deformable groups (csrc/dcn_narrow.cu)."""
+    b, h, w, c = shape
+    g = _gen(seed)
+    x = torch.randn(b, h, w, c, generator=g)
+    off = torch.randn(b, h, w, 4 * 18, generator=g) * std
+    mask = torch.rand(b, h, w, 4 * 9, generator=g)
+    wgt = (torch.rand(c, c, 3, 3, generator=g) * 2 - 1) / (9 * c) ** 0.5
+    bias = torch.randn(c, generator=g) * 0.1
+    gout = torch.randn(b, h, w, c, generator=g)
+    return [t.to(dev, dtype) for t in (x, off, mask, wgt, bias, gout)]
+
+
+@pytest.mark.parametrize("om", [False, True], ids=["separate", "om"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,act,max_offset", [
+    ((12, 64, 64, 16), None, 8),      # the debug config's L1, its clamp
+    ((12, 64, 64, 16), "lrelu", 4),
+    ((1, 37, 45, 16), None, None),    # ragged runs, taps outside
+    ((2, 13, 70, 16), "relu", 8),
+])
+def test_dcn_narrow_kernels_match_plain(cuda, dtype, shape, act, max_offset,
+                                        om):
+    """The forward and backward at 16 channels in 4 groups, both forms."""
+    x, off, mask, wgt, bias, g = _narrow_inputs(shape, dtype, cuda)
+    n = (dcn_fwd.launches, dcn_bwd.launches)
+    if om:
+        t = _om(off, mask)
+        out = dcn_fwd_om(x, t, wgt, bias, 4, act=act, max_offset=max_offset)
+        ref = dcn_fwd_om_plain(x, t, wgt, bias, 4, act, max_offset)
+        grads = dcn_bwd_om(x, t, wgt, g, 4, max_offset)
+        grefs = dcn_bwd_om_plain(x, t, wgt, g, 4, max_offset)
+        doff = grads[1][..., :4 * 18]
+    else:
+        out = dcn_fwd(x, off, mask, wgt, bias, 4, act=act,
+                      max_offset=max_offset)
+        ref = dcn_fwd_plain(x, off, mask, wgt, bias, 4, act, max_offset)
+        grads = dcn_bwd(x, off, mask, wgt, g, 4, max_offset)
+        grefs = dcn_bwd_plain(x, off, mask, wgt, g, 4, max_offset)
+        doff = grads[1]
+    torch.cuda.synchronize()
+    assert (dcn_fwd.launches - n[0], dcn_bwd.launches - n[1]) == (1, 1)
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert max_abs_err(out, ref) <= tolerance(ref)
+    for o, r in zip(grads, grefs):
+        assert o.shape == r.shape and o.dtype == r.dtype
+        assert max_abs_err(o, r) <= grad_tolerance(r)
+    if max_offset is not None:
+        assert not doff[off.abs() > max_offset].any()
+
+
+def test_dcn_rejects_other_widths_without_fallback(cuda):
+    """C = 32 in 8 groups (and 64 in 4) has no kernel: a ValueError naming
+    the ROADMAP, no launch, no plain fallback."""
+    x, off, mask, _, _, g = _narrow_inputs((1, 8, 16, 16), torch.float32,
+                                           cuda)
+    n = (dcn_fwd.launches, dcn_bwd.launches)
+    x32 = torch.randn(1, 8, 16, 32, device=cuda)
+    w32 = torch.randn(32, 32, 3, 3, device=cuda)
+    off8 = torch.zeros(1, 8, 16, 8 * 18, device=cuda)
+    mask8 = torch.zeros(1, 8, 16, 8 * 9, device=cuda)
+    with pytest.raises(ValueError, match="ROADMAP.md, queue 2"):
+        dcn_fwd(x32, off8, mask8, w32, None, 8)
+    with pytest.raises(ValueError, match="ROADMAP.md, queue 2"):
+        dcn_fwd_om(x32, _om(off8, mask8 + 0.5), w32, None, 8)
+    with pytest.raises(ValueError, match="ROADMAP.md, queue 2"):
+        dcn_bwd(x32, off8, mask8, w32, torch.zeros_like(x32), 8)
+    with pytest.raises(ValueError, match="ROADMAP.md, queue 2"):
+        dcn_bwd_om(x32, _om(off8, mask8 + 0.5), w32, torch.zeros_like(x32),
+                   8)
+    x64 = torch.randn(1, 8, 16, 64, device=cuda)
+    with pytest.raises(ValueError, match="ROADMAP.md, queue 2"):
+        dcn_fwd(x64, off, mask, torch.randn(64, 64, 3, 3, device=cuda),
+                None, 4)
+    assert (dcn_fwd.launches, dcn_bwd.launches) == n
+
+
+def test_streaming_matches_sliding_window_on_card(cuda):
+    """Full width (nf 64, 8 groups), cut depth, bf16, 4 frames of 64 x 128:
+    StreamingRunner.run against the sliding window of make_forward, within
+    1e-2 of the output's largest magnitude (cuDNN's front convs may pick
+    another algorithm for one frame than for a window of three)."""
+    from realvsr_tpu_torch.eval.sliding_window import (make_forward,
+                                                       sliding_window_infer)
+    from realvsr_tpu_torch.eval.streaming import StreamingRunner
+    from realvsr_tpu_torch.models.edvr import EDVRNoUp
+
+    model = EDVRNoUp(nf=64, nframes=3, groups=8, front_RBs=1, back_RBs=1,
+                     dcn_max_offset=4, device=cuda, dtype=torch.bfloat16,
+                     generator=_gen(20))
+    frames = np.random.default_rng(21).random((4, 64, 128, 3)).astype(
+        np.float32)
+    ref = np.stack([o for _, o in sliding_window_infer(
+        make_forward(model), frames, 3, device=cuda)])
+    runner = StreamingRunner(model, device=cuda)
+    n = dcn_fwd.launches
+    out = runner.run(frames).float().cpu().numpy()
+    assert dcn_fwd.launches - n == 4 * 4
+    assert np.abs(out - ref).max() <= 1e-2 * np.abs(ref).max()
+    scan = runner.run_scan(frames).float().cpu().numpy()
+    assert np.abs(scan - out).max() <= 1e-2 * np.abs(ref).max()
+
+
+def test_batched_tiler_matches_loop_tiler_on_card(cuda):
+    from realvsr_tpu_torch.eval.tiled import (make_batched_tiled_forward,
+                                              make_tiled_forward)
+    from realvsr_tpu_torch.models.edvr import EDVRNoUp
+
+    model = EDVRNoUp(nf=64, nframes=3, groups=8, front_RBs=1, back_RBs=1,
+                     dcn_max_offset=4, device=cuda, generator=_gen(22))
+    window = torch.rand(3, 96, 160, 3, generator=_gen(23)).to(cuda)
+    n = dcn_fwd.launches
+    batched = make_batched_tiled_forward(model, tile_hw=(64, 96),
+                                         overlap=16, device=cuda)(window)
+    assert dcn_fwd.launches - n == 4      # one model call for every tile
+    loop = make_tiled_forward(model, tile_hw=(64, 96), overlap=16,
+                              device=cuda)(window)
+    assert batched.shape == loop.shape == (96, 160, 3)
+    assert (batched.cpu() - loop).abs().max() <= 2e-2 * loop.abs().max()
+
+
+def test_lpips_and_niqe_on_card_match_cpu(cuda):
+    from realvsr_tpu_torch.eval import niqe, perceptual
+
+    rng = np.random.default_rng(24)
+    x = rng.random((2, 64, 96, 3)).astype(np.float32)
+    y = np.clip(x + rng.normal(0, 0.1, x.shape), 0, 1).astype(np.float32)
+    card = perceptual.lpips(perceptual.init_lpips_params(device=cuda), x, y)
+    cpu = perceptual.lpips(perceptual.init_lpips_params(device="cpu"), x, y)
+    np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), rtol=1e-3)
+    img = np.clip(rng.normal(128, 40, (192, 192)), 0, 255)
+    fc, kc = niqe.niqe_features(img, 48, 0.5, device=cuda)
+    fh, kh = niqe.niqe_features(img, 48, 0.5, device="cpu")
+    assert torch.equal(kc.cpu(), kh)
+    np.testing.assert_allclose(fc.cpu().numpy(), fh.numpy(), rtol=1e-6)
