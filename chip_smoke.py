@@ -73,7 +73,28 @@ Phases, each of which raises (and so exits non-zero) on failure:
      forwards;
    - LPIPS / DISTS (seeded random VGG16) and NIQE / BRISQUE on the card
      against the CPU;
-7. times: each kernel, its plain version and the one PyTorch call that
+7. the training families, TDAN and EDVR x4 + TSA (DCN clamp ±8):
+   - ``dcn_bwd`` against its plain version at the EDVR x4 + TSA recipe's
+     DCN planes (224, 64|32|16, 64|32|16, 64), both forms, bf16 and f32,
+     the 16- and 32-wide ones narrower than the backward's tile;
+   - one Split step of each at full width and cut depth (TDAN nf 64, 1 + 1
+     ResBlocks, LQ 64x64; EDVR x4 + TSA nf 64, 8 groups, 1 + 1 ResBlocks,
+     5 frames, LQ 32x32), batch 2 of motion-synthetic frames, f32, the
+     card against the CPU as the flagship's, EDVR x4's with
+     ``ft_tsa_only`` (every non-TSA parameter bit-unchanged after the
+     update, the TSA ones as the CPU's);
+   - ``configs/train/smoke_TDAN_motion.yml`` and
+     ``smoke_EDVRx4_motion.yml`` through the port's Trainer as the
+     training command line runs them (bf16, their batch and crops),
+     ``niter`` cut to 12 with validation (x4 for EDVR) and a checkpoint at
+     the end, launches per step held to the models' routing;
+   - the published recipes' networks and batches
+     (``train_TDAN_RealVSR_YCbCr_Split.yml``, 192² x 32, 3 frames;
+     ``train_EDVRx4_TSA_Vimeo90K.yml``, GT 256² x 32, 7 frames, without
+     its cutblur, which cannot run at x4) on motion-synthetic data, 6
+     steps each in f32 and bf16: steps/s, ms a step, idle share, peak
+     memory;
+8. times: each kernel, its plain version and the one PyTorch call that
    computes the same function (where there is one) with CUDA events at the
    paths' shapes (every conv3x3 case and both DCN kernels in bf16 and in
    f32, the DCN kernels in both forms; the f32 yardstick is cuDNN with TF32
@@ -90,7 +111,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
 Prints one JSON line per check and timing, then the card line, the
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 ``--profile`` adds a ``torch.profiler`` breakdown of one window's forward
-of each inference model.
+of each inference model and of the last two steps of each timed training
+run (the flagship's and the two recipes').
 """
 from __future__ import annotations
 
@@ -116,7 +138,6 @@ EDVRX4_CFG = os.path.join("configs", "train",
 VIMEO_H, VIMEO_W = 256, 448      # the Vimeo90K LR frame
 R_INFER = 4                      # the deployment DCN clamp
 TRAIN_STEPS, TRAIN_WARMUP = 10, 2
-TRAIN_BATCH = 32                 # the recipe's; f32 fits it too (PERF.md)
 
 
 def emit(**kv):
@@ -659,166 +680,284 @@ def inference_paths(tmp):
     return paths
 
 
-def _train_opt(tmp, dtype):
-    """The Split recipe as parsed, on the synthetic train set at its crop."""
+def _train_opt(tmp, dtype, recipe=RECIPE, mode="Synthetic",
+               steps=TRAIN_STEPS):
+    """A training recipe as parsed, on a synthetic train set (``mode``) at
+    its crop, batch and frames: no validation, no checkpoints, ``steps``
+    iterations, f32 or ``mixed_precision``."""
     from realvsr_tpu_torch.core.config import parse
 
-    opt = parse(os.path.join(ROOT, RECIPE), is_train=True,
-                root=os.path.join(tmp, dtype))
-    recipe = opt["datasets"]["train"]
+    opt = parse(os.path.join(ROOT, recipe), is_train=True,
+                root=os.path.join(tmp, f"{os.path.basename(recipe)}_{dtype}"))
+    train = opt["datasets"]["train"]
     opt["datasets"] = {"train": dict(
-        name="Synthetic_Train", mode="Synthetic", phase="train", scale=1,
-        N_frames=recipe["N_frames"], GT_size=recipe["GT_size"],
-        batch_size=TRAIN_BATCH, n_workers=recipe["n_workers"],
-        num_seqs=8, frames_per_seq=10, dataset_ratio=20)}
-    opt["train"].update(niter=TRAIN_STEPS, val_freq=None,
+        name=f"{mode}_Train", mode=mode, phase="train",
+        scale=opt["scale"] or 1, N_frames=train["N_frames"],
+        GT_size=train["GT_size"], batch_size=train["batch_size"],
+        n_workers=train["n_workers"], num_seqs=8, frames_per_seq=10,
+        dataset_ratio=20)}
+    if mode == "SyntheticMotion":   # frames a little larger than the crop
+        side = train["GT_size"] + 32
+        opt["datasets"]["train"].update(frame_h=side, frame_w=side)
+    opt["train"].update(niter=steps, val_freq=None,
                         mixed_precision=dtype == "bfloat16")
     opt["logger"]["save_checkpoint_freq"] = 10 ** 9
     return opt
 
 
-def training_slice(tmp, profile=False):
-    """The training path through the port's Trainer, f32 and bf16.  With
-    ``profile`` steps 4 and 5 of each run are traced (and so are not
-    representative for the steps/s)."""
+def warm_motion(opt) -> float:
+    """Generate every motion-synthetic frame the train set of ``opt`` reads
+    (the generator caches them in the process), in threads, before the
+    run: data set-up, kept out of the timed steps.  Returns the seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from realvsr_tpu_torch.data import synthetic
+
+    ds = opt["datasets"]["train"]
+    if ds["mode"] != "SyntheticMotion":
+        return 0.0
+    t0 = time.time()
+    args = [(s, t, ds["frame_h"], ds["frame_w"], ds.get("scale") or 1)
+            for s in range(ds["num_seqs"])
+            for t in range(ds["frames_per_seq"])]
+    with ThreadPoolExecutor(8) as pool:   # each LQ frame makes its GT
+        for _ in pool.map(lambda a: synthetic._lq_frame(*a), args):
+            pass
+    return time.time() - t0
+
+
+def run_trainer(opt, per_step, *, offsets_seed=None, warmup=TRAIN_WARMUP,
+                profile=False):
+    """``opt`` through the port's Trainer on the card, as the training
+    command line runs it (DCN clamp ±8).  The counts are set to 0 just
+    before the run and read just after; each step's launches are held to
+    ``per_step``, its losses must be finite, every parameter must move and
+    every validation be finite.  Steps after ``warmup`` are timed start to
+    end (the host loader included); the gaps between one step's end and the
+    next one's start on the device's clock are its idle time.  With
+    ``offsets_seed`` the DCN offset convs are randomised first; with
+    ``profile`` the last two steps are traced (and then the steps/s is not
+    the one to report)."""
     import torch
 
     from realvsr_tpu_torch.train.trainer import Trainer
 
-    kernels = counters()
+    trainer = Trainer(opt, device="cuda", dcn_max_offset=train_r())
+    niter = int(opt["train"]["niter"])
+    if profile:
+        trainer.profile_steps = (niter - 2, niter)
+    if offsets_seed is not None:
+        randomise_offset_convs(trainer.model, seed=offsets_seed, std=0.5)
+    before = {k: v.detach().clone()
+              for k, v in trainer.model.named_parameters()}
+    kernels, steps, vals = counters(), [], []
+    inner, inner_val = trainer.train_step, trainer.validate
+
+    def step(state, batch, gen):
+        n0 = {k: f.launches for k, f in kernels.items()}
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        state, logs = inner(state, batch, gen)
+        t1.record()
+        steps.append(dict(
+            launches={k: f.launches - n0[k] for k, f in kernels.items()},
+            logs=logs, start=t0, end=t1))
+        return state, logs
+
+    def validate(at):
+        psnr = inner_val(at)
+        vals.append((at, psnr))
+        return psnr
+
+    trainer.train_step, trainer.validate = step, validate
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    trainer.train()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if len(steps) != niter:
+        raise AssertionError(f"{len(steps)} steps run, {niter} asked")
+    for i, st in enumerate(steps):
+        if st["launches"] != per_step:
+            raise AssertionError(f"step {i}: launches {st['launches']}, "
+                                 f"expected {per_step}")
+        if not all(torch.isfinite(v).item() for v in st["logs"].values()):
+            raise AssertionError(f"step {i}: losses {st['logs']}")
+    moved = sum(not torch.equal(before[k], v.detach())
+                for k, v in trainer.model.named_parameters())
+    if moved != len(before):
+        raise AssertionError(f"{len(before) - moved} parameters did not "
+                             "move")
+    if not all(math.isfinite(p) for _, p in vals):
+        raise AssertionError(f"validation {vals}")
+    timed = steps[warmup:]
+    ms = timed[0]["start"].elapsed_time(timed[-1]["end"])
+    gaps = [a["end"].elapsed_time(b["start"])
+            for a, b in zip(timed, timed[1:])]
+    step_ms = [st["start"].elapsed_time(st["end"]) for st in steps]
+    ds = opt["datasets"]["train"]
+    res = dict(
+        batch=ds["batch_size"], crop=ds["GT_size"], frames=ds["N_frames"],
+        scale=ds.get("scale") or 1, dcn_max_offset=train_r(),
+        steps=len(steps), launches=launches,
+        launches_per_step=steps[-1]["launches"],
+        losses=[{k: v.item() for k, v in st["logs"].items()} for st in steps],
+        steps_per_s=len(timed) / (ms / 1e3), step_ms=step_ms,
+        median_step_ms=sorted(step_ms[warmup:])[len(timed) // 2],
+        gap_ms=gaps, idle_share=sum(gaps) / ms, peak_mem_gib=peak,
+        params_moved=moved, validation_psnr=vals, profiled=profile,
+        checkpoints=sorted(os.listdir(opt["path"]["models"])))
+    if profile:
+        with open(os.path.join(opt["path"]["experiments_root"], "profile",
+                               "summary.txt")) as f:
+            res["profile"] = f.read()
+    del trainer, before, steps
+    torch.cuda.empty_cache()
+    return res
+
+
+def training_slice(tmp, profile=False):
+    """The flagship's Split recipe through the port's Trainer, f32 and
+    bf16, offsets randomised.  With ``profile`` its last two steps are
+    traced."""
+    import torch
+
     per_step = {"dcn_fwd": 4, "dcn_bwd": 4, **EXPECT["edvr_noup"],
                 "dcn_block": 0}
-    results, r = {}, train_r()
+    results = {}
     # PyTorch's defaults, as the recipe runs: cuDNN convs in TF32, like the
     # kernels; the checks around this phase run cuDNN in full f32
     torch.backends.cudnn.allow_tf32 = True
     for dtype in ("float32", "bfloat16"):
-        opt = _train_opt(tmp, dtype)
-        trainer = Trainer(opt, device="cuda", dcn_max_offset=r)
-        if profile:
-            trainer.profile_steps = (TRAIN_STEPS - 2, TRAIN_STEPS)
-        randomise_offset_convs(trainer.model, seed=11, std=0.5)
-        before = {k: v.detach().clone()
-                  for k, v in trainer.model.named_parameters()}
-        steps = []
-        inner = trainer.train_step
-
-        def step(state, batch, gen, inner=inner):
-            n0 = {k: f.launches for k, f in kernels.items()}
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            state, logs = inner(state, batch, gen)
-            t1.record()
-            steps.append(dict(
-                launches={k: f.launches - n0[k] for k, f in kernels.items()},
-                logs=logs, start=t0, end=t1))
-            return state, logs
-
-        trainer.train_step = step
-        for f in kernels.values():
-            f.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        trainer.train()
-        torch.cuda.synchronize()
-        launches = {k: f.launches for k, f in kernels.items()}
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        if len(steps) != TRAIN_STEPS:
-            raise AssertionError(f"{len(steps)} steps run, {TRAIN_STEPS} "
-                                 "asked")
-        for i, st in enumerate(steps):
-            if st["launches"] != per_step:
-                raise AssertionError(f"step {i}: launches {st['launches']}")
-            if not all(torch.isfinite(v).item() for v in st["logs"].values()):
-                raise AssertionError(f"step {i}: losses {st['logs']}")
-        moved = sum(not torch.equal(before[k], v.detach())
-                    for k, v in trainer.model.named_parameters())
-        if moved != len(before):
-            raise AssertionError(f"{len(before) - moved} parameters did not "
-                                 "move")
-        # steps after warm-up, start to end: the host loader is included.
-        # The gaps between one step's end and the next one's start on the
-        # device's clock are its idle time (batch upload and host waits).
-        timed = steps[TRAIN_WARMUP:]
-        ms = timed[0]["start"].elapsed_time(timed[-1]["end"])
-        gaps = [a["end"].elapsed_time(b["start"])
-                for a, b in zip(timed, timed[1:])]
-        ds = opt["datasets"]["train"]
-        res = dict(
-            dtype=dtype, batch=ds["batch_size"], crop=ds["GT_size"],
-            dcn_max_offset=r, steps=len(steps),
-            launches=launches, launches_per_step=steps[-1]["launches"],
-            losses=[{k: v.item() for k, v in st["logs"].items()}
-                    for st in steps],
-            steps_per_s=len(timed) / (ms / 1e3),
-            step_ms=[st["start"].elapsed_time(st["end"]) for st in steps],
-            gap_ms=gaps, idle_share=sum(gaps) / ms,
-            peak_mem_gib=peak, params_moved=moved, profiled=profile)
-        emit(phase="training", **res)
-        if profile:
-            with open(os.path.join(opt["path"]["experiments_root"], "profile",
-                                   "summary.txt")) as f:
-                print(f"--- torch.profiler, training {dtype}\n{f.read()}")
+        res = run_trainer(_train_opt(tmp, dtype), per_step, offsets_seed=11,
+                          profile=profile)
+        summary = res.pop("profile", None)
+        emit(phase="training", dtype=dtype, **res)
+        if summary:
+            print(f"--- torch.profiler, training {dtype}\n{summary}")
         results[dtype] = res
-        del trainer, before, steps
-        torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = False
     return results
 
 
-FULL_WIDTH = dict(nf=64, nc=3, nframes=3, groups=8, front_RBs=5, back_RBs=10,
-                  w_TSA=False)
-DEBUG_NET = dict(nf=16, nc=3, nframes=3, groups=4, front_RBs=1, back_RBs=1,
-                 w_TSA=False)   # configs/train/debug_EDVR_woTSA_Split_synthetic.yml
-
-
-def reduced_train_step(net=FULL_WIDTH, recipe=RECIPE):
-    """One Split step (the full-width recipe's by default) at 64x64, batch
-    2, f32: the card against the CPU from the same weights and batch.  The
-    card runs the kernels in TF32 (the narrow DCN in f32) through ~45
-    layers and back: loss to 1e-3 relative, each gradient to 5e-2 of its
-    largest magnitude."""
+def reduced_train_step(recipe=RECIPE, cuts=None, side=64, mode="Synthetic",
+                       ft_tsa_only=0, spread=False):
+    """One Split step of ``recipe``'s network (depth cut by ``cuts``) on a
+    batch of 2 with LQ ``side`` x ``side`` from the ``mode`` train set, f32:
+    the card against the CPU from the same weights (offset convs
+    randomised) and batch.  The card runs the kernels in TF32 (the narrow
+    DCN in f32) through the model and back: loss to 1e-3 relative, each
+    gradient to 5e-2 of its largest magnitude.  With ``ft_tsa_only`` (2:
+    the first update trains ``tsa_fusion`` alone) every other parameter
+    must stay bit-unchanged on the card, and the ``tsa_fusion`` ones match
+    the CPU's after the update within 2 LR (Adam's first update is LR * g /
+    (|g| + eps): a small gradient's sign may differ) plus 1e-6 relative.
+    With ``spread`` each gradient's bound adds the CPU's own change in it
+    when the LQ input moves by TF32's rounding (2^-11 relative, seeded
+    noise): how far operands rounded as the card's f32 kernels round them
+    can move it.  TSA's spatial attention routes its gradients through
+    3x3 max pools, whose choice such a change can flip.  Returns the card
+    step's launches."""
     import numpy as np
     import torch
-    import yaml
 
-    from realvsr_tpu_torch.data.synthetic import SyntheticVSRDataset
-    from realvsr_tpu_torch.models.edvr import EDVRNoUp
+    from realvsr_tpu_torch.data.synthetic import (SyntheticMotionVSRDataset,
+                                                  SyntheticVSRDataset)
+    from realvsr_tpu_torch.models import define_g
     from realvsr_tpu_torch.train.state import create_train_state
     from realvsr_tpu_torch.train.wrappers import make_split_train_step
 
-    with open(os.path.join(ROOT, recipe)) as f:
-        opt = yaml.safe_load(f)
+    opt = network_opt(recipe)
     opt.pop("augment")
-    cfg = dict(net, dcn_max_offset=train_r())
-    cpu = EDVRNoUp(**cfg, device="cpu",
+    opt["network_G"].update(cuts or {})
+    opt["train"]["ft_tsa_only"] = ft_tsa_only
+    scale, n = opt["scale"] or 1, opt["network_G"]["nframes"]
+    r = train_r()
+    cpu = define_g(opt, device="cpu", dcn_max_offset=r,
                    generator=torch.Generator().manual_seed(12))
     randomise_offset_convs(cpu, seed=13, std=0.5)
-    ds = SyntheticVSRDataset(dict(N_frames=3, GT_size=64))
+    if mode == "SyntheticMotion":
+        ds = SyntheticMotionVSRDataset(dict(
+            N_frames=n, GT_size=side * scale, scale=scale,
+            frame_h=side * scale + 32, frame_w=side * scale + 32))
+    else:
+        ds = SyntheticVSRDataset(dict(N_frames=n, GT_size=side))
     items = [ds.get(i, np.random.default_rng(i)) for i in (3, 17)]
     batch = {k: torch.from_numpy(np.stack([it[k] for it in items]))
              for k in ("LQs", "GT")}
-    grads, losses = {}, {}
+    grads, losses, after = {}, {}, {}
     for dev in ("cpu", "cuda"):
-        model = EDVRNoUp(**cfg, device=dev)
+        model = define_g(opt, device=dev, dcn_max_offset=r)
         model.load_state_dict(cpu.state_dict())
         state = create_train_state(model, opt)
+        zero_counts()
         _, logs = make_split_train_step(model, opt)(
             state, {k: v.to(dev) for k, v in batch.items()},
             torch.Generator(device=dev))
         losses[dev] = logs["l_pix"].item()
         grads[dev] = {k: p.grad.float().cpu()
                       for k, p in model.named_parameters()}
+        after[dev] = {k: p.detach().float().cpu()
+                      for k, p in model.named_parameters()}
+    launches = read_counts()
+    cpu_spread = {k: 0.0 for k in grads["cpu"]}
+    if spread:
+        g = torch.Generator().manual_seed(16)
+        lq = batch["LQs"]
+        noisy = dict(batch, LQs=lq * (1 + 2.0 ** -11 * torch.randn(
+            lq.shape, generator=g)))
+        model = define_g(opt, device="cpu", dcn_max_offset=r)
+        model.load_state_dict(cpu.state_dict())
+        make_split_train_step(model, opt)(create_train_state(model, opt),
+                                          noisy, torch.Generator())
+        cpu_spread = {k: (p.grad - grads["cpu"][k]).abs().max().item()
+                 for k, p in model.named_parameters()}
     loss_rel = abs(losses["cuda"] / losses["cpu"] - 1)
-    worst = max((((grads["cuda"][k] - g).abs().max()
-                  / g.abs().max().clamp_min(1e-30)).item(), k)
-                for k, g in grads["cpu"].items())
-    emit(phase="reduced_train_step_card_vs_cpu", shape=[2, 3, 64, 64, 3],
-         nf=cfg["nf"], groups=cfg["groups"], losses=losses, loss_rel_err=loss_rel, loss_tol=1e-3,
-         worst_grad_rel_err=worst[0], worst_grad=worst[1], grad_tol=5e-2)
-    if not (loss_rel <= 1e-3 and worst[0] <= 5e-2):
-        raise AssertionError(f"card vs CPU step: loss {loss_rel}, "
-                             f"{worst[1]} {worst[0]}")
+    # (error / bound, error relative to the tensor's largest, CPU spread
+    # relative to it, name)
+    errs = []
+    for k, g in grads["cpu"].items():
+        top = g.abs().max().clamp_min(1e-30).item()
+        err = (grads["cuda"][k] - g).abs().max().item()
+        errs.append((err / (5e-2 * top + cpu_spread[k]), err / top,
+                     cpu_spread[k] / top, k))
+    errs.sort()
+    info = {}
+    ok = loss_rel <= 1e-3 and errs[-1][0] <= 1.0
+    if ft_tsa_only:
+        lr = float(opt["train"]["lr_G"])
+        init = cpu.state_dict()
+        frozen = [k for k in after["cuda"] if "tsa_fusion" not in k]
+        tsa = [k for k in after["cuda"] if "tsa_fusion" in k]
+        unchanged = sum(torch.equal(after["cuda"][k], init[k])
+                        for k in frozen)
+        tsa_err = max((after["cuda"][k] - after["cpu"][k]).abs().max().item()
+                      for k in tsa)
+        tsa_moved = sum(not torch.equal(after["cuda"][k], init[k])
+                        for k in tsa)
+        tsa_tol = 2.0001 * lr + 1e-6 * max(
+            after["cpu"][k].abs().max().item() for k in tsa)
+        info = dict(ft_tsa_only=ft_tsa_only, frozen=len(frozen),
+                    frozen_bit_unchanged=unchanged, tsa=len(tsa),
+                    tsa_moved=tsa_moved, tsa_param_max_abs_err=tsa_err,
+                    tsa_param_tol=tsa_tol)
+        ok = ok and (unchanged == len(frozen) and tsa_moved == len(tsa)
+                     and tsa_err <= tsa_tol)
+    emit(phase="reduced_train_step_card_vs_cpu", config=recipe,
+         network=opt["network_G"], shape=list(batch["LQs"].shape),
+         gt_shape=list(batch["GT"].shape), data=mode, losses=losses,
+         loss_rel_err=loss_rel, loss_tol=1e-3,
+         worst_grad_rel_err=max(e[1] for e in errs),
+         worst_grad=max(errs, key=lambda e: e[1])[3],
+         worst_err_over_bound=errs[-1][0], worst_by_bound=errs[-3:],
+         grad_tol=5e-2, cpu_spread=spread, card_launches=launches,
+         **info)
+    if not ok:
+        raise AssertionError(f"card vs CPU step {recipe}: loss {loss_rel}, "
+                             f"{errs[-1]}, {info}")
+    return launches
 
 
 def time_dcn_bwd():
@@ -1184,71 +1323,23 @@ def narrow_training(tmp):
     """``python -m realvsr_tpu_torch.tools.train -opt DEBUG_CFG --device
     cuda`` as the command line runs it (the config parsed as is: nf 16, 4
     groups, 16 iterations at 64x64 batch 4, validation and checkpoints at
-    8 and 16, DCN clamp ±8), through the port's Trainer, with the offset
-    convs randomised before the loop; the counts set to 0 just before the
-    run and read just after; per step the launches held to DEBUG_STEP,
-    finite losses; every parameter moved, both validations finite, the
-    checkpoints written."""
-    import torch
-
+    8 and 16, DCN clamp ±8), through :func:`run_trainer` with the offset
+    convs randomised before the loop and the launches held to DEBUG_STEP;
+    both validations at 8 and 16 and the checkpoints written."""
     from realvsr_tpu_torch.core.config import parse
-    from realvsr_tpu_torch.train.trainer import Trainer
 
     opt = parse(os.path.join(ROOT, DEBUG_CFG), is_train=True,
                 root=os.path.join(tmp, "debug"))
-    trainer = Trainer(opt, device="cuda", dcn_max_offset=train_r())
-    randomise_offset_convs(trainer.model, seed=22, std=0.5)
-    before = {k: v.detach().clone()
-              for k, v in trainer.model.named_parameters()}
-    kernels, steps, vals = counters(), [], []
-    inner, inner_val = trainer.train_step, trainer.validate
-
-    def step(state, batch, gen):
-        n0 = {k: f.launches for k, f in kernels.items()}
-        state, logs = inner(state, batch, gen)
-        steps.append(dict(launches={k: f.launches - n0[k]
-                                    for k, f in kernels.items()},
-                          logs={k: v.item() for k, v in logs.items()}))
-        return state, logs
-
-    def validate(at):
-        psnr = inner_val(at)
-        vals.append((at, psnr))
-        return psnr
-
-    trainer.train_step, trainer.validate = step, validate
-    zero_counts()
     t0 = time.time()
-    trainer.train()
-    torch.cuda.synchronize()
-    seconds = time.time() - t0
-    launches = read_counts()
-    moved = sum(not torch.equal(before[k], v.detach())
-                for k, v in trainer.model.named_parameters())
-    saved = sorted(os.listdir(opt["path"]["models"]))
-    emit(phase="training_debug_nf16", config=DEBUG_CFG, steps=len(steps),
-         seconds=seconds, launches=launches,
-         launches_per_step=steps[-1]["launches"] if steps else None,
-         losses=[st["logs"] for st in steps], validation_psnr=vals,
-         params_moved=moved, params=len(before), checkpoints=saved)
-    niter = int(opt["train"]["niter"])
-    if len(steps) != niter:
-        raise AssertionError(f"{len(steps)} steps run, {niter} asked")
-    for i, st in enumerate(steps):
-        if st["launches"] != DEBUG_STEP:
-            raise AssertionError(f"debug step {i}: launches {st['launches']}")
-        if not all(math.isfinite(v) for v in st["logs"].values()):
-            raise AssertionError(f"debug step {i}: losses {st['logs']}")
-    if moved != len(before):
-        raise AssertionError(f"{len(before) - moved} parameters did not move")
-    if [a for a, _ in vals] != [8, 16] or not all(math.isfinite(p)
-                                                  for _, p in vals):
-        raise AssertionError(f"validation {vals}")
-    if not {"8_G.pth", "16_G.pth", "latest_G.pth"} <= set(saved):
-        raise AssertionError(f"checkpoints {saved}")
-    del trainer, before
-    torch.cuda.empty_cache()
-    return launches, steps[-1]["launches"]
+    res = run_trainer(opt, DEBUG_STEP, offsets_seed=22)
+    res["seconds"] = time.time() - t0
+    emit(phase="training_debug_nf16", config=DEBUG_CFG, **res)
+    if [a for a, _ in res["validation_psnr"]] != [8, 16]:
+        raise AssertionError(f"validation {res['validation_psnr']}")
+    if not {"8_G.pth", "16_G.pth", "latest_G.pth"} <= set(
+            res["checkpoints"]):
+        raise AssertionError(f"checkpoints {res['checkpoints']}")
+    return res["launches"], res["launches_per_step"]
 
 
 def time_narrow():
@@ -1289,6 +1380,152 @@ def time_narrow():
                  dtype=dname, max_offset=r, **row)
             rows[(name, dname)] = row
     return rows
+
+
+# --------------------------------------------------------------------------
+# The training families: TDAN and EDVR x4 + TSA.
+
+TDAN_SMOKE = os.path.join("configs", "train", "smoke_TDAN_motion.yml")
+EDVRX4_SMOKE = os.path.join("configs", "train", "smoke_EDVRx4_motion.yml")
+SMOKE_ITERS = 12
+RECIPE_STEPS = 6
+# per training step, from the models' routing: the forward's launches of a
+# window (EXPECT) and one dcn_bwd a DCN
+FAMILY_STEP = {name: dict(EXPECT[name], dcn_bwd=4, dcn_block=0)
+               for name in ("tdan", "edvr_x4")}
+# the DCN planes of the EDVR x4 + TSA recipe, 7 frames x batch 32 at LQ
+# 64x64: L1 and the cascade, L2, L3; the last two narrower than the
+# backward's 32-pixel tile (ops/kernels/dcn.py: BWD_TW)
+X4_BWD_SHAPES = [(224, 64, 64, 64), (224, 32, 32, 64), (224, 16, 16, 64)]
+# card-vs-CPU steps: (recipe, depth cuts, LQ side, ft_tsa_only); the
+# gradients do not depend on ft_tsa_only, only the update does
+FAMILY_CASES = [
+    (TDAN_CFG, dict(nb_f=1, nb_b=1), 64, 0),
+    (EDVRX4_CFG, dict(front_RBs=1, back_RBs=1, nframes=5), 32, 2),
+]
+
+
+def check_backward_x4():
+    """dcn_bwd against its plain version at the EDVR x4 + TSA recipe's DCN
+    planes (X4_BWD_SHAPES), ±8, both forms, bf16 and f32, offsets of std
+    2.5 px, with check_backward's tolerances; the separate form's time at
+    each plane beside its bound.  Returns {(form, dtype, plane): {output:
+    {max_abs_err, tol}}}."""
+    import torch
+
+    from realvsr_tpu_torch.ops.kernels.check import (grad_tolerance,
+                                                     max_abs_err)
+    from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_bwd_om,
+                                                   dcn_bwd_om_plain,
+                                                   dcn_bwd_plain)
+
+    r, errs = train_r(), {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype)[6:]
+        for shape in X4_BWD_SHAPES:
+            x, off, mask, wgt, gout = dcn_bwd_inputs(shape, dtype, 31,
+                                                     on_card=True)
+            om = om_of(off, mask)
+            for form, names, kernel, plain, args in (
+                    ("separate", ("dx", "doffset", "dmask", "dweight"),
+                     dcn_bwd, dcn_bwd_plain, (x, off, mask, wgt, gout)),
+                    ("om", ("dx", "dom", "dweight"), dcn_bwd_om,
+                     dcn_bwd_om_plain, (x, om, wgt, gout))):
+                out = kernel(*args, 8, r)
+                torch.cuda.synchronize()
+                ref = plain(*args, 8, r)
+                row = {}
+                for name, o, rf in zip(names, out, ref):
+                    err, tol = max_abs_err(o, rf), grad_tolerance(rf)
+                    row[name] = dict(max_abs_err=err, tol=tol)
+                    if not (o.dtype == rf.dtype and o.shape == rf.shape
+                            and err <= tol and torch.isfinite(o).all()):
+                        raise AssertionError(
+                            f"dcn_bwd x4 {form} {name} {dname} {shape}: "
+                            f"{err} > {tol}")
+                timing = {}
+                if form == "separate":   # as time_dcn_bwd bounds it
+                    p = shape[0] * shape[1] * shape[2]
+                    b_ms, b_by = bound(nbytes(*args, *out), 4 * p * 576 * 64,
+                                       20 * p * 576, dname)
+                    timing = dict(ms=cuda_ms(lambda: kernel(*args, 8, r), 5),
+                                  bound_ms=b_ms, bound_by=b_by)
+                emit(check="dcn_bwd", case="EDVR x4 recipe plane",
+                     form=form, shape=shape, dtype=dname, max_offset=r,
+                     **row, **timing)
+                errs[(form, dname, shape[1])] = row
+                del out, ref
+            del x, off, mask, om, gout
+            torch.cuda.empty_cache()
+    return errs
+
+
+def family_smoke_training(tmp):
+    """``configs/train/smoke_TDAN_motion.yml`` and
+    ``smoke_EDVRx4_motion.yml`` as the training command line runs them
+    (bf16, their batch, crops and data; weights as initialised), with
+    ``niter`` (and the cosine period) cut to SMOKE_ITERS and validation and
+    a checkpoint at the end; through :func:`run_trainer`, launches held to
+    FAMILY_STEP.  Their motion frames are generated before the run."""
+    from realvsr_tpu_torch.core.config import parse
+
+    out = {}
+    for name, cfg in (("tdan", TDAN_SMOKE), ("edvr_x4", EDVRX4_SMOKE)):
+        opt = parse(os.path.join(ROOT, cfg), is_train=True,
+                    root=os.path.join(tmp, f"smoke_{name}"))
+        opt["train"].update(niter=SMOKE_ITERS, val_freq=SMOKE_ITERS,
+                            T_period=[SMOKE_ITERS])
+        opt["logger"].update(print_freq=SMOKE_ITERS // 3,
+                             save_checkpoint_freq=SMOKE_ITERS)
+        warm = warm_motion(opt)
+        res = run_trainer(opt, FAMILY_STEP[name])
+        first, last = res["losses"][0], res["losses"][-1]
+        emit(phase="training_smoke", path=name, config=cfg,
+             dtype="bfloat16", data_setup_s=warm, first_loss=first,
+             last_loss=last, **res)
+        if [a for a, _ in res["validation_psnr"]] != [SMOKE_ITERS]:
+            raise AssertionError(f"{name}: validation "
+                                 f"{res['validation_psnr']}")
+        if not {f"{SMOKE_ITERS}_G.pth", "latest_G.pth"} <= set(
+                res["checkpoints"]):
+            raise AssertionError(f"{name}: checkpoints {res['checkpoints']}")
+        out[name] = res
+    return out
+
+
+def family_recipe_training(tmp, profile=False):
+    """The published recipes' networks and batches through the port's
+    Trainer, f32 and bf16: ``train_TDAN_RealVSR_YCbCr_Split.yml`` (192² x
+    32, 3 frames) and ``train_EDVRx4_TSA_Vimeo90K.yml`` (GT 256² x 32, LQ
+    64², 7 frames), on SyntheticMotion in place of RealVSR / Vimeo90K (not
+    in the repo), offsets randomised, RECIPE_STEPS steps after their data is
+    generated.  The x4 recipe runs without its augmentation: its cutblur
+    branch swaps patches of GT and LQ of one size, and raises at x4 (in the
+    reference and the JAX package too).  With ``profile`` the last two
+    steps are traced."""
+    import torch
+
+    out = {}
+    torch.backends.cudnn.allow_tf32 = True   # as the recipes run
+    for name, recipe in (("tdan", TDAN_CFG), ("edvr_x4", EDVRX4_CFG)):
+        for dtype in ("float32", "bfloat16"):
+            opt = _train_opt(tmp, dtype, recipe, mode="SyntheticMotion",
+                             steps=RECIPE_STEPS)
+            if opt["scale"] > 1:   # cutblur swaps same-size patches
+                opt["augment"] = None
+            warm = warm_motion(opt)
+            res = run_trainer(opt, FAMILY_STEP[name], offsets_seed=11,
+                              profile=profile)
+            summary = res.pop("profile", None)
+            emit(phase="training_recipe", path=name, config=recipe,
+                 dtype=dtype, data="SyntheticMotion", data_setup_s=warm,
+                 augment=opt["augment"], **res)
+            if summary:
+                print(f"--- torch.profiler, training {name} {dtype}\n"
+                      f"{summary}")
+            out[(name, dtype)] = res
+    torch.backends.cudnn.allow_tf32 = False
+    return out
 
 
 def peak_gib():
@@ -1620,6 +1857,7 @@ def main() -> int:
     errs = check_kernels()
     bwd_errs = check_backward()
     narrow_errs = check_narrow()
+    x4_errs = check_backward_x4()
     with tempfile.TemporaryDirectory() as tmp:
         paths = inference_paths(tmp)
         launches = {p: v[-1] for p, v in paths.items()}
@@ -1629,7 +1867,14 @@ def main() -> int:
             launches[f"training_{d}"] = train[d]["launches"]
         reduced_train_step()
         launches["training_debug_nf16"], debug_step = narrow_training(tmp)
-        reduced_train_step(DEBUG_NET, DEBUG_CFG)
+        reduced_train_step(DEBUG_CFG)
+        for recipe, cuts, side, ft in FAMILY_CASES:
+            reduced_train_step(recipe, cuts, side, "SyntheticMotion", ft,
+                               spread=True)
+        for fam, res in family_smoke_training(tmp).items():
+            launches[f"training_{fam}_smoke"] = res["launches"]
+        for (fam, dt), res in family_recipe_training(tmp, profiling).items():
+            launches[f"training_{fam}_recipe_{dt}"] = res["launches"]
         for phase in (streaming_phase, tiled_phase):
             launches.update(phase(paths, tmp)[0])
         metrics_phase(paths, tmp)
@@ -1695,6 +1940,10 @@ def main() -> int:
              launches_by_path=by_path["dcn_bwd"],
              max_abs_err=max(v["max_abs_err"] for v in bwd.values()),
              max_abs_err_by_output=bwd, **c16("dcn_bwd"),
+             max_abs_err_x4_planes={
+                 f"{form} {dt} {w}x{w}": max(v["max_abs_err"]
+                                             for v in row.values())
+                 for (form, dt, w), row in x4_errs.items()},
              **rows["dcn_bwd"]),
         dict(name="dcn_block", route="cuda",
              source="realvsr_tpu_torch/csrc/dcn_fwd.cu",

@@ -1,26 +1,34 @@
 """Dataset / dataloader factories (the reference's ``codes/data/__init__.py``),
-counterparts of ``realvsr_tpu/data/__init__.py``.  Ported so far: the
-recipe's validation mode (``VideoTest``) and the ``Synthetic`` modes; the
-RealVSR, Vimeo90K and motion-synthetic modes raise (ROADMAP)."""
+counterparts of ``realvsr_tpu/data/__init__.py``: every mode of the JAX
+factory (RealVSR, Vimeo90K, their AllPair forms, VideoTest and the
+synthetic fixtures)."""
 from __future__ import annotations
-
-_NOT_PORTED = ("RealVSR", "RealVSR_AllPair", "Vimeo90K", "Vimeo90K_AllPair",
-               "SyntheticMotion", "SyntheticMotionTest")
 
 
 def create_dataset(dataset_opt: dict):
     mode = dataset_opt["mode"]
-    if mode == "VideoTest":
+    if mode == "RealVSR":
+        from realvsr_tpu_torch.data.realvsr import RealVSRDataset as D
+    elif mode == "RealVSR_AllPair":
+        from realvsr_tpu_torch.data.realvsr import RealVSRAllPairDataset as D
+    elif mode == "Vimeo90K":
+        from realvsr_tpu_torch.data.vimeo90k import Vimeo90KDataset as D
+    elif mode == "Vimeo90K_AllPair":
+        from realvsr_tpu_torch.data.vimeo90k import (
+            Vimeo90KAllPairDataset as D)
+    elif mode == "VideoTest":
         from realvsr_tpu_torch.data.video_test import VideoTestDataset as D
     elif mode == "Synthetic":
         from realvsr_tpu_torch.data.synthetic import SyntheticVSRDataset as D
     elif mode == "SyntheticTest":
         from realvsr_tpu_torch.data.synthetic import (
             SyntheticVideoTestDataset as D)
-    elif mode in _NOT_PORTED:
-        raise NotImplementedError(
-            f"Dataset [{mode}] is not ported yet (ROADMAP, queue 1, "
-            "\"Still to port\": the RealVSR / Vimeo90K datasets)")
+    elif mode == "SyntheticMotion":
+        from realvsr_tpu_torch.data.synthetic import (
+            SyntheticMotionVSRDataset as D)
+    elif mode == "SyntheticMotionTest":
+        from realvsr_tpu_torch.data.synthetic import (
+            SyntheticMotionVideoTestDataset as D)
     else:
         raise NotImplementedError(f"Dataset [{mode}] is not recognized.")
     return D(dataset_opt)

@@ -34,7 +34,12 @@ def _blend(gen, gt, lq, prob: float, alpha: float):
 
 
 def _cutblur(gen, gt, lq, prob: float, alpha: float):
-    """LQ <-> GT patch swap (augments_video_allpair.py:53-75), x1 scale."""
+    """LQ <-> GT patch swap (augments_video_allpair.py:53-75), x1 scale:
+    GT and LQ of one size, or a ValueError (the reference raises too; the
+    JAX package fails to broadcast)."""
+    if gt.shape != lq.shape:
+        raise ValueError(f"cutblur takes GT and LQ of one size, got "
+                         f"{tuple(gt.shape)} and {tuple(lq.shape)}")
     dev = gt.device
     h, w = gt.shape[-3], gt.shape[-2]
     gate = (torch.rand((), generator=gen, device=dev) < prob) & (alpha > 0)

@@ -37,6 +37,20 @@ def read_img(path: str) -> np.ndarray:
     return img
 
 
+def read_img_lmdb(env, key: str, size) -> np.ndarray:
+    """One raw uint8 frame buffer of an :mod:`~realvsr_tpu_torch.data.
+    lmdb_lite` environment as BGR float32 [0, 1] HWC; buffers are flat
+    H*W*C uint8 and ``size`` is the dataset's (C, H, W)
+    (data/util.py:76-101)."""
+    with env.begin() as txn:
+        buf = txn.get(key.encode("ascii"))
+    if buf is None:
+        raise KeyError(f"key {key!r} not in lmdb")
+    c, h, w = size
+    img = np.frombuffer(buf, dtype=np.uint8).reshape(h, w, c)
+    return img.astype(np.float32) / 255.0
+
+
 def read_gray(path: str) -> np.ndarray:
     """Read an image as grayscale float64 in [0, 255] (cv2's own 8-bit
     conversion, as the reference's no-reference metrics read frames)."""

@@ -97,11 +97,20 @@ def build_lr_schedule(train_opt: dict):
     return with_warmup(fn, base_lr, int(train_opt.get("warmup_iter") or -1))
 
 
-def lr_scheduler(optimizer: torch.optim.Optimizer, train_opt: dict
+def lr_scheduler(optimizer: torch.optim.Optimizer, train_opt: dict,
+                 group0_frozen_until: int = 0
                  ) -> torch.optim.lr_scheduler.LambdaLR:
     """LambdaLR giving update ``count`` (0-based) the LR of step count + 1.
-    The optimizer's initial LR must be ``lr_G``."""
+    The optimizer's initial LR must be ``lr_G``.  Parameter group 0 takes
+    a zero LR at the steps below ``group0_frozen_until`` (``ft_tsa_only``)."""
     fn = build_lr_schedule(train_opt)
     base_lr = float(train_opt["lr_G"])
+
+    def factor(count):
+        return fn(count + 1) / base_lr
+
+    def group0(count):
+        return 0.0 if count + 1 < group0_frozen_until else factor(count)
+
     return torch.optim.lr_scheduler.LambdaLR(
-        optimizer, lambda count: fn(count + 1) / base_lr)
+        optimizer, [group0] + [factor] * (len(optimizer.param_groups) - 1))

@@ -7,7 +7,8 @@ reference's training logic:
     (``VideoSR_AllPair_model_YCbCr_Split.py:163-191``),
   * Combine — one criterion on all channels plus an optional edge loss
     (``VideoSR_AllPair_model_YCbCr_Combine.py:190-215``); its VGG feature
-    loss and the GAN-Split wrapper are not ported yet (ROADMAP).
+    loss and the GAN-Split wrapper are not ported yet (ROADMAP, queue 1,
+    item 4).
 
 Each ``make_*_train_step`` returns ``train_step(state, batch, gen) ->
 (state, logs)``: augment, forward, loss, backward and one optimizer update
@@ -15,7 +16,9 @@ of the :class:`~realvsr_tpu_torch.train.state.TrainState` (in place).  Batches a
 ``{'LQs': (B, T, H, W, C), 'GT': (B, T, H, W, C)}`` tensors on the model's
 device (AllPair layout; the loss takes the centre frame); ``gen`` is the
 augmentations' generator on that device.  ``logs`` are 0-d tensors, read
-on the host only when printed.
+on the host only when printed.  The losses take the prediction in f32: a
+model that ends in its compute dtype (TDAN in bf16) is cast up exactly, as
+JAX promotes bf16 against the f32 GT.
 """
 from __future__ import annotations
 
@@ -54,7 +57,7 @@ def make_split_train_step(model, opt: dict) -> Callable:
         gt, lq = _maybe_augment(opt, gen, batch["GT"], batch["LQs"])
         gt_c = gt[:, lq.shape[1] // 2]
         state.model.train()
-        pred = state.model(lq)
+        pred = state.model(lq).float()
         l_y = w_y * cri_y(pred[..., 0:1], gt_c[..., 0:1])
         l_c = w_c * cri_c(pred[..., 1:3], gt_c[..., 1:3])
         l_pix = l_y + l_c
@@ -70,7 +73,8 @@ def make_combine_train_step(model, opt: dict) -> Callable:
     train_opt = opt["train"]
     if train_opt.get("feature_criterion") and train_opt.get("feature_weight"):
         raise NotImplementedError(
-            "the VGG feature loss is not ported yet (ROADMAP, queue 1)")
+            "the VGG feature loss is not ported yet (ROADMAP, queue 1, "
+            "item 4)")
     cri_pix = get_pixel_criterion(train_opt["pixel_criterion"])
     w_pix = float(train_opt["pixel_weight"])
     cri_edg = None
@@ -87,7 +91,7 @@ def make_combine_train_step(model, opt: dict) -> Callable:
         gt, lq = _maybe_augment(opt, gen, batch["GT"], batch["LQs"])
         gt_c = gt[:, lq.shape[1] // 2]
         state.model.train()
-        pred = state.model(lq)
+        pred = state.model(lq).float()
         l_pix = w_pix * cri_pix(pred, gt_c)
         logs = {"l_pix": l_pix.detach()}
         l_tot = l_pix
@@ -120,7 +124,7 @@ def make_train_step(model, opt: dict) -> Callable:
     if "GAN" in name:
         raise NotImplementedError(
             f"Model [{name}]: GAN training is not ported yet (ROADMAP, "
-            "queue 1)")
+            "queue 1, item 4)")
     if "Split" in name:
         return make_split_train_step(model, opt)
     if "Combine" in name or name == "VideoSR_AllPair":

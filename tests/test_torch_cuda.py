@@ -413,6 +413,110 @@ def test_train_step_on_card_matches_cpu(cuda):
         assert err <= 5e-2 * ref.abs().max().item(), k
 
 
+@pytest.mark.parametrize("om", [False, True], ids=["separate", "om"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(28, 16, 16, 64), (28, 32, 32, 64)])
+def test_dcn_bwd_kernel_on_planes_narrower_than_a_tile(cuda, dtype, shape,
+                                                       om):
+    """EDVR x4's L3 and L2 DCN planes (16 and 32 wide: every backward tile
+    of 32 pixels reaches the right edge or past it), ±8 as training clamps,
+    offsets of std 2.5 px."""
+    x, off, mask, wgt, _ = _dcn_inputs(shape, dtype, cuda, seed=6)
+    g = torch.randn(*shape[:3], 64, generator=_gen(7)).to(cuda, dtype)
+    n = dcn_bwd.launches
+    if om:
+        t = _om(off, mask)
+        out = dcn_bwd_om(x, t, wgt, g, 8, 8)
+        ref = dcn_bwd_om_plain(x, t, wgt, g, 8, 8)
+        names = ("dx", "dom", "dweight")
+    else:
+        out = dcn_bwd(x, off, mask, wgt, g, 8, 8)
+        ref = dcn_bwd_plain(x, off, mask, wgt, g, 8, 8)
+        names = ("dx", "doffset", "dmask", "dweight")
+    torch.cuda.synchronize()
+    assert dcn_bwd.launches == n + 1
+    for name, o, r in zip(names, out, ref):
+        assert o.shape == r.shape and o.dtype == r.dtype, name
+        assert torch.isfinite(o).all(), name
+        assert max_abs_err(o, r) <= grad_tolerance(r), name
+
+
+@pytest.mark.parametrize("recipe,cuts,side,counts", [
+    ("train_TDAN_RealVSR_YCbCr_Split.yml", dict(nb_f=1, nb_b=1), 64,
+     (4, 4, 9, 6)),
+    ("train_EDVRx4_TSA_Vimeo90K.yml",
+     dict(front_RBs=1, back_RBs=1, nframes=5), 32, (4, 4, 25, 7)),
+], ids=["TDAN", "EDVRx4_TSA"])
+def test_tdan_and_edvr_x4_train_steps_on_card_match_cpu(cuda, recipe, cuts,
+                                                        side, counts):
+    """``chip_smoke.py``'s card-vs-CPU steps of the two families: the
+    recipe's network at full width and cut depth (TDAN nf 64, 1 + 1
+    ResBlocks, LQ 64x64; EDVR x4 + TSA nf 64, 8 groups, 1 + 1 ResBlocks, 5
+    frames, LQ 32x32), batch 2 of motion-synthetic frames, f32, the card
+    (TF32 kernels) against the CPU from the same weights (offset convs
+    randomised); loss to 1e-3 relative, each gradient to 5e-2 of its
+    largest magnitude plus the CPU's own change in it when the LQ input
+    moves by TF32's rounding (2^-11 relative); launches of dcn_fwd,
+    dcn_bwd, the 64-out and the other-width conv3x3.  TSA's spatial
+    attention (``sAtt_1``, ``sAtt_L1``: lrelu and 3x3 max pools after
+    them) is the closest to that bound (PERF.md §7)."""
+    import os
+
+    import yaml
+
+    from realvsr_tpu_torch.data.synthetic import SyntheticMotionVSRDataset
+    from realvsr_tpu_torch.models import define_g
+    from realvsr_tpu_torch.train.state import create_train_state
+    from realvsr_tpu_torch.train.wrappers import make_split_train_step
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "configs", "train", recipe)) as f:
+        opt = yaml.safe_load(f)
+    opt.pop("augment")
+    opt["network_G"].update(cuts)
+    scale, n_frames = opt["scale"], opt["network_G"]["nframes"]
+    cpu = define_g(opt, device="cpu", dcn_max_offset=8, generator=_gen(12))
+    g = _gen(13)
+    with torch.no_grad():
+        for pname, p in cpu.named_parameters():
+            if "conv_offset_mask" in pname:
+                p.copy_(torch.randn(p.shape, generator=g) * 0.5)
+    ds = SyntheticMotionVSRDataset(dict(
+        N_frames=n_frames, GT_size=side * scale, scale=scale,
+        frame_h=side * scale + 32, frame_w=side * scale + 32))
+    items = [ds.get(i, np.random.default_rng(i)) for i in (3, 17)]
+    batch = {k: torch.from_numpy(np.stack([it[k] for it in items]))
+             for k in ("LQs", "GT")}
+    grads, losses = {}, {}
+    for dev in ("cpu", cuda):
+        model = define_g(opt, device=dev, dcn_max_offset=8)
+        model.load_state_dict(cpu.state_dict())
+        state = create_train_state(model, opt)
+        n = (dcn_fwd.launches, dcn_bwd.launches, conv3x3.launches,
+             conv3x3_fused.launches)
+        _, logs = make_split_train_step(model, opt)(
+            state, {k: v.to(dev) for k, v in batch.items()},
+            torch.Generator(device=dev))
+        losses[str(dev)] = logs["l_pix"].item()
+        grads[str(dev)] = {k: p.grad.float().cpu()
+                           for k, p in model.named_parameters()}
+    assert (dcn_fwd.launches - n[0], dcn_bwd.launches - n[1],
+            conv3x3.launches - n[2], conv3x3_fused.launches - n[3]) == counts
+    assert losses["cuda"] == pytest.approx(losses["cpu"], rel=1e-3)
+    lq = batch["LQs"]
+    noisy = dict(batch, LQs=lq * (1 + 2.0 ** -11 * torch.randn(
+        lq.shape, generator=_gen(16))))
+    model = define_g(opt, device="cpu", dcn_max_offset=8)
+    model.load_state_dict(cpu.state_dict())
+    make_split_train_step(model, opt)(create_train_state(model, opt), noisy,
+                                      torch.Generator())
+    for k, p in model.named_parameters():
+        ref = grads["cpu"][k]
+        spread = (p.grad - ref).abs().max().item()
+        err = (grads["cuda"][k] - ref).abs().max().item()
+        assert err <= 5e-2 * ref.abs().max().item() + spread, k
+
+
 def _narrow_inputs(shape, dtype, dev, seed=0, std=2.5):
     """16 channels in 4 deformable groups (csrc/dcn_narrow.cu)."""
     b, h, w, c = shape
