@@ -94,7 +94,30 @@ Phases, each of which raises (and so exits non-zero) on failure:
      its cutblur, which cannot run at x4) on motion-synthetic data, 6
      steps each in f32 and bf16: steps/s, ms a step, idle share, peak
      memory;
-8. times: each kernel, its plain version and the one PyTorch call that
+8. the GAN and the other generators:
+   - ``flow_warp`` (both paddings) and FSTRN's trilinear residual in f32
+     on the card against the CPU;
+   - TOF, FSTRN and RCAN as their Split recipes give them (full width and
+     depth), bf16, through ``evaluate_wo_gt`` on the 1024x512 clip with the
+     conv3x3 launches per window held to their routing, timed, and at a
+     reduced size card vs CPU; one Split step of each at full width and
+     cut depth, card vs CPU (as the families' steps);
+   - one GAN-Split step of ``train_EDVR-GAN_woTSA_RealVSR_YCbCr_Split.yml``
+     (G at full width and depth, D nf 64) at 64x64, card vs CPU, D's
+     gradients and running statistics included;
+   - that recipe through the port's Trainer at its 192² x 32 batch, f32
+     (TF32) and bf16, ±8, offsets randomised, its cutblur on, 8 steps (cuts:
+     ``Synthetic`` data, ``pretrain_model_G: null``, no validation), the
+     Split step's launches a step exactly (D runs no kernel), every loss
+     and ``g_active`` a step;
+   - ``configs/train/debug_EDVR-GAN_Split_synthetic.yml`` as the command
+     line runs it (16 iterations, nf 16 on ``csrc/dcn_narrow.cu``,
+     validation and G / D checkpoints at 8 and 16), then a resume from 8;
+   - ``smoke_{TOF,FSTRN,RCAN}_motion.yml`` cut to 12 iterations with
+     validation and a checkpoint, and the three Split recipes' networks and
+     batches (192² x 32, 3 frames) on motion-synthetic data, 6 steps each in
+     f32 and bf16;
+9. times: each kernel, its plain version and the one PyTorch call that
    computes the same function (where there is one) with CUDA events at the
    paths' shapes (every conv3x3 case and both DCN kernels in bf16 and in
    f32, the DCN kernels in both forms; the f32 yardstick is cuDNN with TF32
@@ -112,7 +135,8 @@ Prints one JSON line per check and timing, then the card line, the
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 ``--profile`` adds a ``torch.profiler`` breakdown of one window's forward
 of each inference model and of the last two steps of each timed training
-run (the flagship's and the two recipes').
+run (the flagship's, the families' and the new generators' recipes, the
+GAN's).
 """
 from __future__ import annotations
 
@@ -488,6 +512,15 @@ def check_backward():
     return errs
 
 
+def bn_fed(name: str, names) -> bool:
+    """Whether parameter ``name`` is the bias of a conv whose output a
+    BatchNorm normalises (``<m>.conv{i}.bias`` beside ``<m>.bn{i}``): its
+    gradient is zero but for rounding, so it is held against the model's
+    largest gradient, not its own."""
+    pre, _, leaf = name.rpartition(".")
+    return leaf == "bias" and pre.replace(".conv", ".bn") + ".weight" in names
+
+
 def randomise_offset_convs(model, seed, std=1.0):
     """The DCN offset/mask convs are zero-initialised, so at init every
     offset is 0; random weights make the offsets reach a few pixels."""
@@ -737,7 +770,8 @@ def run_trainer(opt, per_step, *, offsets_seed=None, warmup=TRAIN_WARMUP,
     next one's start on the device's clock are its idle time.  With
     ``offsets_seed`` the DCN offset convs are randomised first; with
     ``profile`` the last two steps are traced (and then the steps/s is not
-    the one to report)."""
+    the one to report).  A GAN's D is held with G: every parameter of both
+    must move."""
     import torch
 
     from realvsr_tpu_torch.train.trainer import Trainer
@@ -748,8 +782,10 @@ def run_trainer(opt, per_step, *, offsets_seed=None, warmup=TRAIN_WARMUP,
         trainer.profile_steps = (niter - 2, niter)
     if offsets_seed is not None:
         randomise_offset_convs(trainer.model, seed=offsets_seed, std=0.5)
-    before = {k: v.detach().clone()
-              for k, v in trainer.model.named_parameters()}
+    nets = {"G": trainer.model, "D": trainer.model_d}
+    named = {f"{n}.{k}": v for n, net in nets.items() if net is not None
+             for k, v in net.named_parameters()}
+    before = {k: v.detach().clone() for k, v in named.items()}
     kernels, steps, vals = counters(), [], []
     inner, inner_val = trainer.train_step, trainer.validate
 
@@ -786,7 +822,7 @@ def run_trainer(opt, per_step, *, offsets_seed=None, warmup=TRAIN_WARMUP,
         if not all(torch.isfinite(v).item() for v in st["logs"].values()):
             raise AssertionError(f"step {i}: losses {st['logs']}")
     moved = sum(not torch.equal(before[k], v.detach())
-                for k, v in trainer.model.named_parameters())
+                for k, v in named.items())
     if moved != len(before):
         raise AssertionError(f"{len(before) - moved} parameters did not "
                              "move")
@@ -813,7 +849,7 @@ def run_trainer(opt, per_step, *, offsets_seed=None, warmup=TRAIN_WARMUP,
         with open(os.path.join(opt["path"]["experiments_root"], "profile",
                                "summary.txt")) as f:
             res["profile"] = f.read()
-    del trainer, before, steps
+    del trainer, before, named, nets, steps
     torch.cuda.empty_cache()
     return res
 
@@ -873,7 +909,8 @@ def reduced_train_step(recipe=RECIPE, cuts=None, side=64, mode="Synthetic",
     opt.pop("augment")
     opt["network_G"].update(cuts or {})
     opt["train"]["ft_tsa_only"] = ft_tsa_only
-    scale, n = opt["scale"] or 1, opt["network_G"]["nframes"]
+    net = opt["network_G"]
+    scale, n = opt["scale"] or 1, net.get("nframes") or net["num_frames"]
     r = train_r()
     cpu = define_g(opt, device="cpu", dcn_max_offset=r,
                    generator=torch.Generator().manual_seed(12))
@@ -918,8 +955,10 @@ def reduced_train_step(recipe=RECIPE, cuts=None, side=64, mode="Synthetic",
     # (error / bound, error relative to the tensor's largest, CPU spread
     # relative to it, name)
     errs = []
+    model_top = max(g.abs().max().item() for g in grads["cpu"].values())
     for k, g in grads["cpu"].items():
-        top = g.abs().max().clamp_min(1e-30).item()
+        top = (model_top if bn_fed(k, grads["cpu"])
+               else g.abs().max().clamp_min(1e-30).item())
         err = (grads["cuda"][k] - g).abs().max().item()
         errs.append((err / (5e-2 * top + cpu_spread[k]), err / top,
                      cpu_spread[k] / top, k))
@@ -1528,6 +1567,310 @@ def family_recipe_training(tmp, profile=False):
     return out
 
 
+# --------------------------------------------------------------------------
+# The GAN-Split recipe and the other generators: TOF, FSTRN, RCAN.
+
+GAN_CFG = os.path.join("configs", "train",
+                       "train_EDVR-GAN_woTSA_RealVSR_YCbCr_Split.yml")
+DEBUG_GAN_CFG = os.path.join("configs", "train",
+                             "debug_EDVR-GAN_Split_synthetic.yml")
+GAN_STEPS = 8          # 6 timed after 2 of warm-up
+GAN_CUTS = ["Synthetic data in place of RealVSR (not in the repo)",
+            "pretrain_model_G: null (the pretrained G is not in the repo)",
+            "no validation", f"{GAN_STEPS} iterations"]
+GENERATORS = ("tof", "fstrn", "rcan")
+GEN_CFG = {n: os.path.join("configs", "train",
+                           f"train_{n.upper()}_RealVSR_YCbCr_Split.yml")
+           for n in GENERATORS}
+GEN_SMOKE = {n: os.path.join("configs", "train",
+                             f"smoke_{n.upper()}_motion.yml")
+             for n in GENERATORS}
+# per window and per training step (the backward runs cuDNN), from the
+# models' routing at the recipes' widths: TOF's MSRResNet trunk (10
+# ResBlocks) and HRconv at 64 -> 64, conv_last 64 -> 3 (SpyNet's 7x7 convs
+# and conv_first on cuDNN); FSTRN none (3-D convs on cuDNN); RCAN's 5
+# groups of 2 RCABs (2 convs each) and a closing conv, conv_after_body,
+# conv_last 64 -> 3
+EXPECT.update({
+    "tof": {"dcn_fwd": 0, "conv3x3": 2 * 10 + 1, "conv3x3_fused": 1},
+    "fstrn": {"dcn_fwd": 0, "conv3x3": 0, "conv3x3_fused": 0},
+    "rcan": {"dcn_fwd": 0, "conv3x3": 5 * (2 * 2 + 1) + 1,
+             "conv3x3_fused": 1},
+})
+GEN_STEP = {n: dict(EXPECT[n], dcn_bwd=0, dcn_block=0) for n in GENERATORS}
+# card-vs-CPU steps at full width: (depth cuts, LQ side)
+GEN_CASES = {"tof": (dict(nb=1), 64), "fstrn": ({}, 64),
+             "rcan": (dict(num_group=1, num_block=1), 64)}
+
+
+def gan_recipe_training(tmp, profile=False):
+    """The GAN recipe's G (EDVR_NoUp, nf 64) and D (MultiscaleDiscriminator
+    _v4, 2 PatchGANs of nf 64 on the Y pyramid's HF levels, ragan) at its
+    192² x 32 batch through the port's Trainer, f32 (TF32, as the recipes
+    run) and bf16, offsets randomised, its cutblur on, GAN_STEPS steps; cuts
+    GAN_CUTS.  Launches a step are the Split step's: D runs no kernel.
+    With ``profile`` the last two steps are traced."""
+    import torch
+
+    per_step = dict(EXPECT["edvr_noup"], dcn_bwd=4, dcn_block=0)
+    out = {}
+    torch.backends.cudnn.allow_tf32 = True
+    for dtype in ("float32", "bfloat16"):
+        opt = _train_opt(tmp, dtype, GAN_CFG, steps=GAN_STEPS)
+        opt["path"]["pretrain_model_G"] = None
+        res = run_trainer(opt, per_step, offsets_seed=11, profile=profile)
+        summary = res.pop("profile", None)
+        emit(phase="training_gan", config=GAN_CFG, dtype=dtype,
+             cuts=GAN_CUTS, augment=opt["augment"], **res)
+        if summary:
+            print(f"--- torch.profiler, training GAN {dtype}\n{summary}")
+        if any(s["g_active"] != 1.0 for s in res["losses"]):
+            raise AssertionError("a GAN recipe step gated G off")
+        out[dtype] = res
+    torch.backends.cudnn.allow_tf32 = False
+    return out
+
+
+def gan_debug_training(tmp):
+    """``configs/train/debug_EDVR-GAN_Split_synthetic.yml`` as the training
+    command line runs it (16 iterations at 64x64 x 4, nf 16 / 4 groups on
+    ``csrc/dcn_narrow.cu``, validation and G / D checkpoints at 8 and 16),
+    launches held to DEBUG_STEP; then a resume from step 8's state: G, D,
+    both optimizers and schedulers back, and on to step 16."""
+    import torch
+
+    from realvsr_tpu_torch.core.config import parse
+    from realvsr_tpu_torch.train.trainer import Trainer
+
+    root = os.path.join(tmp, "debug_gan")
+    opt = parse(os.path.join(ROOT, DEBUG_GAN_CFG), is_train=True, root=root)
+    t0 = time.time()
+    res = run_trainer(opt, DEBUG_STEP, offsets_seed=22)
+    res["seconds"] = time.time() - t0
+    emit(phase="training_debug_gan", config=DEBUG_GAN_CFG, **res)
+    if [a for a, _ in res["validation_psnr"]] != [8, 16]:
+        raise AssertionError(f"validation {res['validation_psnr']}")
+    want = {f"{s}_{n}.pth" for s in (8, 16, "latest") for n in "GD"}
+    if not want <= set(res["checkpoints"]):
+        raise AssertionError(f"checkpoints {res['checkpoints']}")
+
+    opt = parse(os.path.join(ROOT, DEBUG_GAN_CFG), is_train=True, root=root)
+    opt["path"]["resume_state"] = os.path.join(
+        opt["path"]["training_state"], "8.state")
+    trainer = Trainer(opt, device="cuda", dcn_max_offset=train_r())
+    back = dict(step=trainer.state.step,
+                schedulers=[s.last_epoch for s in trainer.state.schedulers])
+    d8 = torch.load(os.path.join(opt["path"]["models"], "8_D.pth"),
+                    weights_only=True)
+    same_d = all(torch.equal(v.cpu(), d8[k])
+                 for k, v in trainer.model_d.state_dict().items())
+    zero_counts()
+    state = trainer.train()
+    torch.cuda.synchronize()
+    emit(phase="training_debug_gan_resume", resumed=back, d_restored=same_d,
+         final_step=state.step, launches=read_counts())
+    if not (back == dict(step=8, schedulers=[8, 8]) and same_d
+            and state.step == 16):
+        raise AssertionError(f"resume {back} {same_d} {state.step}")
+    return res["launches"]
+
+
+def generator_paths(tmp, clip):
+    """TOF, FSTRN and RCAN as their Split recipes give them (full width and
+    depth, scale 1, 3 frames), bf16, seeded random weights, through
+    ``evaluate_wo_gt`` on the 1024x512 clip with launches per window held
+    to EXPECT, then timed (``time_path``) and their reduced forward card vs
+    CPU.  Returns {name: (model, launches, window)}."""
+    import torch
+
+    from realvsr_tpu_torch.models import define_g
+
+    out = {}
+    for i, name in enumerate(GENERATORS):
+        opt = network_opt(GEN_CFG[name])
+
+        def build(dev, dtype=torch.float32, seed=40 + i, opt=opt):
+            return define_g(opt, device=dev, dtype=dtype,
+                            generator=torch.Generator().manual_seed(seed))
+
+        model = build("cuda", torch.bfloat16)
+        launches = drive_path(name, model, clip, NFRAMES, CLIP, (H, W), tmp)
+        window = time_path(name, model, clip, NFRAMES, (H, W))
+        card_vs_cpu(name, build, model, (1, NFRAMES, 64, 128, 3))
+        out[name] = (model, launches, window)
+    return out
+
+
+def generator_smoke_training(tmp):
+    """``configs/train/smoke_{TOF,FSTRN,RCAN}_motion.yml`` as the training
+    command line runs them (bf16, batch 8, 96² crops of 224² motion clips),
+    ``niter`` (and the cosine period) cut to SMOKE_ITERS with validation and
+    a checkpoint at the end; launches a step held to GEN_STEP."""
+    from realvsr_tpu_torch.core.config import parse
+
+    out = {}
+    for name in GENERATORS:
+        opt = parse(os.path.join(ROOT, GEN_SMOKE[name]), is_train=True,
+                    root=os.path.join(tmp, f"smoke_{name}"))
+        opt["train"].update(niter=SMOKE_ITERS, val_freq=SMOKE_ITERS,
+                            T_period=[SMOKE_ITERS])
+        opt["logger"].update(print_freq=SMOKE_ITERS // 3,
+                             save_checkpoint_freq=SMOKE_ITERS)
+        warm = warm_motion(opt)
+        res = run_trainer(opt, GEN_STEP[name])
+        emit(phase="training_smoke", path=name, config=GEN_SMOKE[name],
+             dtype="bfloat16", data_setup_s=warm,
+             first_loss=res["losses"][0], last_loss=res["losses"][-1], **res)
+        if [a for a, _ in res["validation_psnr"]] != [SMOKE_ITERS]:
+            raise AssertionError(f"{name}: validation "
+                                 f"{res['validation_psnr']}")
+        if not {f"{SMOKE_ITERS}_G.pth", "latest_G.pth"} <= set(
+                res["checkpoints"]):
+            raise AssertionError(f"{name}: checkpoints {res['checkpoints']}")
+        out[name] = res
+    return out
+
+
+def generator_recipe_training(tmp, profile=False):
+    """The Split recipes' networks and batches of TOF, FSTRN and RCAN
+    (``train_*_RealVSR_YCbCr_Split.yml``: 192² x 32, 3 frames, their cutblur
+    on) through the port's Trainer, f32 (TF32) and bf16, on SyntheticMotion
+    in place of RealVSR, RECIPE_STEPS steps after their data is generated.
+    With ``profile`` the last two steps are traced."""
+    import torch
+
+    out = {}
+    torch.backends.cudnn.allow_tf32 = True
+    for name in GENERATORS:
+        for dtype in ("float32", "bfloat16"):
+            opt = _train_opt(tmp, dtype, GEN_CFG[name],
+                             mode="SyntheticMotion", steps=RECIPE_STEPS)
+            warm = warm_motion(opt)
+            res = run_trainer(opt, GEN_STEP[name], profile=profile)
+            summary = res.pop("profile", None)
+            emit(phase="training_recipe", path=name, config=GEN_CFG[name],
+                 dtype=dtype, data="SyntheticMotion", data_setup_s=warm,
+                 augment=opt["augment"], **res)
+            if summary:
+                print(f"--- torch.profiler, training {name} {dtype}\n"
+                      f"{summary}")
+            out[(name, dtype)] = res
+    torch.backends.cudnn.allow_tf32 = False
+    return out
+
+
+def reduced_gan_step(side=64):
+    """One GAN-Split step of the GAN recipe's G (EDVR_NoUp at full width and
+    depth) and D (nf 64) on a Synthetic batch of 2 at side x side, f32,
+    augmentation off: the card against the CPU from the same weights (G's
+    offset convs randomised).  The losses (l_g_total, l_d_real, l_d_fake)
+    to 1e-3 relative; each gradient of G and D and each of D's running
+    statistics after the step to 5e-2 of its largest magnitude (a BN-fed
+    bias's gradient to 5e-2 of its model's largest, ``bn_fed``) plus the
+    CPU's own change in it under 2^-11 input noise (as the families'
+    steps).  Returns the card step's launches."""
+    import numpy as np
+    import torch
+
+    from realvsr_tpu_torch.data.synthetic import SyntheticVSRDataset
+    from realvsr_tpu_torch.models import define_d, define_g
+    from realvsr_tpu_torch.train.gan import (create_gan_train_state,
+                                             make_gan_split_train_step)
+
+    opt = network_opt(GAN_CFG)
+    opt["augment"] = None
+    r = train_r()
+    ref_g = define_g(opt, device="cpu", dcn_max_offset=r,
+                     generator=torch.Generator().manual_seed(12))
+    randomise_offset_convs(ref_g, seed=13, std=0.5)
+    ref_d = define_d(opt, device="cpu",
+                     generator=torch.Generator().manual_seed(14))
+    ds = SyntheticVSRDataset(dict(N_frames=3, GT_size=side))
+    items = [ds.get(i, np.random.default_rng(i)) for i in (3, 17)]
+    batch = {k: torch.from_numpy(np.stack([it[k] for it in items]))
+             for k in ("LQs", "GT")}
+
+    def step(dev, b):
+        g = define_g(opt, device=dev, dcn_max_offset=r)
+        g.load_state_dict(ref_g.state_dict())
+        d = define_d(opt, device=dev)
+        d.load_state_dict(ref_d.state_dict())
+        state = create_gan_train_state(g, d, opt)
+        _, logs = make_gan_split_train_step(g, opt)(
+            state, {k: v.to(dev) for k, v in b.items()},
+            torch.Generator(device=dev))
+        vals = {f"G.{k}": p.grad for k, p in g.named_parameters()}
+        vals.update({f"D.{k}": p.grad for k, p in d.named_parameters()})
+        vals.update({f"D.{k}": t for k, t in d.named_buffers()
+                     if "running" in k})
+        return ({k: logs[k].item() for k in ("l_g_total", "l_d_real",
+                                             "l_d_fake")},
+                {k: v.float().cpu() for k, v in vals.items()})
+
+    cpu_logs, cpu = step("cpu", batch)
+    zero_counts()
+    card_logs, card = step("cuda", batch)
+    launches = read_counts()
+    noise = torch.randn(batch["LQs"].shape,
+                        generator=torch.Generator().manual_seed(16))
+    _, noisy = step("cpu", dict(batch, LQs=batch["LQs"]
+                                * (1 + 2.0 ** -11 * noise)))
+    loss_rel = max(abs(card_logs[k] / cpu_logs[k] - 1) for k in cpu_logs)
+    errs = []   # (error / bound, error relative to the largest, name)
+    model_top = {m: max(v.abs().max().item() for k, v in cpu.items()
+                        if k.startswith(m) and "running" not in k)
+                 for m in ("G.", "D.")}
+    for k, v in cpu.items():
+        top = (model_top[k[:2]] if bn_fed(k, cpu)
+               else v.abs().max().clamp_min(1e-30).item())
+        spread = (noisy[k] - v).abs().max().item()
+        err = (card[k] - v).abs().max().item()
+        errs.append((err / (5e-2 * top + spread), err / top, k))
+    errs.sort()
+    emit(phase="reduced_gan_step_card_vs_cpu", config=GAN_CFG,
+         shape=list(batch["LQs"].shape), losses_cpu=cpu_logs,
+         losses_card=card_logs, loss_rel_err=loss_rel, loss_tol=1e-3,
+         worst_rel_err=max(e[1] for e in errs),
+         worst=max(errs, key=lambda e: e[1])[2],
+         worst_err_over_bound=errs[-1][0], worst_by_bound=errs[-3:],
+         tol=5e-2, compared=len(errs), card_launches=launches)
+    if not (loss_rel <= 1e-3 and errs[-1][0] <= 1.0):
+        raise AssertionError(f"GAN card vs CPU: loss {loss_rel}, "
+                             f"{errs[-1]}")
+    return launches
+
+
+def check_warp_trilinear():
+    """``ops/warp.flow_warp`` (both paddings, flows of std 3 px, many past
+    the edges) and FSTRN's trilinear cross-space residual (x4, half-pixel
+    centres) in f32 on the card against the CPU, to 1e-5 of the output's
+    largest magnitude."""
+    import torch
+    import torch.nn.functional as F
+
+    from realvsr_tpu_torch.ops.warp import flow_warp
+
+    g = torch.Generator().manual_seed(50)
+    x = torch.randn(4, 96, 128, 3, generator=g)
+    flow = torch.randn(4, 96, 128, 2, generator=g) * 3
+    vol = torch.rand(2, 3, 3, 48, 64, generator=g)
+    cases = {f"flow_warp {p}": (lambda a, b, p=p: flow_warp(a, b, p),
+                                (x, flow))
+             for p in ("zeros", "border")}
+    cases["trilinear x4"] = (lambda v: F.interpolate(
+        v, size=(3, 192, 256), mode="trilinear", align_corners=False),
+        (vol,))
+    for name, (fn, args) in cases.items():
+        ref = fn(*args)
+        out = fn(*[a.cuda() for a in args]).cpu()
+        err = (out - ref).abs().max().item()
+        tol = 1e-5 * ref.abs().max().item()
+        emit(check="card_vs_cpu", op=name, shape=list(ref.shape),
+             max_abs_err=err, tol=tol)
+        if not (out.shape == ref.shape and err <= tol):
+            raise AssertionError(f"{name}: {err} > {tol}")
+
+
 def peak_gib():
     import torch
 
@@ -1875,6 +2218,25 @@ def main() -> int:
             launches[f"training_{fam}_smoke"] = res["launches"]
         for (fam, dt), res in family_recipe_training(tmp, profiling).items():
             launches[f"training_{fam}_recipe_{dt}"] = res["launches"]
+        check_warp_trilinear()
+        gens = generator_paths(tmp, paths["edvr_noup"][1])
+        for gen, (model, count, window) in gens.items():
+            launches[gen] = count
+            if profiling:
+                profile(gen, model, window)
+        del gens, model, window
+        for gen, (cuts, side) in GEN_CASES.items():
+            reduced_train_step(GEN_CFG[gen], cuts, side, "SyntheticMotion",
+                               spread=True)
+        reduced_gan_step()
+        for dt, res in gan_recipe_training(tmp, profiling).items():
+            launches[f"training_gan_{dt}"] = res["launches"]
+        launches["training_debug_gan"] = gan_debug_training(tmp)
+        for gen, res in generator_smoke_training(tmp).items():
+            launches[f"training_{gen}_smoke"] = res["launches"]
+        for (gen, dt), res in generator_recipe_training(
+                tmp, profiling).items():
+            launches[f"training_{gen}_recipe_{dt}"] = res["launches"]
         for phase in (streaming_phase, tiled_phase):
             launches.update(phase(paths, tmp)[0])
         metrics_phase(paths, tmp)
@@ -1958,7 +2320,8 @@ def main() -> int:
     print(smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

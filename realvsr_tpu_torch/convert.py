@@ -10,10 +10,18 @@ The naming rules are those of ``realvsr_tpu/train/torch_import.py``
 
   * drop ``Conv_N`` wrapper segments of the JAX ``Conv2d`` module,
   * ``blockN`` (Blocks container) → ``N`` (``nn.Sequential`` index),
-  * leaf ``kernel`` → ``weight``; 4-D leaves HWIO → OIHW,
+  * leaf ``kernel`` → ``weight``; a conv's kernel (under ``Conv_N``, and
+    the DCN's 4-D ``weight``) HWIO → OIHW, DHWIO → OIDHW,
+  * a ``kernel`` that is not under ``Conv_N`` is a flax ``nn.Dense``
+    (2-D, (in, out) → torch's (out, in)) or ``nn.ConvTranspose`` (4-D or
+    5-D): flax does not flip its kernel (``transpose_kernel=False``) where
+    ``conv_transpose2d`` / ``3d`` do, so the spatial axes are flipped and
+    (..., in, out) becomes (in, out, ...),
   * BatchNorm ``scale`` / ``mean`` / ``var`` → ``weight`` /
-    ``running_mean`` / ``running_var``,
-  * everything else keeps its name.
+    ``running_mean`` / ``running_var``; the running statistics come from
+    the ``batch_stats`` collection when a variables dict ``{"params",
+    "batch_stats"}`` is given,
+  * everything else keeps its name (PReLU's ``alpha``).
 
 :func:`vgg16_state_dict_from_jax` and :func:`perceptual_params_from_jax`
 carry the JAX package's LPIPS / DISTS parameters (``realvsr_tpu/eval/
@@ -53,14 +61,32 @@ def _leaves(tree: Mapping[str, Any], prefix: tuple[str, ...] = ()):
             yield path, val
 
 
+def _to_torch_layout(path: tuple[str, ...], t: np.ndarray) -> np.ndarray:
+    under_conv = len(path) > 1 and re.fullmatch(r"Conv_\d+", path[-2])
+    if path[-1] == "kernel" and not under_conv:
+        if t.ndim == 2:                       # nn.Dense
+            return t.T
+        if t.ndim >= 4:                       # nn.ConvTranspose
+            sp = tuple(range(t.ndim - 2))
+            return np.flip(t, sp).transpose(t.ndim - 2, t.ndim - 1, *sp)
+    if t.ndim >= 4:                           # conv: (k..., I, O) → (O, I, k...)
+        return t.transpose(t.ndim - 1, t.ndim - 2, *range(t.ndim - 2))
+    return t
+
+
 def state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """Flax params (nested dicts of arrays) → float32 torch state dict."""
+    """Flax params, or a variables dict ``{"params", "batch_stats"}``
+    (nested dicts of arrays) → float32 torch state dict."""
+    if "params" in params:
+        trees = [params["params"], params.get("batch_stats") or {}]
+    else:
+        trees = [params]
     out = {}
-    for path, leaf in _leaves(params):
-        t = np.asarray(leaf, dtype=np.float32)
-        if t.ndim == 4:
-            t = t.transpose(3, 2, 0, 1)  # HWIO → OIHW
-        out[flax_path_to_torch_key(path)] = torch.tensor(t)  # a copy
+    for tree in trees:
+        for path, leaf in _leaves(tree):
+            t = _to_torch_layout(path, np.asarray(leaf, dtype=np.float32))
+            # a fresh C-order copy: a flip keeps negative strides
+            out[flax_path_to_torch_key(path)] = torch.from_numpy(t.copy())
     return out
 
 

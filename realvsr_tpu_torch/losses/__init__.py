@@ -3,7 +3,7 @@
 Counterpart of ``realvsr_tpu/losses/__init__.py`` (the dispatch of
 ``VideoSR_AllPair_model_YCbCr_Split.py:44-87``): l1 | l2 | cb | hb | gw |
 pyr (gaussian pyramid + Charbonnier) | lappyr (LF-SSIM + HF-Charbonnier) |
-msssim.  The GAN losses are not ported yet (ROADMAP).
+msssim; and the GAN losses (``losses/gan.py``).
 """
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ from functools import partial
 
 from realvsr_tpu_torch.losses.basic import (charbonnier_loss, gw_loss,
                                             huber_loss, l1_loss, l2_loss)
+from realvsr_tpu_torch.losses.gan import gan_loss, gradient_penalty
 from realvsr_tpu_torch.losses.pyramid import lap_pyr_loss, pyramid_loss
 from realvsr_tpu_torch.losses.ssim import (ms_ssim_loss, ms_ssim_value,
                                            ssim_loss, ssim_value)
@@ -36,5 +37,6 @@ def get_pixel_criterion(name: str):
 __all__ = [
     "get_pixel_criterion", "l1_loss", "l2_loss", "charbonnier_loss",
     "huber_loss", "gw_loss", "pyramid_loss", "lap_pyr_loss", "ssim_loss",
-    "ssim_value", "ms_ssim_loss", "ms_ssim_value",
+    "ssim_value", "ms_ssim_loss", "ms_ssim_value", "gan_loss",
+    "gradient_penalty",
 ]

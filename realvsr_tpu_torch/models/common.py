@@ -16,12 +16,23 @@ Initialisers match the JAX package's torch-semantics ones and draw from an
 explicit ``torch.Generator`` (:meth:`reset_parameters`):
 
   * Conv2d default: U(±1/sqrt(fan_in)) for weight and bias,
-  * residual blocks: kaiming_normal(fan_in) scaled by 0.1, zero bias,
-  * DCN offset/mask convs: zero; the DCN weight U(±1/sqrt(cin*9)), zero bias.
+  * residual blocks (and every ``scaled_kaiming_normal(0.1)`` conv of the
+    JAX package): kaiming_normal(fan_in) scaled by 0.1, zero bias,
+  * DCN offset/mask convs: zero; the DCN weight U(±1/sqrt(cin*9)), zero bias,
+  * the discriminators' ``SimpleBlock``: torch ``init.orthogonal_`` on the
+    (cout, cin*kh*kw) view (``orthogonal_hwio``), zero bias,
+  * flax's own default (``nn.Dense``, ``nn.ConvTranspose``): LeCun normal
+    (truncated at 2 std) and zero bias (:func:`lecun_normal_`).
+
+:class:`BatchNorm2d` and :class:`PReLU` are the JAX package's
+torch-semantics ``BatchNorm2d`` (running statistics updated only when asked,
+:func:`updating_batch_stats`) and ``PReLU``; :class:`ConvTranspose` is
+``nn.ConvTranspose`` (2-D and 3-D) in torch's weight layout.
 """
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 
 import torch
 import torch.nn as nn
@@ -41,6 +52,20 @@ def _uniform_(t: torch.Tensor, bound: float, gen: torch.Generator | None):
 def _normal_(t: torch.Tensor, std: float, gen: torch.Generator | None):
     with torch.no_grad():
         t.copy_(torch.randn(t.shape, generator=gen) * std)
+
+
+def _orthogonal_(t: torch.Tensor, gen: torch.Generator | None):
+    """torch ``init.orthogonal_`` on the (cout, cin*kh*kw) view of an OIHW
+    weight (the JAX package's ``orthogonal_hwio``)."""
+    nn.init.orthogonal_(t.view(t.shape[0], -1), generator=gen)
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int,
+                  gen: torch.Generator | None) -> None:
+    """flax's default kernel init: normal of variance 1/fan_in truncated at
+    2 std (its std corrected for the truncation)."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=gen)
 
 
 class Conv2d(nn.Module):
@@ -83,6 +108,9 @@ class Conv2d(nn.Module):
             nn.init.zeros_(self.bias)
         elif self.init == "zeros":
             nn.init.zeros_(self.weight)
+            nn.init.zeros_(self.bias)
+        elif self.init == "orthogonal":
+            _orthogonal_(self.weight, gen)
             nn.init.zeros_(self.bias)
         else:
             raise ValueError(f"unknown init {self.init!r}")
@@ -208,6 +236,123 @@ class Upsampler(nn.Module):
         for i, (_, r) in enumerate(self.steps):
             x = pixel_shuffle(getattr(self, f"conv{i}")(x), r)
         return x
+
+
+class BatchNorm2d(nn.Module):
+    """torch-semantics BatchNorm2d on NHWC tensors, with the JAX package's
+    update rule (``realvsr_tpu/models/common.py::BatchNorm2d``).
+
+    In train mode it normalises with the batch's biased statistics; in eval
+    mode with the running ones.  The running statistics move (torch's rule:
+    momentum 0.1, the unbiased variance) only inside
+    :func:`updating_batch_stats`, as the JAX module writes them only when
+    its ``batch_stats`` collection is mutable: a train-mode forward outside
+    it leaves them as they are (the GAN step's discriminator forwards in
+    the generator's step).  One ``F.batch_norm`` call, statistics in f32
+    whatever the input's dtype, is the whole of it.
+
+    Parameters and buffers are ``nn.BatchNorm2d``'s (``weight``, ``bias``,
+    ``running_mean``, ``running_var``, ``num_batches_tracked``); a state
+    dict without ``num_batches_tracked`` (the JAX package's, which does not
+    count) loads with ``strict=True`` and counts from 0.
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
+        super().__init__()
+        self.eps, self.momentum = eps, momentum
+        self.update_stats = False
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.register_buffer("num_batches_tracked",
+                             torch.tensor(0, dtype=torch.long))
+
+    def reset_parameters(self, gen: torch.Generator | None = None) -> None:
+        with torch.no_grad():
+            for t, v in ((self.weight, 1), (self.bias, 0),
+                         (self.running_mean, 0), (self.running_var, 1),
+                         (self.num_batches_tracked, 0)):
+                t.fill_(v)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        state_dict.setdefault(prefix + "num_batches_tracked",
+                              torch.zeros_like(self.num_batches_tracked))
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        running = not self.training or self.update_stats
+        if self.training and self.update_stats:
+            self.num_batches_tracked += 1
+        y = F.batch_norm(
+            x.permute(0, 3, 1, 2), self.running_mean if running else None,
+            self.running_var if running else None, self.weight, self.bias,
+            self.training, self.momentum, self.eps)
+        return y.permute(0, 2, 3, 1).contiguous()
+
+
+@contextmanager
+def updating_batch_stats(model: nn.Module):
+    """Inside, every :class:`BatchNorm2d` of ``model`` in train mode moves
+    its running statistics (the JAX package's ``mutable=["batch_stats"]``
+    apply)."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.update_stats = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = False
+
+
+class PReLU(nn.Module):
+    """torch ``nn.PReLU()``: one learned negative slope, init 0.25, named
+    ``alpha`` as the JAX package names it."""
+
+    def __init__(self):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.full((1,), 0.25))
+
+    def reset_parameters(self, gen: torch.Generator | None = None) -> None:
+        with torch.no_grad():
+            self.alpha.fill_(0.25)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.alpha.to(x.dtype) * x)
+
+
+class ConvTranspose(nn.Module):
+    """flax ``nn.ConvTranspose`` with kernel = stride and no padding (the
+    2-D upsamplers of the UNet discriminator, FSTRN's (1, s, s) 3-D one) on
+    channels-first tensors: ``weight`` in torch's (cin, cout, *k) layout,
+    which :func:`realvsr_tpu_torch.convert.state_dict_from_jax` fills from
+    the flax kernel.  Init: flax's default (LeCun normal, zero bias), or
+    U(±``bound``) for both where given."""
+
+    def __init__(self, cin: int, cout: int, kernel: tuple[int, ...],
+                 bound: float | None = None):
+        super().__init__()
+        self.kernel = tuple(kernel)
+        self.bound = bound
+        self.weight = nn.Parameter(torch.empty(cin, cout, *self.kernel))
+        self.bias = nn.Parameter(torch.empty(cout))
+
+    def reset_parameters(self, gen: torch.Generator | None = None) -> None:
+        if self.bound is None:
+            lecun_normal_(self.weight, self.weight.shape[0]
+                          * math.prod(self.kernel), gen)
+            nn.init.zeros_(self.bias)
+        else:
+            _uniform_(self.weight, self.bound, gen)
+            _uniform_(self.bias, self.bound, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fn = (F.conv_transpose2d if len(self.kernel) == 2
+              else F.conv_transpose3d)
+        return fn(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                  stride=self.kernel)
 
 
 def _nchw_pool(pool, x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Checkpoints in the reference's two-file scheme
 (``codes/models/base_model.py:77-141``): network weights as
-``<models>/<iter>_G.pth`` state dicts under the reference key names, and
-the trainer state (step, epoch, optimizer, scheduler) as
+``<models>/<iter>_G.pth`` (and a GAN's ``_D.pth``) state dicts under the
+reference key names, BatchNorm buffers included, and the trainer state
+(step, epoch, the optimizers and schedulers: G's, then D's) as
 ``<training_state>/<iter>.state``.  The JAX package's Orbax directories are
 not read yet (ROADMAP, queue 1, item 6).
 """
@@ -35,21 +36,28 @@ def load_network(path: str) -> dict[str, torch.Tensor]:
             for k, v in sd.items()}
 
 
-def save_training_state(state_dir: str, step: int, epoch: int, optimizer,
-                        scheduler) -> str:
-    """Trainer-state checkpoint (base_model.py:121-130); returns the path."""
+def save_training_state(state_dir: str, step: int, epoch: int, optimizers,
+                        schedulers) -> str:
+    """Trainer-state checkpoint (base_model.py:121-130) of the lists
+    ``optimizers`` and ``schedulers``; returns the path."""
     os.makedirs(state_dir, exist_ok=True)
     path = osp.join(state_dir, f"{step}.state")
     torch.save({"step": step, "epoch": epoch,
-                "optimizer": optimizer.state_dict(),
-                "scheduler": scheduler.state_dict()}, path)
+                "optimizers": [o.state_dict() for o in optimizers],
+                "schedulers": [s.state_dict() for s in schedulers]}, path)
     return path
 
 
-def load_training_state(path: str, optimizer, scheduler) -> tuple[int, int]:
-    """Restore ``optimizer`` and ``scheduler`` in place; returns (step,
-    epoch)."""
+def load_training_state(path: str, optimizers, schedulers
+                        ) -> tuple[int, int]:
+    """Restore ``optimizers`` and ``schedulers`` (lists, in the order they
+    were saved) in place; returns (step, epoch)."""
     state = torch.load(path, map_location="cpu", weights_only=True)
-    optimizer.load_state_dict(state["optimizer"])
-    scheduler.load_state_dict(state["scheduler"])
+    if len(state["optimizers"]) != len(optimizers):
+        raise ValueError(f"{path} holds {len(state['optimizers'])} "
+                         f"optimizers, the model {len(optimizers)}")
+    for o, sd in zip(optimizers, state["optimizers"]):
+        o.load_state_dict(sd)
+    for s, sd in zip(schedulers, state["schedulers"]):
+        s.load_state_dict(sd)
     return int(state["step"]), int(state["epoch"])

@@ -32,6 +32,14 @@ class TrainState:
         self.scheduler = scheduler
         self.step = 0
 
+    @property
+    def optimizers(self):
+        return [self.optimizer]
+
+    @property
+    def schedulers(self):
+        return [self.scheduler]
+
     def apply_gradients(self) -> None:
         """One optimizer update from the gradients in ``.grad``, then the
         LR of the next update."""

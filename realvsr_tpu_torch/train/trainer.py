@@ -6,8 +6,17 @@ resume → the loop (feed → train step → periodic log / validation /
 checkpoint) → a final ``latest`` checkpoint; SIGTERM / SIGINT save a
 resumable checkpoint before leaving the loop.  One process on one device:
 multi-process training and DDP are not ported yet (ROADMAP, queue 1,
-item 7).  ``train.mixed_precision`` computes in bf16 with f32 parameters.
-The DCN clamp is the model's ``dcn_max_offset``, given by the caller.
+item 7).  ``train.mixed_precision`` computes G in bf16 with f32
+parameters (a GAN's D in f32, as in JAX).  The DCN clamp is the model's
+``dcn_max_offset``, given by the caller.
+
+A ``*GAN*`` model trains G against the discriminator of ``network_D``
+(``train/gan.py``): both are saved (``<iter>_G.pth``, ``<iter>_D.pth``),
+the training state holds both optimizers and schedulers, and a resume
+reloads both.  A configured feature loss (``feature_criterion`` with
+``feature_weight > 0``) builds the frozen VGG19 extractor, from
+``path.vgg_weights`` when given, else with seeded random weights and a
+warning, as the JAX trainer does.
 """
 from __future__ import annotations
 
@@ -24,9 +33,10 @@ import torch
 
 from realvsr_tpu_torch.core.config import check_resume, dict2str
 from realvsr_tpu_torch.data import create_dataloader, create_dataset
-from realvsr_tpu_torch.models import define_g
+from realvsr_tpu_torch.models import define_d, define_f, define_g
 from realvsr_tpu_torch.ops.metrics import calculate_psnr_np
 from realvsr_tpu_torch.train import checkpoint as ckpt
+from realvsr_tpu_torch.train.gan import create_gan_train_state
 from realvsr_tpu_torch.train.state import create_train_state
 from realvsr_tpu_torch.train.wrappers import make_eval_step, make_train_step
 
@@ -103,19 +113,48 @@ class Trainer:
         self.model = define_g(opt, device=self.device, dtype=dtype,
                               generator=torch.Generator().manual_seed(seed),
                               dcn_max_offset=dcn_max_offset)
-        self.state = create_train_state(self.model, opt)
-        n_params = sum(p.numel() for p in self.model.parameters())
-        logger.info(f"Network G: {type(self.model).__name__}, with "
-                    f"parameters: {n_params:,d}")
+        self.is_gan = "GAN" in (opt["model"] or "")
+        self.model_d = None
+        if self.is_gan:
+            self.model_d = define_d(
+                opt, device=self.device,
+                generator=torch.Generator().manual_seed(seed + 1))
+            self.state = create_gan_train_state(self.model, self.model_d,
+                                                opt)
+        else:
+            self.state = create_train_state(self.model, opt)
+        for label, net in (("G", self.model), ("D", self.model_d)):
+            if net is not None:
+                n_params = sum(p.numel() for p in net.parameters())
+                logger.info(f"Network {label}: {type(net).__name__}, with "
+                            f"parameters: {n_params:,d}")
 
         self.start_epoch, self.current_step = 0, 0
         self._load_or_resume()
-        self.train_step = make_train_step(self.model, opt)
+        self.train_step = make_train_step(self.model, opt,
+                                          self._feature_extractor(seed))
         self.eval_step = make_eval_step(self.model)
         self.gen = torch.Generator(device=self.device).manual_seed(seed + 7)
         # (start, stop) steps of a torch.profiler trace (tools/train.py
         # --profile); None disables
         self.profile_steps = None
+
+    def _feature_extractor(self, seed: int):
+        """The frozen VGG19 of a configured feature loss, else None."""
+        t = self.opt["train"]
+        if not (t.get("feature_criterion")
+                and float(t.get("feature_weight") or 0.0) > 0):
+            return None
+        net_f = define_f(self.opt, device=self.device,
+                         generator=torch.Generator().manual_seed(seed))
+        if self.opt["path"].get("vgg_weights"):
+            from realvsr_tpu_torch.models.vgg import load_vgg19_weights
+
+            load_vgg19_weights(net_f, self.opt["path"]["vgg_weights"])
+        else:
+            logger.warning("feature loss enabled without path.vgg_weights"
+                           " — using randomly initialized VGG features")
+        return net_f
 
     def _load_or_resume(self):
         opt = self.opt
@@ -123,10 +162,14 @@ class Trainer:
         if resume_path:
             check_resume(opt, osp.basename(resume_path).split(".")[0])
             step, epoch = ckpt.load_training_state(
-                resume_path, self.state.optimizer, self.state.scheduler)
+                resume_path, self.state.optimizers, self.state.schedulers)
             self.model.load_state_dict(
                 ckpt.load_network(opt["path"]["pretrain_model_G"]),
                 strict=True)
+            if self.is_gan:
+                self.model_d.load_state_dict(
+                    ckpt.load_network(opt["path"]["pretrain_model_D"]),
+                    strict=True)
             self.state.step = step
             self.start_epoch, self.current_step = epoch, step
             logger.info(f"Resuming training from epoch {epoch}, iter {step}.")
@@ -158,10 +201,13 @@ class Trainer:
 
     def save_checkpoint(self, epoch: int, step: int | str):
         ckpt.save_network(self.opt["path"]["models"], "G", step, self.model)
+        if self.is_gan:
+            ckpt.save_network(self.opt["path"]["models"], "D", step,
+                              self.model_d)
         if isinstance(step, int):
             ckpt.save_training_state(self.opt["path"]["training_state"], step,
-                                     epoch, self.state.optimizer,
-                                     self.state.scheduler)
+                                     epoch, self.state.optimizers,
+                                     self.state.schedulers)
         logger.info("Saved models and training states.")
 
     def _profile(self, prof):

@@ -6,9 +6,15 @@ reference's training logic:
   * Split — separate Y / CbCr criteria on the YCbCr channels
     (``VideoSR_AllPair_model_YCbCr_Split.py:163-191``),
   * Combine — one criterion on all channels plus an optional edge loss
-    (``VideoSR_AllPair_model_YCbCr_Combine.py:190-215``); its VGG feature
-    loss and the GAN-Split wrapper are not ported yet (ROADMAP, queue 1,
-    item 4).
+    and VGG feature loss (``VideoSR_AllPair_model_YCbCr_Combine.py:
+    190-215``),
+  * GAN-Split — in ``train/gan.py``; :func:`make_train_step` dispatches
+    ``*GAN*`` models there.
+
+Models forward as the JAX package's ``_forward_train`` applies them: in
+train mode, a model with BatchNorm (TOF's SpyNet) moving its running
+statistics (``updating_batch_stats``); a BN-free model as it is applied
+at inference, so FSTRN trains without its dropout (``models/fstrn.py``).
 
 Each ``make_*_train_step`` returns ``train_step(state, batch, gen) ->
 (state, logs)``: augment, forward, loss, backward and one optimizer update
@@ -29,6 +35,7 @@ import torch
 
 from realvsr_tpu_torch.data.augments import apply_augment
 from realvsr_tpu_torch.losses import get_pixel_criterion, pyramid_loss
+from realvsr_tpu_torch.models.common import updating_batch_stats
 
 
 def _maybe_augment(opt: dict, gen, gt, lq):
@@ -37,6 +44,13 @@ def _maybe_augment(opt: dict, gen, gt, lq):
         return gt, lq
     return apply_augment(gen, gt, lq, aug["augs"], aug["probs"],
                          aug["alphas"], aug["mix_p"])
+
+
+def _forward_train(model, lq: torch.Tensor) -> torch.Tensor:
+    """The training forward (JAX's ``_forward_train``), in f32."""
+    model.train()
+    with updating_batch_stats(model):
+        return model(lq).float()
 
 
 def _update(state, loss: torch.Tensor) -> None:
@@ -56,8 +70,7 @@ def make_split_train_step(model, opt: dict) -> Callable:
     def train_step(state, batch, gen):
         gt, lq = _maybe_augment(opt, gen, batch["GT"], batch["LQs"])
         gt_c = gt[:, lq.shape[1] // 2]
-        state.model.train()
-        pred = state.model(lq).float()
+        pred = _forward_train(state.model, lq)
         l_y = w_y * cri_y(pred[..., 0:1], gt_c[..., 0:1])
         l_c = w_c * cri_c(pred[..., 1:3], gt_c[..., 1:3])
         l_pix = l_y + l_c
@@ -68,13 +81,22 @@ def make_split_train_step(model, opt: dict) -> Callable:
     return train_step
 
 
-def make_combine_train_step(model, opt: dict) -> Callable:
-    """YCbCr Combine: one criterion on all channels (+ edge)."""
+def make_combine_train_step(model, opt: dict,
+                            feature_apply: Callable | None = None
+                            ) -> Callable:
+    """YCbCr Combine: one criterion on all channels (+ edge, + VGG
+    feature).  ``feature_apply(x) -> features`` is the frozen VGG
+    extractor when ``feature_criterion`` and ``feature_weight`` are set:
+    it takes the f32 prediction and the GT (the latter without a
+    gradient)."""
     train_opt = opt["train"]
+    cri_fea = None
     if train_opt.get("feature_criterion") and train_opt.get("feature_weight"):
-        raise NotImplementedError(
-            "the VGG feature loss is not ported yet (ROADMAP, queue 1, "
-            "item 4)")
+        if feature_apply is None:
+            raise ValueError("the feature loss needs a VGG feature "
+                             "extractor")
+        cri_fea = get_pixel_criterion(train_opt["feature_criterion"])
+        w_fea = float(train_opt["feature_weight"])
     cri_pix = get_pixel_criterion(train_opt["pixel_criterion"])
     w_pix = float(train_opt["pixel_weight"])
     cri_edg = None
@@ -90,8 +112,7 @@ def make_combine_train_step(model, opt: dict) -> Callable:
     def train_step(state, batch, gen):
         gt, lq = _maybe_augment(opt, gen, batch["GT"], batch["LQs"])
         gt_c = gt[:, lq.shape[1] // 2]
-        state.model.train()
-        pred = state.model(lq).float()
+        pred = _forward_train(state.model, lq)
         l_pix = w_pix * cri_pix(pred, gt_c)
         logs = {"l_pix": l_pix.detach()}
         l_tot = l_pix
@@ -99,6 +120,12 @@ def make_combine_train_step(model, opt: dict) -> Callable:
             l_edg = w_edg * cri_edg(pred, gt_c)
             logs["l_edg"] = l_edg.detach()
             l_tot = l_tot + l_edg
+        if cri_fea is not None:
+            with torch.no_grad():
+                real_fea = feature_apply(gt_c)
+            l_fea = w_fea * cri_fea(feature_apply(pred), real_fea)
+            logs["l_fea"] = l_fea.detach()
+            l_tot = l_tot + l_fea
         logs["l_tot"] = l_tot.detach()
         _update(state, l_tot)
         return state, logs
@@ -117,16 +144,20 @@ def make_eval_step(model) -> Callable:
     return eval_step
 
 
-def make_train_step(model, opt: dict) -> Callable:
+def make_train_step(model, opt: dict,
+                    feature_apply: Callable | None = None) -> Callable:
     """Dispatch on opt['model'] as the reference's create_model
-    (models/__init__.py:5-17) and the JAX package do."""
+    (models/__init__.py:5-17) and the JAX package do: ``*GAN*`` to the
+    GAN-Split step (its state a ``train.gan.GANTrainState``), Split,
+    then Combine (and the bare ``VideoSR_AllPair`` of the Vimeo90K
+    configs, which carry one combined criterion)."""
     name = opt["model"]
     if "GAN" in name:
-        raise NotImplementedError(
-            f"Model [{name}]: GAN training is not ported yet (ROADMAP, "
-            "queue 1, item 4)")
+        from realvsr_tpu_torch.train.gan import make_gan_split_train_step
+
+        return make_gan_split_train_step(model, opt, feature_apply)
     if "Split" in name:
         return make_split_train_step(model, opt)
     if "Combine" in name or name == "VideoSR_AllPair":
-        return make_combine_train_step(model, opt)
+        return make_combine_train_step(model, opt, feature_apply)
     raise NotImplementedError(f"Model [{name}] not recognized.")

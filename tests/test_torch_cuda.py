@@ -652,3 +652,146 @@ def test_lpips_and_niqe_on_card_match_cpu(cuda):
     fh, kh = niqe.niqe_features(img, 48, 0.5, device="cpu")
     assert torch.equal(kc.cpu(), kh)
     np.testing.assert_allclose(fc.cpu().numpy(), fh.numpy(), rtol=1e-6)
+
+
+def _recipe_opt(name, cuts=None):
+    import os
+
+    import yaml
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "configs", "train", name)) as f:
+        opt = yaml.safe_load(f)
+    opt["network_G"].update(cuts or {})
+    return opt
+
+
+def _within_spread(ref, got, noisy):
+    """Each tensor of ``got`` within 5e-2 of the largest magnitude of its
+    ``ref`` plus ``noisy``'s distance from ``ref`` (the CPU's own change
+    under 2^-11 input noise).  The bias of a conv that feeds a BN
+    (``<m>.conv{i}.bias`` beside ``<m>.bn{i}``) gets a zero gradient but
+    for rounding: 5e-2 of its model's largest gradient there."""
+    top = {m: max(r.abs().max().item() for k, r in ref.items()
+                  if k.startswith(m) and "running" not in k)
+           for m in {k.split(".")[0] for k in ref}}
+    for k, r in ref.items():
+        pre, _, leaf = k.rpartition(".")
+        bn_fed = leaf == "bias" and pre.replace(".conv", ".bn") + ".weight" \
+            in ref
+        spread = (noisy[k] - r).abs().max().item()
+        err = (got[k] - r).abs().max().item()
+        scale = top[k.split(".")[0]] if bn_fed else r.abs().max().item()
+        assert err <= 5e-2 * scale + spread, k
+
+
+@pytest.mark.parametrize("recipe,cuts,counts", [
+    ("train_TOF_RealVSR_YCbCr_Split.yml", dict(nb=1), (3, 1)),
+    ("train_FSTRN_RealVSR_YCbCr_Split.yml", {}, (0, 0)),
+    ("train_RCAN_RealVSR_YCbCr_Split.yml", dict(num_group=1, num_block=1),
+     (4, 1)),
+], ids=["TOF", "FSTRN", "RCAN"])
+def test_tof_fstrn_rcan_train_steps_on_card_match_cpu(cuda, recipe, cuts,
+                                                      counts):
+    """``chip_smoke.py``'s card-vs-CPU Split steps of the new generators:
+    the recipe's network at full width and cut depth (TOF nf 64, 1 ResBlock;
+    FSTRN as given; RCAN 1 group of 1 RCAB), LQ 64x64, batch 2 of
+    motion-synthetic frames, f32; loss to 1e-3 relative, each gradient to
+    5e-2 of its largest plus the CPU's own change under 2^-11 input noise;
+    the 64-out and other-width conv3x3 launches of the step (the backward
+    runs cuDNN; FSTRN's 3-D convs are all cuDNN)."""
+    from realvsr_tpu_torch.data.synthetic import SyntheticMotionVSRDataset
+    from realvsr_tpu_torch.models import define_g
+    from realvsr_tpu_torch.train.state import create_train_state
+    from realvsr_tpu_torch.train.wrappers import make_split_train_step
+
+    opt = _recipe_opt(recipe, cuts)
+    opt.pop("augment")
+    net = opt["network_G"]
+    ds = SyntheticMotionVSRDataset(dict(
+        N_frames=net.get("nframes") or net["num_frames"], GT_size=64,
+        scale=1, frame_h=96, frame_w=96))
+    items = [ds.get(i, np.random.default_rng(i)) for i in (3, 17)]
+    batch = {k: torch.from_numpy(np.stack([it[k] for it in items]))
+             for k in ("LQs", "GT")}
+    ref = define_g(opt, device="cpu", generator=_gen(12))
+
+    def step(dev, b):
+        model = define_g(opt, device=dev)
+        model.load_state_dict(ref.state_dict())
+        _, logs = make_split_train_step(model, opt)(
+            create_train_state(model, opt),
+            {k: v.to(dev) for k, v in b.items()},
+            torch.Generator(device=dev))
+        return logs["l_pix"].item(), {f"G.{k}": p.grad.float().cpu()
+                                      for k, p in model.named_parameters()}
+
+    loss, grads = step("cpu", batch)
+    n = (conv3x3.launches, conv3x3_fused.launches)
+    card_loss, card = step(cuda, batch)
+    assert (conv3x3.launches - n[0], conv3x3_fused.launches - n[1]) \
+        == counts
+    assert card_loss == pytest.approx(loss, rel=1e-3)
+    lq = batch["LQs"]
+    _, noisy = step("cpu", dict(batch, LQs=lq * (1 + 2.0 ** -11 * torch.randn(
+        lq.shape, generator=_gen(16)))))
+    _within_spread(grads, card, noisy)
+
+
+def test_gan_step_on_card_matches_cpu(cuda):
+    """``chip_smoke.py``'s card-vs-CPU GAN-Split step: the GAN recipe's G
+    (EDVR_NoUp, nf 64, 8 groups, 5 + 10 ResBlocks, offset convs randomised)
+    and D (MultiscaleDiscriminator_v4, nf 64) on a Synthetic batch of 2 at
+    64x64, f32, augmentation off: losses to 1e-3 relative; each gradient of
+    G and D and each of D's running statistics after the step to 5e-2 of
+    its largest plus the CPU's own change under 2^-11 input noise; the
+    Split step's kernel launches (D runs none)."""
+    from realvsr_tpu_torch.data.synthetic import SyntheticVSRDataset
+    from realvsr_tpu_torch.models import define_d, define_g
+    from realvsr_tpu_torch.train.gan import (create_gan_train_state,
+                                             make_gan_split_train_step)
+
+    opt = _recipe_opt("train_EDVR-GAN_woTSA_RealVSR_YCbCr_Split.yml")
+    opt["augment"] = None
+    ref_g = define_g(opt, device="cpu", dcn_max_offset=8, generator=_gen(12))
+    g = _gen(13)
+    with torch.no_grad():
+        for pname, p in ref_g.named_parameters():
+            if "conv_offset_mask" in pname:
+                p.copy_(torch.randn(p.shape, generator=g) * 0.5)
+    ref_d = define_d(opt, device="cpu", generator=_gen(14))
+    ds = SyntheticVSRDataset(dict(N_frames=3, GT_size=64))
+    items = [ds.get(i, np.random.default_rng(i)) for i in (3, 17)]
+    batch = {k: torch.from_numpy(np.stack([it[k] for it in items]))
+             for k in ("LQs", "GT")}
+
+    def step(dev, b):
+        gm = define_g(opt, device=dev, dcn_max_offset=8)
+        gm.load_state_dict(ref_g.state_dict())
+        dm = define_d(opt, device=dev)
+        dm.load_state_dict(ref_d.state_dict())
+        _, logs = make_gan_split_train_step(gm, opt)(
+            create_gan_train_state(gm, dm, opt),
+            {k: v.to(dev) for k, v in b.items()},
+            torch.Generator(device=dev))
+        vals = {f"G.{k}": p.grad for k, p in gm.named_parameters()}
+        vals.update({f"D.{k}": p.grad for k, p in dm.named_parameters()})
+        vals.update({f"D.{k}": t for k, t in dm.named_buffers()
+                     if "running" in k})
+        return ({k: logs[k].item() for k in ("l_g_total", "l_d_real",
+                                             "l_d_fake")},
+                {k: v.float().cpu() for k, v in vals.items()})
+
+    losses, ref = step("cpu", batch)
+    n = (dcn_fwd.launches, dcn_bwd.launches, conv3x3.launches,
+         conv3x3_fused.launches)
+    card_losses, card = step(cuda, batch)
+    assert (dcn_fwd.launches - n[0], dcn_bwd.launches - n[1],
+            conv3x3.launches - n[2], conv3x3_fused.launches - n[3]) \
+        == (4, 4, 45, 5)
+    for k, v in losses.items():
+        assert card_losses[k] == pytest.approx(v, rel=1e-3), k
+    lq = batch["LQs"]
+    _, noisy = step("cpu", dict(batch, LQs=lq * (1 + 2.0 ** -11 * torch.randn(
+        lq.shape, generator=_gen(16)))))
+    _within_spread(ref, card, noisy)

@@ -104,21 +104,20 @@ _NETS = {
     "EDVR": dict(nf=16, nc=3, nframes=3, groups=4, front_RBs=1, back_RBs=1,
                  center=None, predeblur=False, HR_in=False, w_TSA=True),
     "TDAN": dict(nf=64, nc=3, nframes=3, nb_f=1, nb_b=1, groups=8),
+    "TOF": dict(nf=16, nc=3, nframes=3, K=3, nb=1),
+    "FSTRN": dict(k=3, nf=8, nframes=3),
+    "RCAN": dict(num_in_ch=3, num_out_ch=3, num_frames=3, num_feat=16,
+                 num_group=1, num_block=1, squeeze_factor=4, res_scale=1),
 }
 
 
 @pytest.mark.parametrize("which", ["EDVR_NoUp", "EDVR", "TDAN", "TOF",
                                    "FSTRN", "RCAN"])
 def test_define_g_builds_edvr_noup_and_names_unported_models(which):
-    """The ported generators build from their YAML keys, the same weights
-    from the same seed; the others raise, naming the ROADMAP item."""
-    opt = {"scale": 1, "network_G": dict(_NETS.get(which, {}),
-                                         which_model_G=which)}
-    if which not in _NETS:
-        with pytest.raises(NotImplementedError, match="ROADMAP, queue 1, "
-                                                      "item 5"):
-            define_g(opt, device="cpu")
-        return
+    """Every generator of the JAX factory builds from its YAML keys, the
+    same weights from the same seed (TOF, FSTRN and RCAN since ROADMAP
+    queue 1, item 5 was ported; the factory raised for them before)."""
+    opt = {"scale": 1, "network_G": dict(_NETS[which], which_model_G=which)}
     a = define_g(opt, device="cpu", generator=torch.Generator().manual_seed(3))
     b = define_g(opt, device="cpu",
                  generator=torch.Generator().manual_seed(3))

@@ -33,6 +33,17 @@ from realvsr_tpu_torch.train.state import create_train_state
 from realvsr_tpu_torch.train.wrappers import make_split_train_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch intra-op thread: the suite runs files in parallel workers,
+    where each worker's full thread pool would fight the others for the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 R = 4
 # the recipe's lappyr criterion takes an SSIM of the 1/4-size base level
 # with an 11-tap window, so GT crops are at least 44 px: TDAN (scale 1) runs

@@ -17,6 +17,17 @@ from test_torch_train_families import (_batch, _close_params, _jax_steps,
                                        hold_split_step, setup_family)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch intra-op thread: the suite runs files in parallel workers,
+    where each worker's full thread pool would fight the others for the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def edvr_x4_tsa():
     return setup_family("edvr_x4_tsa")
