@@ -129,7 +129,32 @@ Phases, each of which raises (and so exits non-zero) on failure:
    12-frame 1024x512 clip and on two, beside one window's forward and its
    pyramid and fuse halves; tiled 1080p beside the full frame; the flip
    test; LPIPS, DISTS, NIQE and BRISQUE ms per 1024x512 frame; peak
-   memory of each.
+   memory of each;
+10. multi-process training and the rest of the JAX package (run after
+    phase 6's metrics, before phase 9's times); ranks are this script
+    started again (``--worker <args.json>``) with torchrun's environment:
+    a. the flagship's Split recipe (192² x 32, ±8, offsets randomised,
+       ``Synthetic`` data) on one rank over NCCL: one step of the recipe's
+       Trainer on a fixed global batch held against the single-process
+       Trainer's step (gradients within phase 5's 5e-2 of their largest,
+       parameters within 2 LR), then DP_STEPS steps in f32 and in bf16 with
+       the launches a step of phase 5;
+    b. the same on two ranks over gloo on the one card (16 a rank): the
+       fixed step against (a)'s, the ranks' parameters bit-identical after
+       the runs, steps/s and peak memory per rank;
+    c. one GAN-Split step of the GAN recipe (``ragan``, D's BatchNorms; G at
+       full width and depth, D nf 64) at 64x64 on two gloo ranks against
+       the one-rank step on the same global batch of 4: G's and D's
+       gradients and D's running statistics within GAN_DP_TOL;
+    d. ``eval/spatial.py``: ``spatial_sharded_forward`` of the flagship
+       (bf16, ±4, default halo 128 rows) at 1920x1088 on two gloo ranks,
+       and ``shard_forward`` of 4 shards in this process, each against the
+       full-frame forward on every row and with the launches a shard held
+       to the model's routing; times beside the full frame's;
+    e. ``tools/validate_dcn_clamp.py`` on the 1024x512 clip's first window
+       at ±4 and ±8 (f32; ``dcn_fwd`` and ``dcn_block`` launches counted)
+       and ``SRMDPreprocessing`` (x4, l = 21, noise off) of a 32 x 192²
+       batch, the card against the CPU.
 
 Prints one JSON line per check and timing, then the card line, the
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -760,7 +785,7 @@ def warm_motion(opt) -> float:
 
 
 def run_trainer(opt, per_step, *, offsets_seed=None, warmup=TRAIN_WARMUP,
-                profile=False):
+                profile=False, backend=None):
     """``opt`` through the port's Trainer on the card, as the training
     command line runs it (DCN clamp ±8).  The counts are set to 0 just
     before the run and read just after; each step's launches are held to
@@ -771,12 +796,17 @@ def run_trainer(opt, per_step, *, offsets_seed=None, warmup=TRAIN_WARMUP,
     ``offsets_seed`` the DCN offset convs are randomised first; with
     ``profile`` the last two steps are traced (and then the steps/s is not
     the one to report).  A GAN's D is held with G: every parameter of both
-    must move."""
+    must move.  Under torchrun's environment the Trainer joins the process
+    group over ``backend``; the result then also carries the SHA-256 of
+    every parameter after the run (the ranks must agree bit for bit)."""
+    import hashlib
+
     import torch
 
     from realvsr_tpu_torch.train.trainer import Trainer
 
-    trainer = Trainer(opt, device="cuda", dcn_max_offset=train_r())
+    trainer = Trainer(opt, device="cuda", dcn_max_offset=train_r(),
+                      backend=backend)
     niter = int(opt["train"]["niter"])
     if profile:
         trainer.profile_steps = (niter - 2, niter)
@@ -845,6 +875,11 @@ def run_trainer(opt, per_step, *, offsets_seed=None, warmup=TRAIN_WARMUP,
         gap_ms=gaps, idle_share=sum(gaps) / ms, peak_mem_gib=peak,
         params_moved=moved, validation_psnr=vals, profiled=profile,
         checkpoints=sorted(os.listdir(opt["path"]["models"])))
+    if torch.distributed.is_initialized():
+        h = hashlib.sha256()
+        for k in sorted(named):
+            h.update(named[k].detach().cpu().numpy().tobytes())
+        res["params_sha256"] = h.hexdigest()
     if profile:
         with open(os.path.join(opt["path"]["experiments_root"], "profile",
                                "summary.txt")) as f:
@@ -2165,9 +2200,506 @@ def metrics_phase(paths, tmp):
     return rows
 
 
+# --------------------------------------------------------------------------
+# Phase 10: multi-process training, the H-sharded forward, the clamp check
+# and the degradation.  Ranks are this script started again with
+# ``--worker <args.json>`` under torchrun's environment.
+
+DP_STEPS = 6      # each data-parallel run's steps a precision (phase 5: 10)
+DP_GLOBAL = 32    # the fixed step's global batch at the recipe's 192²
+DP_TOL = 5e-2     # phase 5's card tolerance, of each gradient's largest
+GAN_DP = (4, 64)  # the two-rank GAN step's global batch and side
+GAN_DP_TOL = 1e-2
+CLAMP_RADII = (4, 8)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn(tmp, args, world, backend):
+    """``world`` ranks of ``--worker`` (:func:`worker_dp`), torchrun's
+    environment on a free port; returns each rank's result.  A rank that
+    fails (or a run past 600 s) fails the phase, and every rank is
+    stopped."""
+    path = os.path.join(tmp, f"ranks_{world}.json")
+    with open(path, "w") as f:
+        json.dump(dict(args, backend=backend), f)
+    port = str(_free_port())
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--worker", path],
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                 LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=port),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} of {world} exited "
+                                 f"{p.returncode}:\n{log[-6000:]}")
+    out = []
+    for r in range(world):
+        with open(f"{path}.{r}.out.json") as f:
+            out.append(json.load(f))
+    return out
+
+
+def dp_global_batch():
+    """The fixed global batch: Synthetic items 0..31 at the recipe's 192²,
+    each from its own seed (the same in every process)."""
+    import numpy as np
+    import torch
+
+    from realvsr_tpu_torch.data.synthetic import SyntheticVSRDataset
+
+    ds = SyntheticVSRDataset(dict(N_frames=NFRAMES, GT_size=192))
+    items = [ds.get(i, np.random.default_rng(i)) for i in range(DP_GLOBAL)]
+    return {k: torch.from_numpy(np.stack([it[k] for it in items]))
+            for k in ("LQs", "GT")}
+
+
+def fixed_split_step(tmp, backend=None):
+    """One step of the flagship recipe through its Trainer (f32, offsets
+    randomised as phase 5's, the recipe's cutblur drawn from the trainer's
+    generator) on this rank's rows of :func:`dp_global_batch`; returns G's
+    gradients (averaged over the ranks) and parameters after the step, and
+    the step's launches."""
+    import torch
+
+    from realvsr_tpu_torch.parallel import mesh
+    from realvsr_tpu_torch.train.trainer import Trainer
+
+    opt = _train_opt(os.path.join(tmp, "fixed"), "float32")
+    trainer = Trainer(opt, device="cuda", dcn_max_offset=train_r(),
+                      backend=backend)
+    randomise_offset_convs(trainer.model, seed=11, std=0.5)
+    batch = mesh.shard_batch(dp_global_batch())
+    zero_counts()
+    trainer.train_step(trainer.state, {k: v.cuda() for k, v in batch.items()},
+                       trainer.gen)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    out = ({k: p.grad.float().cpu() for k, p in
+            trainer.model.named_parameters()},
+           {k: p.detach().float().cpu() for k, p in
+            trainer.model.named_parameters()}, launches)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_grads(what, got, ref, params=None, ref_params=None, lr=None,
+               tol=DP_TOL, model_top=False):
+    """Each gradient within ``tol`` of its largest magnitude (with
+    ``model_top``, a BN-fed bias or D's output bias, whose gradient is
+    rounding or a near-cancelling sum, against its model's largest); the
+    parameters after one Adam step within 2 LR (a sign flip of a small
+    gradient).  Emits the worst."""
+    tops = {}
+    for k, v in ref.items():
+        m = k.split(".")[0]
+        tops[m] = max(tops.get(m, 0.0), v.abs().max().item())
+    errs = []
+    for k, v in ref.items():
+        own = v.abs().max().clamp_min(1e-30).item()
+        top = (tops[k.split(".")[0]] if model_top and (
+            bn_fed(k, ref) or k.endswith("conv_out.bias")) else own)
+        errs.append(((got[k] - v).abs().max().item() / top, k))
+    errs.sort()
+    info = {}
+    if params is not None:
+        diff = max((params[k] - v).abs().max().item()
+                   for k, v in ref_params.items())
+        flips = sum(int(((params[k] - v).abs() > lr / 10).sum())
+                    for k, v in ref_params.items())
+        info = dict(param_max_abs_diff=diff, param_tol=2 * lr,
+                    elements_beyond_lr_over_10=flips,
+                    elements=sum(v.numel() for v in ref_params.values()))
+    emit(check=what, worst_grad_rel_err=errs[-1][0], worst=errs[-1][1],
+         worst_3=errs[-3:], tol=tol, compared=len(errs), **info)
+    if errs[-1][0] > tol or (params is not None and diff > 2.0001 * lr):
+        raise AssertionError(f"{what}: {errs[-1]}, {info}")
+
+
+def gan_dp_inputs(tmp):
+    """G (the GAN recipe's, full width and depth, offsets randomised) and D
+    (nf 64) weights and a Synthetic global batch, saved for the ranks."""
+    import numpy as np
+    import torch
+
+    from realvsr_tpu_torch.data.synthetic import SyntheticVSRDataset
+    from realvsr_tpu_torch.models import define_d, define_g
+
+    opt = network_opt(GAN_CFG)
+    g = define_g(opt, device="cpu", dcn_max_offset=train_r(),
+                 generator=torch.Generator().manual_seed(12))
+    randomise_offset_convs(g, seed=13, std=0.5)
+    d = define_d(opt, device="cpu",
+                 generator=torch.Generator().manual_seed(14))
+    n, side = GAN_DP
+    ds = SyntheticVSRDataset(dict(N_frames=3, GT_size=side))
+    items = [ds.get(i, np.random.default_rng(i)) for i in range(n)]
+    path = os.path.join(tmp, "gan_dp.pt")
+    torch.save({"G": g.state_dict(), "D": d.state_dict(),
+                "batch": {k: torch.from_numpy(np.stack([it[k] for it in
+                                                        items]))
+                          for k in ("LQs", "GT")}}, path)
+    return path
+
+
+def gan_dp_step(path):
+    """One GAN-Split step (``ragan``, D's BatchNorms; augmentation off) of
+    the saved G, D and batch on the card, this rank's rows; returns
+    {gradients of G and D, D's running statistics} on the host and the
+    step's launches."""
+    import torch
+
+    from realvsr_tpu_torch.models import define_d, define_g
+    from realvsr_tpu_torch.parallel import mesh
+    from realvsr_tpu_torch.train.gan import (create_gan_train_state,
+                                             make_gan_split_train_step)
+
+    opt = network_opt(GAN_CFG)
+    opt["augment"] = None
+    saved = torch.load(path, weights_only=True)
+    g = define_g(opt, device="cuda", dcn_max_offset=train_r())
+    g.load_state_dict(saved["G"])
+    d = define_d(opt, device="cuda")
+    d.load_state_dict(saved["D"])
+    batch = mesh.shard_batch(saved["batch"])
+    zero_counts()
+    make_gan_split_train_step(g, opt)(
+        create_gan_train_state(g, d, opt),
+        {k: v.cuda() for k, v in batch.items()}, torch.Generator("cuda"))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    vals = {f"G.{k}": p.grad for k, p in g.named_parameters()}
+    vals.update({f"D.{k}": p.grad for k, p in d.named_parameters()})
+    vals.update({f"D.{k}": t for k, t in d.named_buffers() if "running" in k})
+    return {k: v.float().cpu() for k, v in vals.items()}, launches
+
+
+def flagship_inputs(tmp, paths):
+    """The inference phase's flagship weights and phase 6's 1920x1088
+    window (bf16), saved for the ranks."""
+    import torch
+
+    model, _, n, _, _ = paths["edvr_noup"]
+    window = read_window(os.path.join(tmp, f"LQ_{HD[1]}x{HD[0]}_{n}"), n)
+    path = os.path.join(tmp, "sharded.pt")
+    torch.save({"G": model.state_dict(), "window": window.cpu()}, path)
+    return path
+
+
+def flagship(state_dict, max_offset=R_INFER, dtype=None):
+    """The flagship EDVR_NoUp on the card (bf16 unless ``dtype``) with these
+    weights, clamped to ±``max_offset`` (None: exact), in eval mode."""
+    import torch
+
+    from realvsr_tpu_torch.models.edvr import EDVRNoUp
+
+    model = EDVRNoUp(nf=64, nc=3, nframes=NFRAMES, groups=8, front_RBs=5,
+                     back_RBs=10, w_TSA=False, dcn_max_offset=max_offset,
+                     device="cuda", dtype=dtype or torch.bfloat16)
+    model.load_state_dict(state_dict)
+    return model.eval()
+
+
+def worker_dp(args):
+    """Ranks of 10a / 10b: the fixed step, then the recipe's Trainer in
+    each precision for DP_STEPS steps (launches a step held to phase 5's,
+    as run_trainer holds them); then, where asked (the two gloo ranks,
+    which run 10c and 10d too, so that one start of the ranks serves
+    three phases), the GAN step and the sharded forward."""
+    import torch
+
+    from realvsr_tpu_torch.parallel import mesh
+
+    out = {"rank": mesh.rank(), "world": mesh.world_size()}
+    grads, params, out["fixed_launches"] = fixed_split_step(
+        args["tmp"], args["backend"])
+    if mesh.rank() == 0:
+        torch.save({"grads": grads, "params": params}, args["fixed_out"])
+    torch.backends.cudnn.allow_tf32 = True   # as phase 5's runs
+    for dtype in args["dtypes"]:
+        opt = _train_opt(os.path.join(args["tmp"], "run"), dtype,
+                         steps=DP_STEPS)
+        out[dtype] = run_trainer(opt, args["per_step"], offsets_seed=11,
+                                 backend=args["backend"])
+    torch.backends.cudnn.allow_tf32 = False
+    if "gan" in args:
+        out["gan"] = worker_gan(args["gan"])
+    if "sharded" in args:
+        out["sharded"] = worker_sharded(args["sharded"])
+    return out
+
+
+def worker_gan(args):
+    from realvsr_tpu_torch.parallel import mesh
+
+    vals, launches = gan_dp_step(args["path"])
+    if mesh.rank() == 0:
+        import torch
+
+        torch.save(vals, args["out"])
+    return {"rank": mesh.rank(), "launches": launches}
+
+
+def worker_sharded(args):
+    """Ranks of 10d: spatial_sharded_forward of the flagship (default halo)
+    on the card; launches of one call, its time, rank 0's output saved."""
+    import torch
+
+    from realvsr_tpu_torch.eval.spatial import (default_halo,
+                                                spatial_sharded_forward)
+    from realvsr_tpu_torch.parallel import mesh
+
+    saved = torch.load(args["path"], weights_only=True)
+    model = flagship(saved["G"])
+    window = saved["window"].cuda()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        zero_counts()
+        y = spatial_sharded_forward(model, window)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        ms = cuda_ms(lambda: spatial_sharded_forward(model, window), 3,
+                     warmup=1)
+    if mesh.rank() == 0:
+        torch.save(y.float().cpu(), args["out"])
+    return {"rank": mesh.rank(), "launches": launches, "ms": ms,
+            "halo": default_halo(model), "shape": list(y.shape),
+            "peak_mem_gib": peak_gib()}
+
+
+CLAMP_STD = 3.0   # the clamp check's offset-conv weights: offsets past ±8
+
+
+def worker(path) -> int:
+    """One rank of a phase-10 run (``--worker <args.json>``): joins the
+    process group of torchrun's environment, runs :func:`worker_dp` and
+    writes its result to ``<path>.<rank>.out.json``."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from realvsr_tpu_torch.parallel import mesh
+
+    with open(path) as f:
+        args = json.load(f)
+    mesh.maybe_initialize_distributed("cuda", args["backend"])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = worker_dp(args)
+        with open(f"{path}.{mesh.rank()}.out.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def parallel_phase(tmp, train, paths, full_1080p_ms):
+    """Phase 10 (module docstring); returns each path's launches."""
+    import torch
+
+    launches = {}
+    per_step = {"dcn_fwd": 4, "dcn_bwd": 4, **EXPECT["edvr_noup"],
+                "dcn_block": 0}
+    lr = float(network_opt(RECIPE)["train"]["lr_G"])
+    torch.cuda.empty_cache()
+    # the single-process reference of the fixed step
+    ref_grads, ref_params, ref_launches = fixed_split_step(tmp)
+    if ref_launches != per_step:
+        raise AssertionError(f"fixed step launches {ref_launches}")
+    torch.cuda.empty_cache()
+
+    # (a) one rank over NCCL, (b) two ranks over gloo on the one card,
+    # which then run (c) and (d) as well
+    gan_path, shard_path = gan_dp_inputs(tmp), flagship_inputs(tmp, paths)
+    extra = {"gan": dict(path=gan_path, out=os.path.join(tmp, "gan_2.pt")),
+             "sharded": dict(path=shard_path,
+                             out=os.path.join(tmp, "sharded_2.pt"))}
+    fixed = {}
+    for key, world, backend in (("nccl_1rank", 1, "nccl"),
+                                ("gloo_2rank", 2, "gloo")):
+        out = os.path.join(tmp, f"fixed_{key}.pt")
+        t0 = time.time()
+        ranks = spawn(tmp, dict(
+            tmp=os.path.join(tmp, key), dtypes=["float32", "bfloat16"],
+            per_step=per_step, fixed_out=out, **(extra if world == 2
+                                                  else {})), world, backend)
+        fixed[key] = torch.load(out, weights_only=True)
+        for dtype in ("float32", "bfloat16"):
+            res = [r[dtype] for r in ranks]
+            digests = {r["params_sha256"] for r in res}
+            emit(phase="training_data_parallel", backend=backend,
+                 world=world, dtype=dtype, per_rank_batch=32 // world,
+                 steps=DP_STEPS, cuts="DP_STEPS steps (phase 5: 10)",
+                 steps_per_s=[r["steps_per_s"] for r in res],
+                 median_step_ms=[r["median_step_ms"] for r in res],
+                 idle_share=[r["idle_share"] for r in res],
+                 peak_mem_gib=[r["peak_mem_gib"] for r in res],
+                 launches_per_step=res[0]["launches_per_step"],
+                 launches=[r["launches"] for r in res],
+                 params_bit_identical=len(digests) == 1,
+                 single_process_steps_per_s=train[dtype]["steps_per_s"],
+                 single_process_peak_mem_gib=train[dtype]["peak_mem_gib"],
+                 wall_s=time.time() - t0)
+            if len(digests) != 1:
+                raise AssertionError(f"{key} {dtype}: ranks' parameters "
+                                     "differ")
+            for r, rr in enumerate(res):
+                launches[f"dp_{key}_rank{r}_{dtype}"] = rr["launches"]
+        for r in ranks:
+            if r["fixed_launches"] != per_step:
+                raise AssertionError(f"{key} fixed step launches "
+                                     f"{r['fixed_launches']}")
+    hold_grads("dp_nccl_1rank_fixed_step_vs_single_process",
+               fixed["nccl_1rank"]["grads"], ref_grads,
+               fixed["nccl_1rank"]["params"], ref_params, lr)
+    hold_grads("dp_gloo_2rank_fixed_step_vs_nccl_1rank",
+               fixed["gloo_2rank"]["grads"], fixed["nccl_1rank"]["grads"],
+               fixed["gloo_2rank"]["params"], fixed["nccl_1rank"]["params"],
+               lr)
+    del ref_grads, ref_params, fixed
+
+    # (c) the two-rank GAN step against the one-rank step
+    one, one_launches = gan_dp_step(gan_path)
+    hold_grads("gan_gloo_2rank_step_vs_one_rank",
+               torch.load(extra["gan"]["out"]), one, tol=GAN_DP_TOL,
+               model_top=True)
+    gan = [r["gan"] for r in ranks]
+    for r, rr in enumerate(gan):
+        launches[f"gan_gloo_2rank_rank{r}"] = rr["launches"]
+    if any(rr["launches"] != one_launches for rr in gan):
+        raise AssertionError(f"GAN step launches {gan} vs {one_launches}")
+
+    # (d) the H-sharded 1080p forward: two gloo ranks, then 4 shards here
+    from realvsr_tpu_torch.eval.spatial import default_halo, shard_forward
+
+    saved = torch.load(shard_path, weights_only=True)
+    model = flagship(saved["G"])
+    window = saved["window"].cuda()
+    with torch.inference_mode():
+        full = model(window).float().cpu()
+    expect = dict(EXPECT["edvr_noup"], dcn_bwd=0, dcn_block=0)
+    out = extra["sharded"]["out"]
+    ranks = [r["sharded"] for r in ranks]
+    for r, rr in enumerate(ranks):
+        launches[f"sharded_1080p_gloo_2rank_rank{r}"] = rr["launches"]
+        if rr["launches"] != expect:
+            raise AssertionError(f"sharded rank {r}: {rr['launches']}")
+    hold_close("sharded_1080p_2rank_vs_full_frame", torch.load(out), full,
+               halo=ranks[0]["halo"], window_rows=HD[0] // 2
+               + 2 * ranks[0]["halo"])
+    halo = default_halo(model)
+    parts, shard_launches = [], []
+    with torch.inference_mode():
+        for i in range(4):
+            zero_counts()
+            parts.append(shard_forward(model, window, i, 4, halo)
+                         .float().cpu())
+            torch.cuda.synchronize()
+            shard_launches.append(read_counts())
+        ms4 = cuda_ms(lambda: [shard_forward(model, window, i, 4, halo)
+                               for i in range(4)], 3, warmup=1)
+    if any(c != expect for c in shard_launches):
+        raise AssertionError(f"4 shards: launches {shard_launches}")
+    launches["sharded_1080p_4shard"] = {
+        k: sum(c[k] for c in shard_launches) for k in expect}
+    hold_close("sharded_1080p_4shard_vs_full_frame", torch.cat(parts, 1),
+               full, halo=halo)
+    emit(timing="sharded_1080p", dtype="bfloat16", halo=halo,
+         gloo_2rank_ms_per_frame=[r["ms"] for r in ranks],
+         gloo_2rank_peak_mem_gib=[r["peak_mem_gib"] for r in ranks],
+         four_shards_one_process_ms_per_frame=ms4,
+         full_frame_ms_per_frame=full_1080p_ms,
+         launches_per_shard=expect)
+    del model, window, full, parts
+
+    # (e) the clamp check and the SRMD degradation
+    launches["clamp_check"] = clamp_check(paths)
+    srmd_check()
+    return launches
+
+
+def clamp_check(paths):
+    """``tools/validate_dcn_clamp.validate`` of the flagship's weights (the
+    exact model, f32, its offset convs drawn with std CLAMP_STD so that
+    offsets pass the clamps; phase 4's reach ~4 px) on the 1024x512 clip's
+    first window at ±4 and ±8:
+    one exact forward (4 ``dcn_fwd``) and one ±R block-API forward per
+    radius (4 ``dcn_block`` each)."""
+    import torch
+
+    from realvsr_tpu_torch.tools.validate_dcn_clamp import validate
+
+    model, lq, n, _, _ = paths["edvr_noup"]
+    exact = flagship(model.state_dict(), None, torch.float32)
+    randomise_offset_convs(exact, seed=3, std=CLAMP_STD)
+    window = read_window(lq, n)
+    zero_counts()
+    res = validate(exact, window, CLAMP_RADII)
+    torch.cuda.synchronize()
+    got = read_counts()
+    k = 1 + len(CLAMP_RADII)
+    expect = {"dcn_fwd": 4, "dcn_block": 4 * len(CLAMP_RADII), "dcn_bwd": 0,
+              "conv3x3": k * EXPECT["edvr_noup"]["conv3x3"],
+              "conv3x3_fused": k * EXPECT["edvr_noup"]["conv3x3_fused"]}
+    emit(phase="clamp_check", radii=list(CLAMP_RADII), dtype="float32",
+         weights=f"phase 4's flagship, offset convs std {CLAMP_STD}",
+         launches=got, launches_expected=expect, **res)
+    if got != expect or not all(math.isfinite(v)
+                                for v in res["psnr_db"].values()):
+        raise AssertionError(f"clamp check: {got}, {res['psnr_db']}")
+    del exact
+    return got
+
+
+def srmd_check():
+    """SRMDPreprocessing (x4, l = 21, noise off) of a 32 x 192² batch: the
+    card against the CPU from the same kernel draws, within 1e-5; timed."""
+    import numpy as np
+    import torch
+
+    from realvsr_tpu_torch.ops.degradation import (SRMDPreprocessing,
+                                                   pca_fit,
+                                                   random_batch_kernel)
+
+    basis = pca_fit(random_batch_kernel(np.random.default_rng(0), 256)
+                    .reshape(256, -1), k=10)
+    srmd = SRMDPreprocessing(4, basis, ksize=21, noise=False)
+    hr = torch.rand(32, 192, 192, 3, generator=torch.Generator()
+                    .manual_seed(1))
+    cpu = srmd(np.random.default_rng(2), torch.Generator(), hr)
+    card = srmd(np.random.default_rng(2), torch.Generator("cuda"), hr.cuda())
+    errs = [(a.cpu() - b).abs().max().item() for a, b in zip(card, cpu)]
+    hr_card = hr.cuda()
+    ms = cuda_ms(lambda: srmd(np.random.default_rng(2),
+                              torch.Generator("cuda"), hr_card), 3)
+    emit(check="srmd_card_vs_cpu", shape=list(hr.shape), scale=4, ksize=21,
+         lr_shape=list(card[0].shape), max_abs_err_lr=errs[0],
+         max_abs_err_codes=errs[1], tol=1e-5, ms=ms)
+    if max(errs[:2]) > 1e-5:
+        raise AssertionError(f"SRMD card vs CPU: {errs}")
+
+
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--worker"]:
+        return worker(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2237,9 +2769,12 @@ def main() -> int:
         for (gen, dt), res in generator_recipe_training(
                 tmp, profiling).items():
             launches[f"training_{gen}_recipe_{dt}"] = res["launches"]
-        for phase in (streaming_phase, tiled_phase):
-            launches.update(phase(paths, tmp)[0])
+        launches.update(streaming_phase(paths, tmp)[0])
+        tiled_launches, tiled_rows = tiled_phase(paths, tmp)
+        launches.update(tiled_launches)
         metrics_phase(paths, tmp)
+        launches.update(parallel_phase(
+            tmp, train, paths, tiled_rows["full_frame_1080p"]["ms"]))
         rows = time_kernels()
         bwd_rows = time_dcn_bwd()
         rows["dcn_bwd"] = bwd_rows["bfloat16"]

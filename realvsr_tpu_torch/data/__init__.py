@@ -35,14 +35,17 @@ def create_dataset(dataset_opt: dict):
 
 
 def create_dataloader(dataset, dataset_opt: dict, opt: dict | None = None):
-    """A :class:`TrainLoader` for the train phase (one process), else an
-    :class:`EvalLoader`."""
+    """A :class:`TrainLoader` for the train phase (this rank's share of the
+    global batch under a process group), else an :class:`EvalLoader`."""
     from realvsr_tpu_torch.data.loader import EvalLoader, TrainLoader
+    from realvsr_tpu_torch.parallel.mesh import rank, world_size
 
     if dataset_opt["phase"] == "train":
         return TrainLoader(
             dataset,
             batch_size=dataset_opt["batch_size"],
+            num_replicas=world_size(),
+            rank=rank(),
             ratio=int(dataset_opt.get("dataset_ratio") or 200),
             num_workers=int(dataset_opt.get("n_workers") or 3),
             seed=int(((opt or {}).get("train") or {}).get("manual_seed") or 0),

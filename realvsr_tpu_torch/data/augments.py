@@ -7,7 +7,10 @@ on the batch's device.  As there, CutBlur's box is a mask built from index
 comparisons, and every random decision stays on the device: each branch is
 computed and :func:`apply_augment` selects one with ``torch.where``, so no
 step waits for the device to pick a branch (the branches are a few
-elementwise passes over the batch).
+elementwise passes over the batch).  Under a process group every rank
+holds the same generator state and draws for the global batch, keeping
+its own rows, so the ranks' batches are augmented as JAX augments the
+global one.
 """
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ from functools import partial
 from typing import Sequence
 
 import torch
+
+from realvsr_tpu_torch.parallel.mesh import rank, world_size
 
 
 def _uniform(gen: torch.Generator, like: torch.Tensor, shape=(), lo=0.0,
@@ -27,7 +32,10 @@ def _uniform(gen: torch.Generator, like: torch.Tensor, shape=(), lo=0.0,
 def _blend(gen, gt, lq, prob: float, alpha: float):
     """Blend with a random solid colour (augments_video_allpair.py:38-50)."""
     gate = (_uniform(gen, gt).float() < prob) & (alpha > 0)
-    c = _uniform(gen, gt, (gt.shape[0], gt.shape[1], 1, 1, gt.shape[-1]))
+    # one colour per example of the global batch; this rank takes its rows
+    b, world = gt.shape[0], world_size()
+    c = _uniform(gen, gt, (b * world, gt.shape[1], 1, 1, gt.shape[-1]))
+    c = c[rank() * b:(rank() + 1) * b]
     v = _uniform(gen, gt, (), alpha, 1.0)
     gt_a, lq_a = v * gt + (1 - v) * c, v * lq + (1 - v) * c
     return torch.where(gate, gt_a, gt), torch.where(gate, lq_a, lq)

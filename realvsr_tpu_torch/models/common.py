@@ -26,7 +26,8 @@ explicit ``torch.Generator`` (:meth:`reset_parameters`):
 
 :class:`BatchNorm2d` and :class:`PReLU` are the JAX package's
 torch-semantics ``BatchNorm2d`` (running statistics updated only when asked,
-:func:`updating_batch_stats`) and ``PReLU``; :class:`ConvTranspose` is
+:func:`updating_batch_stats`; under a process group, statistics of the
+global batch) and ``PReLU``; :class:`ConvTranspose` is
 ``nn.ConvTranspose`` (2-D and 3-D) in torch's weight layout.
 """
 from __future__ import annotations
@@ -42,6 +43,7 @@ from realvsr_tpu_torch.ops.deform_conv import (apply_act,
                                                modulated_deform_conv_om)
 from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3_autograd
 from realvsr_tpu_torch.ops.resize import pixel_shuffle
+from realvsr_tpu_torch.parallel.mesh import all_reduce_sum, world_size
 
 
 def _uniform_(t: torch.Tensor, bound: float, gen: torch.Generator | None):
@@ -249,7 +251,9 @@ class BatchNorm2d(nn.Module):
     its ``batch_stats`` collection is mutable: a train-mode forward outside
     it leaves them as they are (the GAN step's discriminator forwards in
     the generator's step).  One ``F.batch_norm`` call, statistics in f32
-    whatever the input's dtype, is the whole of it.
+    whatever the input's dtype, is the whole of it in a world of one
+    process; under a process group a train-mode forward takes the global
+    batch's statistics (:meth:`_global_batch_norm`).
 
     Parameters and buffers are ``nn.BatchNorm2d``'s (``weight``, ``bias``,
     ``running_mean``, ``running_var``, ``num_batches_tracked``); a state
@@ -285,11 +289,34 @@ class BatchNorm2d(nn.Module):
         running = not self.training or self.update_stats
         if self.training and self.update_stats:
             self.num_batches_tracked += 1
+        if self.training and world_size() > 1:
+            return self._global_batch_norm(x)
         y = F.batch_norm(
             x.permute(0, 3, 1, 2), self.running_mean if running else None,
             self.running_var if running else None, self.weight, self.bias,
             self.training, self.momentum, self.eps)
         return y.permute(0, 2, 3, 1).contiguous()
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode under a process group: the statistics of the global
+        batch, as JAX's BN takes them over a ``data``-sharded array (two
+        passes, as ``jnp.var``): the per-channel sum, then the sum of
+        squared deviations, each all-reduced with its gradient
+        (``parallel/mesh.py::global_mean`` derives it).  The running
+        statistics move from the global ones, identically on every rank."""
+        xf = x.float()
+        n = all_reduce_sum(xf.new_tensor(xf[..., 0].numel()))
+        mean = all_reduce_sum(xf.sum((0, 1, 2))) / n
+        var = all_reduce_sum(((xf - mean) ** 2).sum((0, 1, 2))) / n
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(
+                    m * var * (n / (n - 1).clamp_min(1)))
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight \
+            + self.bias
+        return y.to(x.dtype)
 
 
 @contextmanager

@@ -8,7 +8,8 @@ centres), the convention EDVR uses throughout.  :func:`matlab_imresize_np`
 is MATLAB ``imresize`` (the reference's ``codes/data/util.py:510-710``) as
 two dense separable weight matrices with the symmetric boundary extension
 folded in, applied in numpy float64 (the motion-synthetic dataset's x1/s
-LQ frames).
+LQ frames); :func:`matlab_imresize` applies the same matrices to a tensor
+on its device in f32 (the SRMD degradation, ``ops/degradation.py``).
 """
 from __future__ import annotations
 
@@ -85,6 +86,23 @@ def matlab_imresize_np(img: np.ndarray, scale: float,
     x = np.einsum("oh,hwc->owc", mh, x)
     x = np.einsum("ow,hwc->hoc", mw, x)
     return x.astype(img.dtype if img.dtype != np.uint8 else np.float64)
+
+
+def matlab_imresize(img: torch.Tensor, scale: float,
+                    antialiasing: bool = True) -> torch.Tensor:
+    """MATLAB-exact bicubic ``imresize`` of (..., H, W, C) images on their
+    device (``realvsr_tpu/ops/resize.py::matlab_imresize``): the same resize
+    matrices as :func:`matlab_imresize_np`, applied as two f32 matrix
+    products; returns the input's dtype."""
+    h, w = img.shape[-3], img.shape[-2]
+    out_h, out_w = math.ceil(h * scale), math.ceil(w * scale)
+    mh, mw = (torch.from_numpy(_matlab_resize_matrix(
+        n, o, float(scale), antialiasing)).to(img.device)
+        for n, o in ((h, out_h), (w, out_w)))
+    x = img.float()
+    x = torch.einsum("oh,...hwc->...owc", mh, x)
+    x = torch.einsum("ow,...hwc->...hoc", mw, x)
+    return x.to(img.dtype)
 
 
 def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

@@ -2,8 +2,12 @@
 
     python -m realvsr_tpu_torch.tools.train -opt configs/train/<experiment>.yml \
         [--dcn_max_offset R] [--device cuda|cpu] [--profile]
+    torchrun --nproc_per_node N -m realvsr_tpu_torch.tools.train -opt ...
 
-Runs on one device, the card unless ``--device cpu``.  The DCN offsets are
+Runs on one device, the card unless ``--device cpu``; under ``torchrun``
+each of the N processes drives ``cuda:LOCAL_RANK`` (or the CPU) and takes
+1/N of every batch (``train/trainer.py``), over ``nccl`` on the card and
+``gloo`` on the CPU.  The DCN offsets are
 clamped to ±8 px unless ``--dcn_max_offset`` says otherwise (0: the exact
 DCN), as the JAX package trains its frame path.  ``--profile`` writes a
 torch.profiler trace of steps 10-15 to ``<experiments_root>/profile``.
@@ -12,6 +16,8 @@ from __future__ import annotations
 
 import argparse
 import sys
+
+import torch
 
 from realvsr_tpu_torch.core.config import parse
 from realvsr_tpu_torch.train.trainer import Trainer
@@ -34,7 +40,11 @@ def main(argv=None):
                       dcn_max_offset=args.dcn_max_offset or None)
     if args.profile:
         trainer.profile_steps = (10, 15)
-    return trainer.train()
+    try:
+        return trainer.train()
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

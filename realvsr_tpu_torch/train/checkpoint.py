@@ -4,7 +4,8 @@
 reference key names, BatchNorm buffers included, and the trainer state
 (step, epoch, the optimizers and schedulers: G's, then D's) as
 ``<training_state>/<iter>.state``.  The JAX package's Orbax directories are
-not read yet (ROADMAP, queue 1, item 6).
+read through ``tools/orbax_to_pth.py`` (ROADMAP, queue 1, item 6), which
+runs where JAX is installed and writes a ``.pth`` that loads here.
 """
 from __future__ import annotations
 
@@ -29,11 +30,29 @@ def load_network(path: str) -> dict[str, torch.Tensor]:
     (base_model.py:90-95)."""
     if osp.isdir(path):
         raise NotImplementedError(
-            f"{path} is a directory; Orbax checkpoints of the JAX package "
-            "are not loaded yet (ROADMAP, queue 1, item 6)")
+            f"{path} is a directory, an Orbax checkpoint of the JAX package: "
+            "convert it first with `python tools/orbax_to_pth.py -opt "
+            f"<config.yml> --ckpt {path} --out <file.pth>` where JAX is "
+            "installed (ROADMAP, queue 1, item 6)")
     sd = torch.load(path, map_location="cpu", weights_only=True)
     return {k[len("module."):] if k.startswith("module.") else k: v
             for k, v in sd.items()}
+
+
+def load_network_separately(path_a: str, path_b: str, name_a: str,
+                            name_b: str) -> dict[str, torch.Tensor]:
+    """Two-checkpoint merge (base_model.py:99-119,
+    ``realvsr_tpu/train/checkpoint.py::load_network_separately``): the
+    entries whose top-level module name contains ``name_a`` from checkpoint
+    A, those whose name contains ``name_b`` from B, every other one from
+    A."""
+    sd_a, sd_b = load_network(path_a), load_network(path_b)
+    merged = {}
+    for key, value in sd_a.items():
+        top = key.split(".")[0]
+        merged[key] = (sd_b[key] if name_a not in top and name_b in top
+                       else value)
+    return merged
 
 
 def save_training_state(state_dir: str, step: int, epoch: int, optimizers,

@@ -27,6 +27,15 @@ As in JAX:
   * G's own BatchNorms (TOF-GAN's SpyNet) move their running statistics
     in G's forward, whether or not G updates.
 
+Under a process group each rank steps on its rows of the global batch and
+the step computes JAX's global-batch step: the BatchNorms take the global
+batch's statistics (``models/common.py``), RaGAN's batch means are global
+(``parallel/mesh.py::global_mean``, with its gradient in G's step, where
+``pred_fake``'s mean is not detached, and detached in D's), and G's and
+D's gradients are averaged over the ranks before each update (one flat
+all-reduce each, as XLA inserts in JAX: a gated G step runs no backward and
+no all-reduce on any rank).
+
 ``ref`` in a batch (else GT, before augmentation) is what D sees as real.
 The prediction enters the losses in f32, as in the Split wrapper.
 """
@@ -41,6 +50,7 @@ from realvsr_tpu_torch.losses import (charbonnier_loss, gan_loss, gw_loss,
                                       ssim_loss)
 from realvsr_tpu_torch.models.common import updating_batch_stats
 from realvsr_tpu_torch.ops.pyramid import laplacian_pyramid
+from realvsr_tpu_torch.parallel.mesh import average_gradients, global_mean
 from realvsr_tpu_torch.train.state import build_optimizer
 from realvsr_tpu_torch.train.wrappers import _maybe_augment
 
@@ -164,8 +174,8 @@ def make_gan_split_train_step(model_g, opt: dict,
                     pred_real = model_d(real_ref_y_pyr[:-1])
                 pred_fake = model_d(fake_y_pyr[:-1])
                 l_gan = sum(
-                    w_gan * (cri_gan(pr - pf.mean(), False)
-                             + cri_gan(pf - pr.mean(), True)) / 2.0
+                    w_gan * (cri_gan(pr - global_mean(pf), False)
+                             + cri_gan(pf - global_mean(pr), True)) / 2.0
                     for pr, pf in zip(pred_real, pred_fake))
         finally:
             model_d.requires_grad_(True)
@@ -174,6 +184,7 @@ def make_gan_split_train_step(model_g, opt: dict,
         if g_active:
             state.optimizer_g.zero_grad(set_to_none=True)
             logs["l_g_total"].backward()
+            average_gradients(model_g.parameters())
             state.optimizer_g.step()
             state.scheduler_g.step()
 
@@ -186,12 +197,13 @@ def make_gan_split_train_step(model_g, opt: dict,
             l_real = sum(cri_gan(p, True) for p in pred_real)
             l_fake = sum(cri_gan(p, False) for p in pred_fake)
         else:
-            l_real = sum(cri_gan(pr - pf.detach().mean(), True) * 0.5
+            l_real = sum(cri_gan(pr - global_mean(pf.detach()), True) * 0.5
                          for pr, pf in zip(pred_real, pred_fake))
-            l_fake = sum(cri_gan(pf - pr.detach().mean(), False) * 0.5
+            l_fake = sum(cri_gan(pf - global_mean(pr.detach()), False) * 0.5
                          for pr, pf in zip(pred_real, pred_fake))
         state.optimizer_d.zero_grad(set_to_none=True)
         (l_real + l_fake).backward()
+        average_gradients(model_d.parameters())
         state.optimizer_d.step()
         state.scheduler_d.step()
         state.step += 1

@@ -1,14 +1,28 @@
-"""Training orchestration (the reference's ``codes/train.py``) on one device.
+"""Training orchestration (the reference's ``codes/train.py``).
 
 Counterpart of ``realvsr_tpu/train/trainer.py`` with the same lifecycle:
-config → experiment dirs and logger → datasets → model and train state →
-resume → the loop (feed → train step → periodic log / validation /
-checkpoint) → a final ``latest`` checkpoint; SIGTERM / SIGINT save a
-resumable checkpoint before leaving the loop.  One process on one device:
-multi-process training and DDP are not ported yet (ROADMAP, queue 1,
-item 7).  ``train.mixed_precision`` computes G in bf16 with f32
-parameters (a GAN's D in f32, as in JAX).  The DCN clamp is the model's
-``dcn_max_offset``, given by the caller.
+config → (multi-process init) → experiment dirs and logger → datasets →
+model and train state → resume → the loop (feed → train step → periodic
+log / validation / checkpoint) → a final ``latest`` checkpoint; SIGTERM /
+SIGINT save a resumable checkpoint before leaving the loop.
+``train.mixed_precision`` computes G in bf16 with f32 parameters (a GAN's
+D in f32, as in JAX).  The DCN clamp is the model's ``dcn_max_offset``,
+given by the caller.
+
+Under ``torchrun`` (``parallel/mesh.py``) each process drives one device
+and takes its rows of every global batch: the world size must divide
+``batch_size``; each rank's loader strides the sampler by rank; the steps
+average the gradients over the ranks before each update and take the
+global batch's BatchNorm and RaGAN statistics (``train/wrappers.py``,
+``train/gan.py``), so every rank holds the same weights; only rank 0 logs
+(the printed losses are the ranks' mean) and writes checkpoints, and the
+others wait at a barrier after each save and before a resume is read;
+validation round-robins the clips over the ranks and gathers their
+per-folder PSNR sums and counts, so the mean of the folder means is one
+process's; a stop signal on any rank stops every rank after the same step.
+With ``use_tb_logger`` (and no ``debug`` in the name) rank 0 writes the
+logged values as TensorBoard scalars through ``tensorboardX`` or
+``torch.utils.tensorboard``, whichever imports, else warns.
 
 A ``*GAN*`` model trains G against the discriminator of ``network_D``
 (``train/gan.py``): both are saved (``<iter>_G.pth``, ``<iter>_D.pth``),
@@ -35,6 +49,7 @@ from realvsr_tpu_torch.core.config import check_resume, dict2str
 from realvsr_tpu_torch.data import create_dataloader, create_dataset
 from realvsr_tpu_torch.models import define_d, define_f, define_g
 from realvsr_tpu_torch.ops.metrics import calculate_psnr_np
+from realvsr_tpu_torch.parallel import mesh
 from realvsr_tpu_torch.train import checkpoint as ckpt
 from realvsr_tpu_torch.train.gan import create_gan_train_state
 from realvsr_tpu_torch.train.state import create_train_state
@@ -70,21 +85,34 @@ def setup_logger(log_dir: str | None, name: str = "base",
 
 class Trainer:
     """``Trainer(opt, device, dcn_max_offset).train()``; ``opt`` from
-    :func:`realvsr_tpu_torch.core.config.parse` with ``is_train=True``."""
+    :func:`realvsr_tpu_torch.core.config.parse` with ``is_train=True``.
+    ``backend`` names the process group's backend under ``torchrun``
+    (default: ``nccl`` on CUDA, ``gloo`` on the CPU)."""
 
     def __init__(self, opt: dict, device="cuda", *,
-                 dcn_max_offset: float | None):
+                 dcn_max_offset: float | None, backend: str | None = None):
         self.opt = opt
-        self.device = torch.device(device)
-        for key in ("experiments_root", "models", "training_state",
-                    "val_images"):
-            if opt["path"].get(key):
-                os.makedirs(opt["path"][key], exist_ok=True)
-        setup_logger(opt["path"].get("log"))
+        self.device = mesh.maybe_initialize_distributed(device, backend)
+        world = mesh.world_size()
+        main = mesh.is_main_process()
+        gbs = int(opt["datasets"]["train"]["batch_size"])
+        if gbs % world:
+            raise ValueError(
+                f"global batch {gbs} must be divisible by {world} devices "
+                f"under multi-process training (process_count={world}); "
+                "raise batch_size or shrink the pool")
+        if main:
+            for key in ("experiments_root", "models", "training_state",
+                        "val_images"):
+                if opt["path"].get(key):
+                    os.makedirs(opt["path"][key], exist_ok=True)
+        setup_logger(opt["path"].get("log") if main else None)
+        logger.disabled = not main
         logger.info(dict2str(opt))
-        if opt.get("use_tb_logger") and "debug" not in opt["name"]:
-            logger.info("TensorBoard logging is not ported; the log file "
-                        "has every logged value")
+        self.tb = None
+        if opt.get("use_tb_logger") and "debug" not in opt["name"] and main:
+            self.tb = _summary_writer(
+                osp.join(opt["path"]["root"], "tb_logger", opt["name"]))
 
         self.train_loader = self.val_loader = None
         self.total_iters = int(opt["train"]["niter"])
@@ -130,7 +158,11 @@ class Trainer:
                             f"parameters: {n_params:,d}")
 
         self.start_epoch, self.current_step = 0, 0
+        mesh.barrier()   # a checkpoint being written is complete
         self._load_or_resume()
+        # every rank starts from the same weights (the same seed draws them)
+        mesh.broadcast_module(self.model)
+        mesh.broadcast_module(self.model_d)
         self.train_step = make_train_step(self.model, opt,
                                           self._feature_extractor(seed))
         self.eval_step = make_eval_step(self.model)
@@ -182,33 +214,53 @@ class Trainer:
                 f"Loaded pretrained G from {opt['path']['pretrain_model_G']}")
 
     def validate(self, step: int) -> float:
-        """Mean over clips of the per-frame PSNR (train.py:230-262)."""
+        """Mean over clips of the per-frame PSNR (train.py:230-262).  The
+        clips are round-robined over the ranks (frame i on rank i % W, as
+        the JAX trainer does); the ranks' per-folder (sum, count) are
+        gathered, so the result is one process's."""
         if self.val_loader is None:
             return float("nan")
-        psnr_by_folder = defaultdict(list)
-        for batch in self.val_loader:
+        world, rank = mesh.world_size(), mesh.rank()
+        sums = defaultdict(lambda: [0.0, 0])
+        for i, batch in enumerate(self.val_loader):
+            if i % world != rank:
+                continue
             lqs = torch.from_numpy(batch["LQs"]).to(self.device)
             out = self.eval_step(lqs)[0].float().cpu().numpy()
             psnr = calculate_psnr_np(np.clip(out, 0, 1) * 255.0,
                                      batch["GT"][0] * 255.0)
-            psnr_by_folder[batch["folder"][0]].append(psnr)
-        folder_means = {k: float(np.mean(v)) for k, v in psnr_by_folder.items()}
+            sums[batch["folder"][0]][0] += psnr
+            sums[batch["folder"][0]][1] += 1
+        folders = defaultdict(lambda: [0.0, 0])
+        for part in mesh.gather_objects(dict(sums)):
+            for k, (total, count) in part.items():
+                folders[k][0] += total
+                folders[k][1] += count
+        folder_means = {k: total / count
+                        for k, (total, count) in sorted(folders.items())}
         psnr_avg = float(np.mean(list(folder_means.values())))
         for k, v in folder_means.items():
             logger.info(f"Folder {k} psnr: {v:.6f}.")
         logger.info(f"# Validation # PSNR: {psnr_avg:.6f}.")
+        if self.tb:
+            self.tb.add_scalar("psnr_avg", psnr_avg, step)
         return psnr_avg
 
     def save_checkpoint(self, epoch: int, step: int | str):
-        ckpt.save_network(self.opt["path"]["models"], "G", step, self.model)
-        if self.is_gan:
-            ckpt.save_network(self.opt["path"]["models"], "D", step,
-                              self.model_d)
-        if isinstance(step, int):
-            ckpt.save_training_state(self.opt["path"]["training_state"], step,
-                                     epoch, self.state.optimizers,
-                                     self.state.schedulers)
-        logger.info("Saved models and training states.")
+        """Rank 0 writes G (and D) and the training state; every rank
+        leaves once the files are complete."""
+        if mesh.is_main_process():
+            ckpt.save_network(self.opt["path"]["models"], "G", step,
+                              self.model)
+            if self.is_gan:
+                ckpt.save_network(self.opt["path"]["models"], "D", step,
+                                  self.model_d)
+            if isinstance(step, int):
+                ckpt.save_training_state(
+                    self.opt["path"]["training_state"], step, epoch,
+                    self.state.optimizers, self.state.schedulers)
+            logger.info("Saved models and training states.")
+        mesh.barrier()
 
     def _profile(self, prof):
         """Start (returns the profiler) or stop (returns None) the trace at
@@ -274,7 +326,7 @@ class Trainer:
                                                        device_batch, self.gen)
 
                     if self.current_step % print_freq == 0:
-                        logs = {k: float(v) for k, v in logs.items()}
+                        logs = _mean_logs(logs, self.device)
                         ips = print_freq / max(time.time() - t_last, 1e-9)
                         t_last = time.time()
                         msg = (f"[epoch:{epoch:3d}, iter:"
@@ -282,10 +334,14 @@ class Trainer:
                         msg += " ".join(f"{k}: {v:.4e}"
                                         for k, v in logs.items())
                         logger.info(msg)
+                        if self.tb:
+                            for k, v in logs.items():
+                                self.tb.add_scalar(k, v, self.current_step)
                     if val_freq and self.current_step % val_freq == 0:
                         self.validate(self.current_step)
                     if self.current_step % save_freq == 0:
                         self.save_checkpoint(epoch, self.current_step)
+                    stop["flag"] = mesh.any_rank(stop["flag"])
                     if stop["flag"]:
                         break
                 if stop["flag"]:
@@ -299,5 +355,31 @@ class Trainer:
             for s, h in prev_handlers.items():
                 signal.signal(s, h)
         self.save_checkpoint(epoch, "latest")
+        if self.tb:
+            self.tb.close()
         logger.info("End of training.")
         return self.state
+
+
+def _mean_logs(logs: dict, device) -> dict:
+    """The logged values as floats, each the mean over the ranks (the
+    global batch's loss, as JAX logs it)."""
+    vals = torch.stack([torch.as_tensor(v, dtype=torch.float32).to(device)
+                        for v in logs.values()])
+    return dict(zip(logs, mesh.all_reduce_mean(vals).tolist()))
+
+
+def _summary_writer(log_dir: str):
+    """A TensorBoard ``SummaryWriter`` from tensorboardX or
+    ``torch.utils.tensorboard``, or None with a warning when neither
+    imports."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            logger.warning("neither tensorboardX nor tensorboard imports; "
+                           "TB logging disabled")
+            return None
+    return SummaryWriter(log_dir=log_dir)

@@ -25,6 +25,11 @@ augmentations' generator on that device.  ``logs`` are 0-d tensors, read
 on the host only when printed.  The losses take the prediction in f32: a
 model that ends in its compute dtype (TDAN in bf16) is cast up exactly, as
 JAX promotes bf16 against the f32 GT.
+
+Under a process group the batch is the rank's rows of the global batch:
+the gradients are averaged over the ranks before the update
+(``parallel/mesh.py::average_gradients``; every loss is a batch mean), so
+every rank takes JAX's global-batch update.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ import torch
 from realvsr_tpu_torch.data.augments import apply_augment
 from realvsr_tpu_torch.losses import get_pixel_criterion, pyramid_loss
 from realvsr_tpu_torch.models.common import updating_batch_stats
+from realvsr_tpu_torch.parallel.mesh import average_gradients
 
 
 def _maybe_augment(opt: dict, gen, gt, lq):
@@ -56,6 +62,7 @@ def _forward_train(model, lq: torch.Tensor) -> torch.Tensor:
 def _update(state, loss: torch.Tensor) -> None:
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    average_gradients(state.model.parameters())
     state.apply_gradients()
 
 

@@ -795,3 +795,107 @@ def test_gan_step_on_card_matches_cpu(cuda):
     _, noisy = step("cpu", dict(batch, LQs=lq * (1 + 2.0 ** -11 * torch.randn(
         lq.shape, generator=_gen(16)))))
     _within_spread(ref, card, noisy)
+
+
+def test_two_rank_split_step_on_card_matches_one_process(cuda, tmp_path):
+    """Two ``gloo`` ranks sharing the card (``tests/torch_parallel_worker.py``)
+    take one Split step of EDVRNoUp (nf 16, 4 groups: the narrow DCN
+    kernels; 1 + 1 ResBlocks; ±8) on their halves of a global batch of 4 at
+    48x48: their parameters are bit-identical, and their averaged gradients
+    equal one process's on the card within 1e-3 of each tensor's largest
+    plus twice that process's own change when the batch is reordered (the
+    same kernels; sums in another order: against one process alone,
+    ``conv_first``'s small gradient came 6e-3 of its largest apart)."""
+    from torch_parallel_worker import launch, wait
+
+    from realvsr_tpu_torch.models import define_g
+    from realvsr_tpu_torch.train.state import create_train_state
+    from realvsr_tpu_torch.train.wrappers import make_train_step
+
+    opt = _recipe_opt("train_EDVR_woTSA_RealVSR_YCbCr_Split.yml")
+    opt["augment"] = None
+    opt["network_G"].update(nf=16, groups=4, front_RBs=1, back_RBs=1)
+    ref = define_g(opt, device="cpu", dcn_max_offset=8, generator=_gen(0))
+    g = _gen(1)
+    with torch.no_grad():
+        for pname, p in ref.named_parameters():
+            if "conv_offset_mask" in pname:
+                p.copy_(torch.randn(p.shape, generator=g) * 0.5)
+    torch.save({"G": ref.state_dict()}, tmp_path / "init.pt")
+    rng = np.random.default_rng(2)
+    batch = {k: rng.random((4, 3, 48, 48, 3)).astype(np.float32)
+             for k in ("LQs", "GT")}
+    np.savez(tmp_path / "batch.npz", **batch)
+    procs = launch(tmp_path, "step", dict(
+        opt=opt, init=str(tmp_path / "init.pt"), max_offset=8,
+        batch=str(tmp_path / "batch.npz"), out=str(tmp_path / "step"),
+        device="cuda"))
+    wait(procs)
+    def one_process(order):
+        model = define_g(opt, device=cuda, dcn_max_offset=8)
+        model.load_state_dict(ref.state_dict())
+        make_train_step(model, opt)(create_train_state(model, opt),
+                                    {k: torch.from_numpy(v[order]).to(cuda)
+                                     for k, v in batch.items()},
+                                    torch.Generator(device=cuda))
+        return {k: p.grad.float().cpu() for k, p in model.named_parameters()}
+
+    one, reordered = one_process([0, 1, 2, 3]), one_process([2, 3, 0, 1])
+    ranks = [torch.load(tmp_path / f"step.{r}.pt") for r in range(2)]
+    for k, v in ranks[0]["params"].items():
+        assert torch.equal(v, ranks[1]["params"][k]), k
+    for k, g in one.items():
+        err = (ranks[0]["grads"][f"G.{k}"] - g).abs().max().item()
+        spread = (reordered[k] - g).abs().max().item()
+        assert err <= (1e-3 * g.abs().max().clamp_min(1e-30).item()
+                       + 2 * spread), k
+
+
+def test_shard_forward_on_card_matches_unsharded(cuda):
+    """``eval/spatial.py::shard_forward`` of EDVRNoUp (nf 16, 1 + 1
+    ResBlocks, offsets randomised, clamped to ±4) in 4 shards on the card,
+    default halo (104 rows), against the unsharded forward: within 1e-3
+    of the output's largest (f32; cuDNN's strided convs may pick other
+    algorithms for the shard windows)."""
+    from realvsr_tpu_torch.eval.spatial import default_halo, shard_forward
+    from realvsr_tpu_torch.models.edvr import EDVRNoUp
+
+    model = EDVRNoUp(nf=16, nc=3, nframes=3, groups=4, front_RBs=1,
+                     back_RBs=1, w_TSA=False, dcn_max_offset=4, device=cuda,
+                     generator=_gen(0)).eval()
+    g = _gen(1)
+    with torch.no_grad():
+        for pname, p in model.named_parameters():
+            if "conv_offset_mask" in pname:
+                p.copy_(torch.randn(p.shape, generator=g).to(cuda) * 0.5)
+    x = torch.rand(1, 3, 416, 64, 3, generator=_gen(2)).to(cuda)
+    halo = default_halo(model)
+    with torch.inference_mode():
+        full = model(x)
+        out = torch.cat([shard_forward(model, x, i, 4, halo)
+                         for i in range(4)], 1)
+    assert out.shape == full.shape
+    assert (out - full).abs().max().item() <= 1e-3 * full.abs().max().item()
+
+
+def test_degradation_on_card_matches_cpu(cuda):
+    """``ops/degradation.py`` and ``ops/resize.py::matlab_imresize`` on the
+    card against the CPU: SRMD (x2, l = 21, noise off) from the same kernel
+    draws and the bicubic at 1/3, within 1e-5 (f32, TF32 off)."""
+    from realvsr_tpu_torch.ops.degradation import (SRMDPreprocessing,
+                                                   pca_fit,
+                                                   random_batch_kernel)
+    from realvsr_tpu_torch.ops.resize import matlab_imresize
+
+    basis = pca_fit(random_batch_kernel(np.random.default_rng(0), 64)
+                    .reshape(64, -1), k=10)
+    srmd = SRMDPreprocessing(2, basis, noise=False)
+    hr = torch.rand(4, 48, 40, 3, generator=_gen(1))
+    cpu = srmd(np.random.default_rng(2), torch.Generator(), hr)
+    card = srmd(np.random.default_rng(2), torch.Generator(device=cuda),
+                hr.to(cuda))
+    for a, b in zip(card, cpu):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)
+    torch.testing.assert_close(matlab_imresize(hr.to(cuda), 1 / 3).cpu(),
+                               matlab_imresize(hr, 1 / 3), atol=1e-5, rtol=0)

@@ -299,15 +299,19 @@ def test_train_loader_batches_are_seeded_and_complete():
 
 
 def test_unported_modes_name_the_roadmap(tmp_path):
-    """What training still lacks raises naming its ROADMAP item: the JAX
-    package's Orbax checkpoint directories (queue 1, item 6).  The GAN and
-    the Combine wrapper's VGG feature loss (item 4), which this test held
-    before, are ported (``test_torch_gan.py``)."""
+    """A JAX Orbax checkpoint directory (ROADMAP queue 1, item 6) raises
+    naming the converter that turns it into a ``.pth``,
+    ``tools/orbax_to_pth.py`` (its round trip: ``test_torch_tools.py``),
+    and the item.  The GAN and the Combine wrapper's VGG feature loss
+    (item 4), which this test held before, are ported
+    (``test_torch_gan.py``)."""
     from realvsr_tpu_torch.train.checkpoint import load_network
 
     orbax = tmp_path / "20000_G"
     orbax.mkdir()
-    with pytest.raises(NotImplementedError, match="ROADMAP, queue 1, item 6"):
+    with pytest.raises(NotImplementedError,
+                       match=r"tools/orbax_to_pth\.py.*ROADMAP, queue 1, "
+                             r"item 6"):
         load_network(str(orbax))
     model = EDVRNoUp(**NET, device="cpu")
     opt = _recipe()
