@@ -2,14 +2,16 @@
 """Drive the PyTorch/CUDA port (``realvsr_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --ab PARENT   # DCN kernels beside a parent tree's
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel from ``realvsr_tpu_torch/csrc`` with nvcc, in
    parallel, print ``-Xptxas -v`` and one line per instantiation with its
-   registers and spills (a spill in ``conv3x3.cu``, ``dcn_fwd.cu`` or
-   ``dcn_bwd.cu`` fails the run);
+   registers and spills (a spill in any source fails the run:
+   ``conv3x3.cu``, ``conv3x3_sync.cu``, ``dcn_fwd.cu``, ``dcn_bwd.cu``,
+   ``dcn_narrow.cu``);
 3. hold each kernel against its plain PyTorch version on the card at the
    paths' shapes, in bf16 and f32, with the tolerances of
    ``realvsr_tpu_torch/ops/kernels/check.py``: the DCN forward at ±4, ±8
@@ -24,7 +26,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    exact, with offsets of a few pixels (taps outside the image) and with
    zero offsets, each gradient on its own; and the conv3x3 autograd (64-out
    with and without an activation, and 64->3) against autograd of its
-   plain version;
+   plain version; at the other widths: both DCN kernels at 128 channels in
+   8 groups (EDVR-L) at its L1 inference shape (7, 256, 448, 128) and a
+   training sample (7, 64, 64, 128), and on the narrow kernels at 32 in 4
+   and 8, 48 in 8 and 64 in 4 (the debug shape's pixels), both forms, ±4,
+   ±8 and exact, bf16 and f32; the block API at 128 channels ±4; EDVR-L's
+   convs (128->128, 256 (128+128)->128, 128->216, 128->256 and upconv1's
+   128->512 on the ``mma.sync`` kernel);
 4. inference, each path through ``evaluate_wo_gt`` on a seeded synthetic
    PNG clip, bf16, seeded random weights with randomised DCN offset convs,
    DCN offsets clamped to ±4 (the JAX package's deployment setting), with
@@ -41,6 +49,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      gives it (7 frames, 5 + 10 ResBlocks) on a 7-frame clip at the
      Vimeo90K LR size 448x256 (output 1792x1024);
    - the block DCN API at the L1 shape (3, 512, 1024, 64), ±4;
+   - EDVR-L, the x4 + TSA recipe's network at nf 128 with 40 back
+     ResBlocks (5 front, 8 groups, 7 frames), on EDVR x4's 7-frame 448x256
+     clip, then at 32x32 card vs CPU;
 5. training: the port's ``Trainer`` on the Split recipe
    (``configs/train/train_EDVR_woTSA_RealVSR_YCbCr_Split.yml`` parsed as
    is; the train set swapped to the ``Synthetic`` mode at the recipe's
@@ -94,6 +105,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      its cutblur, which cannot run at x4) on motion-synthetic data, 6
      steps each in f32 and bf16: steps/s, ms a step, idle share, peak
      memory;
+   - EDVR-L on the x4 recipe's batch the same way, and one Split step at
+     full width and cut depth (1 + 1 ResBlocks, 5 frames, LQ 32x32) card
+     vs CPU;
 8. the GAN and the other generators:
    - ``flow_warp`` (both paddings) and FSTRN's trilinear residual in f32
      on the card against the CPU;
@@ -129,7 +143,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    12-frame 1024x512 clip and on two, beside one window's forward and its
    pyramid and fuse halves; tiled 1080p beside the full frame; the flip
    test; LPIPS, DISTS, NIQE and BRISQUE ms per 1024x512 frame; peak
-   memory of each;
+   memory of each; at the other widths both DCN kernels at 128 channels
+   (the forward at EDVR-L's L1 inference shape, the backward at its L1
+   training shape (224, 64, 64, 128)) and on the narrow kernels, beside
+   their plain versions and bounds, EDVR-L's convs beside cuDNN, and
+   EDVR-L's forward ms, frames/s and peak memory;
 10. multi-process training and the rest of the JAX package (run after
     phase 6's metrics, before phase 9's times); ranks are this script
     started again (``--worker <args.json>``) with torchrun's environment:
@@ -158,7 +176,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
 Prints one JSON line per check and timing, then the card line, the
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
-``--profile`` adds a ``torch.profiler`` breakdown of one window's forward
+``--ab PARENT`` builds the DCN kernels of the tree unpacked at PARENT (the
+parent commit) and times them beside this tree's in turns (parent, this,
+this, parent), then stops.  ``--profile`` adds a ``torch.profiler``
+breakdown of one window's forward
 of each inference model and of the last two steps of each timed training
 run (the flagship's, the families' and the new generators' recipes, the
 GAN's).
@@ -1294,6 +1315,7 @@ def profile(name, model, window):
 DEBUG_CFG = os.path.join("configs", "train",
                          "debug_EDVR_woTSA_Split_synthetic.yml")
 NARROW_SHAPE = (12, 64, 64, 16)  # the debug config's L1 / cascade DCN
+NARROW = (16, 4)                 # its width: channels, groups
 # per training step of the debug config (nf 16, 1 + 1 ResBlocks), from the
 # model's routing: the 64-out conv3x3 is HRconv (16 -> 64); the other widths
 # are the ResBlocks' 4 convs, fea_L2_conv2 / fea_L3_conv2, PCD's 10 offset
@@ -1315,81 +1337,18 @@ def fuse_counts(path):
     return {k: v - PYRAMID.get(k, 0) for k, v in EXPECT[path].items()}
 
 
-def narrow_inputs(dtype, seed):
-    """x, offset (std 2.5 px), mask, weight, bias, cotangent at the debug
-    config's DCN shape, 16 channels in 4 groups, on the card."""
-    import torch
-
-    b, h, w, c = NARROW_SHAPE
-    g = torch.Generator().manual_seed(seed)
-    x = torch.randn(b, h, w, c, generator=g)
-    off = torch.randn(b, h, w, 4 * 18, generator=g) * 2.5
-    mask = torch.rand(b, h, w, 4 * 9, generator=g)
-    wgt = (torch.rand(c, c, 3, 3, generator=g) * 2 - 1) / (9 * c) ** 0.5
-    bias = torch.randn(c, generator=g) * 0.1
-    gout = torch.randn(b, h, w, c, generator=g)
-    return [t.to("cuda", dtype) for t in (x, off, mask, wgt, bias, gout)]
-
-
 def check_narrow():
-    """Both DCN kernels at 16 channels in 4 groups (``csrc/dcn_narrow.cu``),
-    both forms, bf16 and f32, ±4, ±8 and exact, against their plain
-    versions with the tolerances of ``ops/kernels/check.py``.  Returns
+    """Both DCN kernels at 16 channels in 4 groups (``csrc/dcn_narrow.cu``,
+    the debug configs' width), both forms, bf16 and f32, ±4, ±8 and exact,
+    against their plain versions (:func:`hold_dcn_pair`).  Returns
     {(kernel, form, dtype, r): max abs err (largest over the outputs)}."""
     import torch
 
-    from realvsr_tpu_torch.ops.kernels.check import (grad_tolerance,
-                                                     max_abs_err, tolerance)
-    from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_bwd_om,
-                                                   dcn_bwd_om_plain,
-                                                   dcn_bwd_plain, dcn_fwd,
-                                                   dcn_fwd_om,
-                                                   dcn_fwd_om_plain,
-                                                   dcn_fwd_plain)
-
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for r in (4, 8, None):
-            x, off, mask, wgt, bias, gout = narrow_inputs(dtype, 21)
-            om = om_of(off, mask)
-            for form, fwd, fwd_ref, bwd, bwd_ref, names in (
-                    ("separate",
-                     lambda: dcn_fwd(x, off, mask, wgt, bias, 4, "lrelu", r),
-                     lambda: dcn_fwd_plain(x, off, mask, wgt, bias, 4,
-                                           "lrelu", r),
-                     lambda: dcn_bwd(x, off, mask, wgt, gout, 4, r),
-                     lambda: dcn_bwd_plain(x, off, mask, wgt, gout, 4, r),
-                     ("dx", "doffset", "dmask", "dweight")),
-                    ("om",
-                     lambda: dcn_fwd_om(x, om, wgt, bias, 4, "lrelu", r),
-                     lambda: dcn_fwd_om_plain(x, om, wgt, bias, 4, "lrelu",
-                                              r),
-                     lambda: dcn_bwd_om(x, om, wgt, gout, 4, r),
-                     lambda: dcn_bwd_om_plain(x, om, wgt, gout, 4, r),
-                     ("dx", "dom", "dweight"))):
-                out, grads = fwd(), bwd()
-                torch.cuda.synchronize()
-                ref, grefs = fwd_ref(), bwd_ref()
-                row = {"out": dict(max_abs_err=max_abs_err(out, ref),
-                                   tol=tolerance(ref))}
-                ok = (out.shape == ref.shape and torch.isfinite(out).all()
-                      and row["out"]["max_abs_err"] <= row["out"]["tol"])
-                for name, o, rf in zip(names, grads, grefs):
-                    row[name] = dict(max_abs_err=max_abs_err(o, rf),
-                                     tol=grad_tolerance(rf))
-                    ok = ok and (o.shape == rf.shape and o.dtype == rf.dtype
-                                 and torch.isfinite(o).all()
-                                 and row[name]["max_abs_err"]
-                                 <= row[name]["tol"])
-                emit(check="dcn_narrow", form=form, shape=NARROW_SHAPE,
-                     groups=4, dtype=str(dtype)[6:], max_offset=r, **row)
-                if not ok:
-                    raise AssertionError(f"dcn narrow {form} {dtype} r={r}: "
-                                         f"{row}")
-                dname = str(dtype)[6:]
-                errs[("dcn_fwd", form, dname, r)] = row["out"]["max_abs_err"]
-                errs[("dcn_bwd", form, dname, r)] = max(
-                    row[n]["max_abs_err"] for n in names)
+        for (k, form, r), e in hold_dcn_pair("dcn_narrow", NARROW_SHAPE, 4,
+                                             dtype, 21).items():
+            errs[(k, form, str(dtype)[6:], r)] = e
     return errs
 
 
@@ -1414,46 +1373,6 @@ def narrow_training(tmp):
             res["checkpoints"]):
         raise AssertionError(f"checkpoints {res['checkpoints']}")
     return res["launches"], res["launches_per_step"]
-
-
-def time_narrow():
-    """Both narrow DCN kernels at the debug shape, bf16 and f32, ±8 (the
-    training clamp), separate form, beside their plain versions."""
-    import torch
-
-    from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_bwd_plain,
-                                                   dcn_fwd, dcn_fwd_plain)
-
-    r, rows = train_r(), {}
-    for dtype in (torch.bfloat16, torch.float32):
-        dname = str(dtype)[6:]
-        x, off, mask, wgt, bias, gout = narrow_inputs(dtype, 23)
-        out = dcn_fwd(x, off, mask, wgt, bias, 4, None, r)
-        grads = dcn_bwd(x, off, mask, wgt, gout, 4, r)
-        p = x.shape[0] * x.shape[1] * x.shape[2]
-        k = 9 * x.shape[3]
-        # forward: the tap products (2 p k 16, at the tensor cores' rate
-        # for the dtype, the card's best for them, whatever the kernel
-        # runs them on) and the sampling, ~9 f32 ops a sampled element;
-        # backward: dS and dW (2 x 2 p k 16) and ~20 f32 ops a sampled
-        # element with its corners' gradients
-        fwd_bytes = nbytes(x, off, mask, wgt, bias, out)
-        bwd_bytes = nbytes(x, off, mask, wgt, gout, *grads)
-        for name, fn, plain, moved, tc_ops, f32_ops in (
-                ("dcn_fwd", lambda: dcn_fwd(x, off, mask, wgt, bias, 4,
-                                            None, r),
-                 lambda: dcn_fwd_plain(x, off, mask, wgt, bias, 4, None, r),
-                 fwd_bytes, 2 * p * k * 16, 9 * p * k),
-                ("dcn_bwd", lambda: dcn_bwd(x, off, mask, wgt, gout, 4, r),
-                 lambda: dcn_bwd_plain(x, off, mask, wgt, gout, 4, r),
-                 bwd_bytes, 4 * p * k * 16, 20 * p * k)):
-            b_ms, b_by = bound(moved, tc_ops, f32_ops, dname)
-            row = dict(ms=cuda_ms(fn, 50), plain_ms=cuda_ms(plain, 5),
-                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
-            emit(timing=name, case="narrow C16 dg4", shape=NARROW_SHAPE,
-                 dtype=dname, max_offset=r, **row)
-            rows[(name, dname)] = row
-    return rows
 
 
 # --------------------------------------------------------------------------
@@ -1904,6 +1823,390 @@ def check_warp_trilinear():
              max_abs_err=err, tol=tol)
         if not (out.shape == ref.shape and err <= tol):
             raise AssertionError(f"{name}: {err} > {tol}")
+
+
+# --------------------------------------------------------------------------
+# EDVR-L and the DCN at every width: 128 channels in 8 groups on the wgmma
+# pair, every other C <= 64 on the narrow kernels, the convs at nf 128.
+
+# EDVR-L: the x4 + TSA recipe's network at the EDVR release's large width
+# and depth (nf 128, 40 back ResBlocks; EDVR_Vimeo90K_SR_L), 8 groups
+EDVRL_NET = dict(nf=128, back_RBs=40)
+# per window, from the routing at nf 128: every 3x3 conv of the trunk,
+# PCD and TSA has 128 outputs (conv3x3_fused): the 5 front and 40 back
+# ResBlocks' convs (90), fea_L2_conv2 / fea_L3_conv2 (2), PCD's 10 offset
+# convs and L2_fea_conv / L1_fea_conv (12), TSA's 6, the 4 conv_offset_mask
+# (128 -> 216) and upconv1 (128 -> 512, the mma.sync kernel), upconv2 (128
+# -> 256) and conv_last (64 -> 3); HRconv alone is 64 -> 64 (conv3x3)
+EXPECT["edvr_l"] = {"dcn_fwd": 4, "conv3x3": 1,
+                    "conv3x3_fused": 90 + 2 + 12 + 6 + 4 + 3}
+EDVRL_STEP = dict(EXPECT["edvr_l"], dcn_bwd=4, dcn_block=0)
+# (128, 8): EDVR-L's L1 inference shape (7 frames of 256x448) and a
+# training sample (7 frames of LQ 64x64); the L1 / cascade backward of a
+# batch-32 step
+DCN128_SHAPES = [("L infer", (7, VIMEO_H, VIMEO_W, 128)),
+                 ("L train sample", (7, 64, 64, 128))]
+TRAIN_L1_128 = (224, 64, 64, 128)
+NARROW_WIDTHS = [(32, 4), (32, 8), (48, 8), (64, 4)]
+# EDVR-L's conv widths at its window's shapes: (name, shape, c2, cout,
+# act, residual)
+EDVRL_CONVS = [
+    ("L front 128->128 relu", (7, VIMEO_H, VIMEO_W, 128), 0, 128, "relu",
+     False),
+    ("L front 128->128 +res", (7, VIMEO_H, VIMEO_W, 128), 0, 128, None,
+     True),
+    ("L PCD L1 256 (128+128)->128 lrelu", (7, VIMEO_H, VIMEO_W, 128), 128,
+     128, "lrelu", False),
+    ("L 128->216 lrelu", (7, VIMEO_H, VIMEO_W, 128), 0, 216, "lrelu",
+     False),
+    ("L upconv1 128->512 lrelu", (1, VIMEO_H, VIMEO_W, 128), 0, 512,
+     "lrelu", False),
+    ("L upconv2 128->256 lrelu", (1, 2 * VIMEO_H, 2 * VIMEO_W, 128), 0, 256,
+     "lrelu", False),
+]
+EDVRL_CUTS = dict(nf=128, front_RBs=1, back_RBs=1, nframes=5)
+
+
+def width_inputs(shape, dg, dtype, seed, std=2.5):
+    """x, offsets (std ``std`` px: taps outside the image, some beyond
+    ±8), mask, weight, bias and cotangent at C = shape[-1] channels in
+    ``dg`` groups, drawn on the card in f32 and cast."""
+    import torch
+
+    b, h, w, c = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*size):
+        return torch.rand(*size, generator=g, device="cuda")
+
+    def randn(*size):
+        return torch.randn(*size, generator=g, device="cuda")
+
+    out = (randn(b, h, w, c), randn(b, h, w, dg * 18) * std,
+           rand(b, h, w, dg * 9), (rand(c, c, 3, 3) * 2 - 1) / (9 * c) ** 0.5,
+           randn(c) * 0.1, randn(b, h, w, c))
+    return [t.to(dtype) for t in out]
+
+
+def hold_dcn_pair(what, shape, dg, dtype, seed, radii=(4, 8, None)):
+    """Both DCN kernels at (shape, dg), both forms, against their plain
+    versions with check.py's tolerances; returns {(kernel, form, r): max abs
+    err over the outputs}."""
+    import torch
+
+    from realvsr_tpu_torch.ops.kernels.check import (grad_tolerance,
+                                                     max_abs_err, tolerance)
+    from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_bwd_om,
+                                                   dcn_bwd_om_plain,
+                                                   dcn_bwd_plain, dcn_fwd,
+                                                   dcn_fwd_om,
+                                                   dcn_fwd_om_plain,
+                                                   dcn_fwd_plain)
+
+    errs = {}
+    for r in radii:
+        x, off, mask, wgt, bias, gout = width_inputs(shape, dg, dtype, seed)
+        om = om_of(off, mask)
+        for form, fwd, fwd_ref, bwd, bwd_ref, names in (
+                ("separate",
+                 lambda: dcn_fwd(x, off, mask, wgt, bias, dg, "lrelu", r),
+                 lambda: dcn_fwd_plain(x, off, mask, wgt, bias, dg, "lrelu",
+                                       r),
+                 lambda: dcn_bwd(x, off, mask, wgt, gout, dg, r),
+                 lambda: dcn_bwd_plain(x, off, mask, wgt, gout, dg, r),
+                 ("dx", "doffset", "dmask", "dweight")),
+                ("om",
+                 lambda: dcn_fwd_om(x, om, wgt, bias, dg, "lrelu", r),
+                 lambda: dcn_fwd_om_plain(x, om, wgt, bias, dg, "lrelu", r),
+                 lambda: dcn_bwd_om(x, om, wgt, gout, dg, r),
+                 lambda: dcn_bwd_om_plain(x, om, wgt, gout, dg, r),
+                 ("dx", "dom", "dweight"))):
+            out = fwd()
+            torch.cuda.synchronize()
+            ref = fwd_ref()
+            row = {"out": dict(max_abs_err=max_abs_err(out, ref),
+                               tol=tolerance(ref))}
+            ok = (out.shape == ref.shape and bool(torch.isfinite(out).all())
+                  and row["out"]["max_abs_err"] <= row["out"]["tol"])
+            del out, ref
+            grads = bwd()
+            torch.cuda.synchronize()
+            grefs = bwd_ref()
+            for name, o, rf in zip(names, grads, grefs):
+                row[name] = dict(max_abs_err=max_abs_err(o, rf),
+                                 tol=grad_tolerance(rf))
+                ok = ok and (o.shape == rf.shape and o.dtype == rf.dtype
+                             and bool(torch.isfinite(o).all())
+                             and row[name]["max_abs_err"]
+                             <= row[name]["tol"])
+            del grads, grefs
+            emit(check=what, form=form, shape=shape, groups=dg,
+                 dtype=str(dtype)[6:], max_offset=r, **row)
+            if not ok:
+                raise AssertionError(f"{what} {shape} dg {dg} {form} "
+                                     f"{dtype} r={r}: {row}")
+            errs[("dcn_fwd", form, r)] = row["out"]["max_abs_err"]
+            errs[("dcn_bwd", form, r)] = max(row[n]["max_abs_err"]
+                                             for n in names)
+        del x, off, mask, om, gout
+        torch.cuda.empty_cache()
+    return errs
+
+
+def check_widths():
+    """Phase 3 at the new widths: both DCN kernels at (128, 8) at EDVR-L's
+    inference shape and a training sample, and on the narrow kernels at
+    NARROW_WIDTHS (the debug shape's pixels), ±4 / ±8 / exact, both forms,
+    bf16 and f32; the block API at (128, 8) ±4; EDVR-L's conv widths.
+    Returns {key: max abs err}."""
+    import torch
+
+    from realvsr_tpu_torch.ops.deform_conv import modulated_deform_conv_plain
+    from realvsr_tpu_torch.ops.deform_conv_block import (
+        modulated_deform_conv_block)
+    from realvsr_tpu_torch.ops.kernels.check import max_abs_err, tolerance
+    from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_plain
+
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype)[6:]
+        for name, shape in DCN128_SHAPES:
+            for k, e in hold_dcn_pair("dcn_c128", shape, 8, dtype,
+                                      41).items():
+                errs[(*k, name, dname)] = e
+        for c, dg in NARROW_WIDTHS:
+            for k, e in hold_dcn_pair("dcn_narrow", (*NARROW_SHAPE[:3], c),
+                                      dg, dtype, 43).items():
+                errs[(*k, f"C{c} dg{dg}", dname)] = e
+        x, off, mask, wgt, bias, _ = width_inputs(DCN128_SHAPES[0][1], 8,
+                                                  dtype, 45)
+        out = modulated_deform_conv_block(x, off, mask, wgt, bias,
+                                          deformable_groups=8,
+                                          max_offset=R_INFER)
+        torch.cuda.synchronize()
+        ref = modulated_deform_conv_plain(x, off, mask, wgt, bias, 1, 1, 1, 8,
+                                          R_INFER)
+        err, tol = max_abs_err(out, ref), tolerance(ref)
+        emit(check="dcn_block_c128", dtype=dname, shape=DCN128_SHAPES[0][1],
+             max_offset=R_INFER, max_abs_err=err, tol=tol)
+        if not err <= tol:
+            raise AssertionError(f"block API at 128: {err} > {tol}")
+        errs[("dcn_block", "c128", dname)] = err
+        del x, off, mask, out, ref
+        for name, shape, c2, cout, act, residual in EDVRL_CONVS:
+            x, x2, wgt, bs, res = conv_inputs(shape, c2, residual, dtype, 47,
+                                              cout)
+            out = conv3x3(x, wgt, bs, act, res, x2)
+            torch.cuda.synchronize()
+            ref = conv3x3_plain(x, wgt, bs, act, res, x2)
+            err, tol = max_abs_err(out, ref), tolerance(ref)
+            emit(check="conv3x3_fused", case=name, dtype=dname, shape=shape,
+                 c2=c2, cout=cout, max_abs_err=err, tol=tol,
+                 route="mma.sync" if cout > 256 else "wgmma")
+            if not (err <= tol and torch.isfinite(out).all()):
+                raise AssertionError(f"{name} {dtype}: {err} > {tol}")
+            errs[("conv3x3_fused", name, dname)] = err
+            del x, x2, res, out, ref
+        torch.cuda.empty_cache()
+    return errs
+
+
+def edvr_l_opt():
+    """The x4 + TSA recipe's options with EDVR-L's network_G (nf 128, 40
+    back ResBlocks; 8 groups, 5 front ResBlocks, 7 frames as the recipe
+    gives them)."""
+    opt = network_opt(EDVRX4_CFG)
+    opt["network_G"].update(EDVRL_NET)
+    return opt
+
+
+def edvr_l_path(tmp, clip):
+    """EDVR-L (bf16, ±4, seeded weights, offset convs randomised) through
+    ``evaluate_wo_gt`` on EDVR x4's 7-frame 448x256 clip, the launches per
+    window held to EXPECT["edvr_l"]; then the same weights at 32x32 on the
+    card (f32, bf16) against the CPU in f32."""
+    import torch
+
+    from realvsr_tpu_torch.models import define_g
+
+    opt = edvr_l_opt()
+    n, scale = opt["network_G"]["nframes"], opt["scale"]
+
+    def build(dev, dtype=torch.float32):
+        return define_g(opt, device=dev, dtype=dtype,
+                        generator=torch.Generator().manual_seed(50),
+                        dcn_max_offset=R_INFER)
+
+    model = build("cuda", torch.bfloat16)
+    randomise_offset_convs(model, seed=51, std=0.7)
+    hw = (VIMEO_H, VIMEO_W)
+    launches = drive_path("edvr_l", model, clip, n, n,
+                          (hw[0] * scale, hw[1] * scale), tmp)
+    card_vs_cpu("edvr_l", build, model, (1, n, 32, 32, 3))
+    return model, clip, n, hw, launches
+
+
+def edvr_l_training(tmp, profile=False):
+    """EDVR-L through the port's Trainer on the x4 recipe's batch (GT 256²
+    x 32, LQ 64², 7 frames; SyntheticMotion data, no cutblur, which raises
+    at x4), RECIPE_STEPS steps in f32 and in bf16, offsets randomised,
+    launches a step held to EDVRL_STEP; then one Split step at full width
+    and cut depth (EDVRL_CUTS, LQ 32x32) card vs CPU."""
+    import torch
+
+    out = {}
+    torch.backends.cudnn.allow_tf32 = True   # as the recipe runs
+    for dtype in ("float32", "bfloat16"):
+        opt = _train_opt(os.path.join(tmp, "edvr_l"), dtype, EDVRX4_CFG,
+                         mode="SyntheticMotion", steps=RECIPE_STEPS)
+        opt["network_G"].update(EDVRL_NET)
+        opt["augment"] = None
+        warm = warm_motion(opt)
+        res = run_trainer(opt, EDVRL_STEP, offsets_seed=11, profile=profile)
+        summary = res.pop("profile", None)
+        emit(phase="training_recipe", path="edvr_l", config=EDVRX4_CFG,
+             network=EDVRL_NET, dtype=dtype, data="SyntheticMotion",
+             data_setup_s=warm, augment=None,
+             cuts=["SyntheticMotion in place of Vimeo90K (not in the repo)",
+                   "no cutblur (raises at x4)", "no validation",
+                   f"{RECIPE_STEPS} steps"], **res)
+        if summary:
+            print(f"--- torch.profiler, training edvr_l {dtype}\n{summary}")
+        out[dtype] = res
+    torch.backends.cudnn.allow_tf32 = False
+    reduced_train_step(EDVRX4_CFG, EDVRL_CUTS, 32, "SyntheticMotion",
+                       spread=True)
+    return out
+
+
+def time_widths():
+    """Phase 9 at the other widths, bf16 and f32: both DCN kernels at
+    (128, 8) (the forward at EDVR-L's L1 inference shape ±4, the backward
+    at its L1 training shape ±8) and on the narrow kernels at the debug
+    width and NARROW_WIDTHS (the debug shape's pixels, ±8, separate form),
+    each beside its plain version and its bound; EDVR-L's conv widths
+    beside cuDNN.  Returns {key: row}."""
+    import torch
+    import torch.nn.functional as F
+
+    from realvsr_tpu_torch.ops.deform_conv import apply_act
+    from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_plain
+    from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_bwd_om,
+                                                   dcn_bwd_plain, dcn_fwd,
+                                                   dcn_fwd_om, dcn_fwd_plain)
+
+    rows, r8 = {}, train_r()
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype)[6:]
+        # the forward at L1 inference: bytes x, offsets, mask, weight, bias,
+        # out; tensor cores 2 p (9 C) C; f32 cores ~9 a sampled element
+        shape = DCN128_SHAPES[0][1]
+        x, off, mask, wgt, bias, _ = width_inputs(shape, 8, dtype, 53)
+        om = om_of(off, mask)
+        out = dcn_fwd(x, off, mask, wgt, bias, 8, None, R_INFER)
+        p, k = shape[0] * shape[1] * shape[2], 9 * shape[3]
+        b_ms, b_by = bound(nbytes(x, off, mask, wgt, bias, out),
+                           2 * p * k * 128, 9 * p * k, dname)
+        row = dict(
+            ms=cuda_ms(lambda: dcn_fwd(x, off, mask, wgt, bias, 8, None,
+                                       R_INFER), 20),
+            ms_om=cuda_ms(lambda: dcn_fwd_om(x, om, wgt, bias, 8, None,
+                                             R_INFER), 20),
+            plain_ms=cuda_ms(lambda: dcn_fwd_plain(x, off, mask, wgt, bias,
+                                                   8, None, R_INFER), 3,
+                             warmup=1),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        emit(timing="dcn_fwd", case="C128 L1 infer", shape=shape,
+             dtype=dname, max_offset=R_INFER, **row)
+        rows[("dcn_fwd", "c128", dname)] = row
+        del x, off, mask, om, out
+        # the backward at L1 training: the plain version over the batch in
+        # chunks of 56 frames
+        x, off, mask, wgt, _, gout = width_inputs(TRAIN_L1_128, 8, dtype, 55)
+        om = om_of(off, mask)
+        outs = dcn_bwd(x, off, mask, wgt, gout, 8, r8)
+        p = TRAIN_L1_128[0] * TRAIN_L1_128[1] * TRAIN_L1_128[2]
+        b_ms, b_by = bound(nbytes(x, off, mask, wgt, gout, *outs),
+                           4 * p * k * 128, 20 * p * k, dname)
+        del outs
+
+        def plain():
+            for i in range(0, x.shape[0], 56):
+                dcn_bwd_plain(x[i:i + 56], off[i:i + 56], mask[i:i + 56],
+                              wgt, gout[i:i + 56], 8, r8)
+
+        row = dict(
+            ms=cuda_ms(lambda: dcn_bwd(x, off, mask, wgt, gout, 8, r8), 5),
+            ms_om=cuda_ms(lambda: dcn_bwd_om(x, om, wgt, gout, 8, r8), 5),
+            plain_ms=(cuda_ms(plain, 1, warmup=1)
+                      if dtype == torch.bfloat16 else None),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        emit(timing="dcn_bwd", case="C128 L1 train", shape=TRAIN_L1_128,
+             dtype=dname, max_offset=r8, **row)
+        rows[("dcn_bwd", "c128", dname)] = row
+        del x, off, mask, om, gout
+        torch.cuda.empty_cache()
+        # the narrow kernels: forward, the tap products (2 p k C, at the
+        # tensor cores' rate for the dtype, the card's best for them,
+        # whatever the kernel runs them on) and ~9 f32 ops a sampled
+        # element; backward, dS and dW (2 x 2 p k C) and ~20 f32 ops a
+        # sampled element with its corners' gradients
+        for c, dg in [NARROW] + NARROW_WIDTHS:
+            shape = (*NARROW_SHAPE[:3], c)
+            x, off, mask, wgt, bias, gout = width_inputs(shape, dg, dtype, 57)
+            out = dcn_fwd(x, off, mask, wgt, bias, dg, None, r8)
+            grads = dcn_bwd(x, off, mask, wgt, gout, dg, r8)
+            p, k = shape[0] * shape[1] * shape[2], 9 * c
+            for name, fn, pl, moved, tc_ops, f32_ops in (
+                    ("dcn_fwd",
+                     lambda: dcn_fwd(x, off, mask, wgt, bias, dg, None, r8),
+                     lambda: dcn_fwd_plain(x, off, mask, wgt, bias, dg, None,
+                                           r8),
+                     nbytes(x, off, mask, wgt, bias, out), 2 * p * k * c,
+                     9 * p * k),
+                    ("dcn_bwd",
+                     lambda: dcn_bwd(x, off, mask, wgt, gout, dg, r8),
+                     lambda: dcn_bwd_plain(x, off, mask, wgt, gout, dg, r8),
+                     nbytes(x, off, mask, wgt, gout, *grads), 4 * p * k * c,
+                     20 * p * k)):
+                b_ms, b_by = bound(moved, tc_ops, f32_ops, dname)
+                row = dict(ms=cuda_ms(fn, 50), plain_ms=cuda_ms(pl, 3),
+                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                emit(timing=name, case=f"narrow C{c} dg{dg}", shape=shape,
+                     dtype=dname, max_offset=r8, **row)
+                rows[(name, f"C{c} dg{dg}", dname)] = row
+            del x, off, mask, gout, out, grads
+        for name, shape, c2, cout, act, residual in EDVRL_CONVS:
+            x, x2, wgt, bias, res = conv_inputs(shape, c2, residual, dtype,
+                                                59, cout)
+            out = conv3x3(x, wgt, bias, act, res, x2)
+            p = shape[0] * shape[1] * shape[2]
+            b_ms, b_by = bound(nbytes(x, x2, wgt, bias, res, out),
+                               2 * p * 9 * (shape[3] + c2) * cout, 0, dname)
+            xcat = x if x2 is None else torch.cat([x, x2], -1)
+            x_nchw = xcat.permute(0, 3, 1, 2)
+            w_cl = wgt.contiguous(memory_format=torch.channels_last)
+            res_nchw = None if res is None else res.permute(0, 3, 1, 2)
+
+            def library():  # cuDNN conv + separate bias / act / residual
+                y = apply_act(F.conv2d(x_nchw, w_cl, bias, padding=1), act)
+                return y if res_nchw is None else y + res_nchw
+
+            torch.backends.cudnn.allow_tf32 = dtype == torch.float32
+            library_ms = cuda_ms(library, 10)
+            torch.backends.cudnn.allow_tf32 = False
+            row = dict(
+                ms=cuda_ms(lambda: conv3x3(x, wgt, bias, act, res, x2), 10),
+                plain_ms=cuda_ms(
+                    lambda: conv3x3_plain(x, wgt, bias, act, res, x2), 3),
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                route="mma.sync" if cout > 256 else "wgmma")
+            emit(timing="conv3x3_fused", case=name, shape=shape, cout=cout,
+                 dtype=dname, **row)
+            rows[("conv3x3_fused", name, dname)] = row
+            del x, x2, res, out
+        torch.cuda.empty_cache()
+    return rows
 
 
 def peak_gib():
@@ -2695,6 +2998,158 @@ def srmd_check():
         raise AssertionError(f"SRMD card vs CPU: {errs}")
 
 
+def ab_parent(parent: str) -> None:
+    """``--ab PARENT``: the DCN kernels of the tree unpacked at PARENT (the
+    parent commit, whose C entry points take no width) built beside this
+    tree's and timed in turns (parent, this, this, parent) on the same
+    inputs, each with the wrapper's allocations and casts: the 64-wide pair
+    at phase 9's shapes (the forward at L1 ±4 in both forms, the backward
+    at L1 train ±8), and the narrow pair at the debug shape, bf16 and
+    f32."""
+    import ctypes
+
+    import torch
+
+    from realvsr_tpu_torch.ops.kernels import _build
+    from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_fwd,
+                                                   dcn_fwd_om,
+                                                   footprint_radius)
+
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # the parent's signatures (ops/kernels/dcn.py of that tree)
+    sigs = {"dcn_fwd": (P, P, I, P, I, I, P, P, P, P, I, I, I, I, F, I, P),
+            "dcn_bwd": (P, P, I, P, I, I, P, P, P, P, I, P, I, P, I, I, I,
+                        F, I, I, P),
+            "dcn_narrow_fwd": (P, P, I, P, I, I, P, P, P, I, I, I, I, F, I,
+                               P),
+            "dcn_narrow_bwd": (P, P, I, P, I, I, P, P, P, P, I, P, I, P, I,
+                               I, I, F, I, P)}
+    out_dir = _build.BUILD_DIR / "parent"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for src in ("dcn_fwd", "dcn_bwd", "dcn_narrow"):
+        lib = out_dir / f"{src}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+               os.path.join(parent, "realvsr_tpu_torch", "csrc", f"{src}.cu")]
+        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      lib)
+    libs = {}
+    for src, (proc, lib) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"parent {src}: nvcc failed\n{log}")
+        libs[src] = ctypes.PyDLL(str(lib))
+    fns = {}
+    for name, argtypes in sigs.items():
+        for dt, sfx in _build.SUFFIX.items():
+            fn = getattr(libs["dcn_narrow" if "narrow" in name else name],
+                         f"{name}_{sfx}")
+            fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+            fns[(name, dt)] = fn
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def turns(what, parent_fn, change_fn, iters, **info):
+        for ref, got in zip(parent_fn(), change_fn()):
+            if (ref.float() - got.float()).abs().max() > 0.05 * max(
+                    1.0, ref.float().abs().max().item()):
+                raise AssertionError(f"{what}: parent and change differ")
+        ms = [cuda_ms(f, iters) for f in (parent_fn, change_fn, change_fn,
+                                          parent_fn)]
+        emit(ab=what, parent_ms=[ms[0], ms[3]], change_ms=[ms[1], ms[2]],
+             **info)
+
+    r8 = train_r()
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype)[6:]
+        x, off, mask, wgt, bias = dcn_inputs(DCN_CASES[0][1], dtype, 1)
+        om = om_of(off, mask)
+        b, h, w, _ = x.shape
+        packed = torch.empty(64 * 9 * 64, device="cuda", dtype=dtype)
+        for form in ("separate", "om"):
+            def parent_fwd(form=form):
+                out = torch.empty_like(x)
+                src = ((off.data_ptr(), 144, mask.data_ptr(), 72, 0)
+                       if form == "separate" else
+                       (om.data_ptr(), 216,
+                        om.data_ptr() + 144 * om.element_size(), 216, 1))
+                _build.check(fns[("dcn_fwd", dtype)](
+                    x.data_ptr(), *src, wgt.data_ptr(), packed.data_ptr(),
+                    bias.data_ptr(), out.data_ptr(), b, h, w, 0,
+                    float(R_INFER), 1, stream()), "parent dcn_fwd")
+                return (out,)
+
+            def change_fwd(form=form):
+                if form == "separate":
+                    return (dcn_fwd(x, off, mask, wgt, bias, 8, None,
+                                    R_INFER),)
+                return (dcn_fwd_om(x, om, wgt, bias, 8, None, R_INFER),)
+
+            turns("dcn_fwd", parent_fwd, change_fwd, 20, form=form,
+                  case="L1", shape=DCN_CASES[0][1], dtype=dname,
+                  max_offset=R_INFER)
+        del x, off, mask, om
+        x, off, mask, wgt, gout = dcn_bwd_inputs(TRAIN_L1, dtype, 4,
+                                                 on_card=True)
+        b, h, w, _ = x.shape
+
+        def parent_bwd():
+            dx = torch.zeros(b, h, w, 64, device="cuda")
+            dw = torch.zeros(64, 9, 64, device="cuda")
+            doff, dmask = torch.empty_like(off), torch.empty_like(mask)
+            _build.check(fns[("dcn_bwd", dtype)](
+                x.data_ptr(), off.data_ptr(), 144, mask.data_ptr(), 72, 0,
+                wgt.data_ptr(), gout.data_ptr(), dx.data_ptr(),
+                doff.data_ptr(), 144, dmask.data_ptr(), 72, dw.data_ptr(), b,
+                h, w, float(r8), 1, footprint_radius(r8), stream()),
+                "parent dcn_bwd")
+            # the wrapper's casts, as dcn_bwd returns them
+            return (dx.to(dtype), doff, dmask,
+                    dw.view(64, 3, 3, 64).permute(0, 3, 1, 2).to(dtype))
+
+        turns("dcn_bwd", parent_bwd,
+              lambda: dcn_bwd(x, off, mask, wgt, gout, 8, r8), 5,
+              form="separate", case="L1 train", shape=TRAIN_L1, dtype=dname,
+              max_offset=r8)
+        del x, off, mask, gout
+        x, off, mask, wgt, bias, gout = width_inputs(NARROW_SHAPE, 4, dtype,
+                                                     23)
+        b, h, w, c = x.shape
+
+        def parent_narrow_fwd():
+            out = torch.empty_like(x)
+            _build.check(fns[("dcn_narrow_fwd", dtype)](
+                x.data_ptr(), off.data_ptr(), 72, mask.data_ptr(), 36, 0,
+                wgt.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, 0,
+                float(r8), 1, stream()), "parent narrow fwd")
+            return (out,)
+
+        def parent_narrow_bwd():
+            dx = torch.zeros(b, h, w, c, device="cuda")
+            dw = torch.zeros(c, 9, c, device="cuda")
+            doff, dmask = torch.empty_like(off), torch.empty_like(mask)
+            _build.check(fns[("dcn_narrow_bwd", dtype)](
+                x.data_ptr(), off.data_ptr(), 72, mask.data_ptr(), 36, 0,
+                wgt.data_ptr(), gout.data_ptr(), dx.data_ptr(),
+                doff.data_ptr(), 72, dmask.data_ptr(), 36, dw.data_ptr(), b,
+                h, w, float(r8), 1, stream()), "parent narrow bwd")
+            return (dx.to(dtype), doff, dmask,
+                    dw.view(c, 3, 3, c).permute(0, 3, 1, 2).to(dtype))
+
+        turns("dcn_narrow_fwd", parent_narrow_fwd,
+              lambda: (dcn_fwd(x, off, mask, wgt, bias, 4, None, r8),), 50,
+              case="narrow C16 dg4", shape=NARROW_SHAPE, dtype=dname,
+              max_offset=r8)
+        turns("dcn_narrow_bwd", parent_narrow_bwd,
+              lambda: dcn_bwd(x, off, mask, wgt, gout, 4, r8), 20,
+              case="narrow C16 dg4", shape=NARROW_SHAPE, dtype=dname,
+              max_offset=r8)
+        del x, off, mask, gout
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2724,17 +3179,22 @@ def main() -> int:
         for kernel, regs, stores, loads in ptxas_lines(log):
             emit(ptxas=src, kernel=kernel, registers=regs,
                  spill_stores=stores, spill_loads=loads)
-            if src in ("conv3x3", "dcn_fwd", "dcn_bwd", "dcn_narrow") and (
-                    stores or loads):
+            if stores or loads:   # every source: no spill anywhere
                 raise AssertionError(f"{kernel} spills")
 
+    if sys.argv[1:2] == ["--ab"]:
+        ab_parent(sys.argv[2])
+        print(smi())
+        return 0
     profiling = "--profile" in sys.argv[1:]
     errs = check_kernels()
     bwd_errs = check_backward()
     narrow_errs = check_narrow()
     x4_errs = check_backward_x4()
+    width_errs = check_widths()
     with tempfile.TemporaryDirectory() as tmp:
         paths = inference_paths(tmp)
+        paths["edvr_l"] = edvr_l_path(tmp, paths["edvr_x4"][1])
         launches = {p: v[-1] for p, v in paths.items()}
         launches["block_api"] = block_path()
         train = training_slice(tmp, profiling)
@@ -2750,6 +3210,9 @@ def main() -> int:
             launches[f"training_{fam}_smoke"] = res["launches"]
         for (fam, dt), res in family_recipe_training(tmp, profiling).items():
             launches[f"training_{fam}_recipe_{dt}"] = res["launches"]
+        edvr_l_train = edvr_l_training(tmp, profiling)
+        for dt, res in edvr_l_train.items():
+            launches[f"training_edvr_l_recipe_{dt}"] = res["launches"]
         check_warp_trilinear()
         gens = generator_paths(tmp, paths["edvr_noup"][1])
         for gen, (model, count, window) in gens.items():
@@ -2778,7 +3241,7 @@ def main() -> int:
         rows = time_kernels()
         bwd_rows = time_dcn_bwd()
         rows["dcn_bwd"] = bwd_rows["bfloat16"]
-        narrow_rows = time_narrow()
+        width_rows = time_widths()
         time_dcnpack()
         for p, (model, lq_root, n, hw, _) in paths.items():
             window = time_path(p, model, lq_root, n, hw)
@@ -2802,12 +3265,61 @@ def main() -> int:
                    if k == kernel}
         return dict(max_abs_err_c16=narrow_errs[(kernel, "separate",
                                                  "bfloat16", train_r())],
-                    c16=dict(narrow_rows[(kernel, "bfloat16")],
+                    c16=dict(width_rows[(kernel, "C16 dg4", "bfloat16")],
                              shape=NARROW_SHAPE,
                              launches=by_path[kernel]["training_debug_nf16"],
                              launches_per_step=debug_step[kernel],
                              max_abs_err_by_case=by_case))
 
+    def other_widths(kernel):
+        """The narrow kernels' other widths (no model of the repo runs
+        them): bf16 time at the debug shape's pixels beside its bound and
+        plain version, f32's, and each width's largest error over every
+        case (both forms, ±4 / ±8 / exact, bf16 and f32)."""
+        out = {}
+        for c, dg in NARROW_WIDTHS:
+            wname = f"C{c} dg{dg}"
+            out[wname] = dict(
+                width_rows[(kernel, wname, "bfloat16")],
+                f32=width_rows[(kernel, wname, "float32")],
+                shape=(*NARROW_SHAPE[:3], c), launches_on_model_paths=0,
+                max_abs_err=max(e for k, e in width_errs.items()
+                                if k[0] == kernel and len(k) == 5
+                                and k[3] == wname))
+        return dict(narrow_widths=out)
+
+    def c128(kernel, path):
+        """The (128, 8) instantiation's entry: launches on EDVR-L's paths,
+        error at bf16 ±4 (L1 inference) and every case's, times (f32
+        beside)."""
+        errs128 = {f"{form} {shape} {dt} r={r}": e
+                   for k, e in width_errs.items()
+                   if len(k) == 5 and k[0] == kernel
+                   for _, form, r, shape, dt in [k]
+                   if shape in dict(DCN128_SHAPES)}
+        return dict(
+            name=f"{kernel}_c128", route="cuda",
+            source=f"realvsr_tpu_torch/csrc/{kernel}.cu",
+            instantiation="C = 128 in 8 deformable groups (EDVR-L)",
+            replaces=("realvsr_tpu/ops/pallas/dcn_frame_kernel.py:225"
+                      if kernel == "dcn_fwd" else
+                      "realvsr_tpu/ops/pallas/dcn_frame_kernel.py:501"),
+            launches=by_path[kernel][path],
+            launches_by_path={p: v for p, v in by_path[kernel].items()
+                              if "edvr_l" in p},
+            max_abs_err=errs128[f"separate L infer bfloat16 r="
+                                f"{R_INFER if kernel == 'dcn_fwd' else 8}"],
+            max_abs_err_by_case=errs128,
+            f32=width_rows[(kernel, "c128", "float32")],
+            **width_rows[(kernel, "c128", "bfloat16")])
+
+    edvr_l_convs = {name: dict(width_rows[("conv3x3_fused", name,
+                                           "bfloat16")],
+                               f32=width_rows[("conv3x3_fused", name,
+                                               "float32")],
+                               max_abs_err=width_errs[("conv3x3_fused", name,
+                                                       "bfloat16")])
+                    for name, *_ in EDVRL_CONVS}
     kernels = [
         dict(name="dcn_fwd", route="cuda",
              source="realvsr_tpu_torch/csrc/dcn_fwd.cu",
@@ -2815,7 +3327,9 @@ def main() -> int:
              launches=by_path["dcn_fwd"]["training_float32"],
              launches_by_path=by_path["dcn_fwd"],
              max_abs_err=errs[("dcn_fwd", "L1", bf, 4)],
-             **c16("dcn_fwd"), **rows[("dcn_fwd", "L1", "bfloat16")]),
+             **c16("dcn_fwd"), **other_widths("dcn_fwd"),
+             **rows[("dcn_fwd", "L1", "bfloat16")]),
+        c128("dcn_fwd", "edvr_l"),
         dict(name="conv3x3", route="cuda",
              source="realvsr_tpu_torch/csrc/conv3x3.cu",
              replaces="realvsr_tpu/ops/pallas/conv3x3_kernel.py:447",
@@ -2829,6 +3343,7 @@ def main() -> int:
              launches=by_path["conv3x3_fused"]["tdan"],
              launches_by_path=by_path["conv3x3_fused"],
              max_abs_err=errs[("conv3x3_fused", UPCONV2, bf)],
+             edvr_l_cases=edvr_l_convs,
              **rows[("conv3x3_fused", UPCONV2, "bfloat16")]),
         dict(name="dcn_bwd", route="cuda",
              source="realvsr_tpu_torch/csrc/dcn_bwd.cu",
@@ -2841,7 +3356,8 @@ def main() -> int:
                  f"{form} {dt} {w}x{w}": max(v["max_abs_err"]
                                              for v in row.values())
                  for (form, dt, w), row in x4_errs.items()},
-             **rows["dcn_bwd"]),
+             **other_widths("dcn_bwd"), **rows["dcn_bwd"]),
+        c128("dcn_bwd", "training_edvr_l_recipe_float32"),
         dict(name="dcn_block", route="cuda",
              source="realvsr_tpu_torch/csrc/dcn_fwd.cu",
              wrapper="realvsr_tpu_torch/ops/deform_conv_block.py",
@@ -2849,6 +3365,8 @@ def main() -> int:
              launches=by_path["dcn_block"]["block_api"],
              launches_by_path=by_path["dcn_block"],
              max_abs_err=errs[("dcn_block", bf, R_INFER)],
+             max_abs_err_c128={dt: width_errs[("dcn_block", "c128", dt)]
+                               for dt in ("bfloat16", "float32")},
              **rows["dcn_block"]),
     ]
     emit(phase="done", seconds=time.time() - t_start)

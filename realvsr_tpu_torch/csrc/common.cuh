@@ -16,8 +16,6 @@
 
 namespace rvsr {
 
-constexpr int kCout = 64;  // output channels of the DCN kernels
-
 enum Act { kActNone = 0, kActRelu = 1, kActLrelu = 2 };
 
 __device__ __forceinline__ float apply_act(float v, int act) {
@@ -144,7 +142,7 @@ __device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const T* a_lo,
 
 // Stage the (ROWS x C) weight slice of one tap into shared memory
 // [ROWS][ld].  weight is (ROWS or more, 9, C), K-contiguous.
-template <typename T, int ROWS = kCout>
+template <typename T, int ROWS>
 __device__ __forceinline__ void stage_weight_tap(T* sB, const T* weight,
                                                  int tap, int C, int ld) {
   constexpr int V = Traits<T>::kVec;

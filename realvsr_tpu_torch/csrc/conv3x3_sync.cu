@@ -24,7 +24,7 @@ constexpr int kHaloH = kTH + 2, kHaloW = kTW + 2;
 constexpr int kThreads = 256;
 
 template <typename T, int NT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     conv3x3_kernel(const T* __restrict__ x1, int c1, const T* __restrict__ x2,
                    int c2, const T* __restrict__ weight,
                    const T* __restrict__ bias, const T* __restrict__ residual,

@@ -2,9 +2,12 @@
 // dcn_narrow.cu): where a (pixel, deformable group, tap) samples the input,
 // with its four bilinear corners, their weights and validity, the mask, and
 // the gates of the offset gradient.  The gathers below (GroupCorners) are
-// those of dcn_fwd.cu and dcn_bwd.cu: 64 input channels in 8 deformable
-// groups of 8 channels, one corner of one group 16 bytes of bf16 or 32 of
-// f32.  dcn_narrow.cu (16 channels in 4 groups) gathers its own.
+// those of dcn_fwd.cu and dcn_bwd.cu, whose widths are template parameters:
+// C input channels a pixel, of which a thread reads N contiguous ones at a
+// corner, N a whole number of 16-byte vectors (a group of 8 channels at
+// C = 64 in 8 groups: 16 bytes of bf16 or 32 of f32; a group of 16 at C =
+// 128 in 8 groups: 32 or 64 bytes).  dcn_narrow.cu (any C <= 64) gathers
+// its own.
 //
 // Offsets and mask are read through a pixel stride and a channel base, so
 // one code reads either layout the wrappers pass:
@@ -26,10 +29,6 @@
 #include "common.cuh"
 
 namespace rvsr {
-
-constexpr int kDcnC = 64;      // input channels of both kernels
-constexpr int kDcnGroups = 8;  // deformable groups
-constexpr int kDcnCpg = kDcnC / kDcnGroups;
 
 template <typename T>
 struct OffMask {
@@ -113,46 +112,48 @@ __device__ __forceinline__ Corners corners(float dy, float dx, int p, int y,
   return c;
 }
 
-// The group's channels of the four corners, 16 bytes a vector (one for
-// bf16, two for f32), zero where a corner is invalid.  All loads are issued
-// before any is used.
-template <typename T>
+// N channels of the four corners, 16 bytes a vector (N * sizeof(T) / 16 of
+// them), zero where a corner is invalid.  All loads are issued before any
+// is used.
+template <typename T, int N>
 struct GroupCorners {
-  static constexpr int kVecs = kDcnCpg * sizeof(T) / 16;
+  static constexpr int kVecs = N * (int)sizeof(T) / 16;
+  static_assert(kVecs * 16 == N * (int)sizeof(T), "whole 16-byte vectors");
   uint4 v[4][kVecs];
 };
 
-template <typename T>
-__device__ __forceinline__ void gather(GroupCorners<T>& e, const T* x,
-                                       const Corners& c, int g) {
-  constexpr int NV = GroupCorners<T>::kVecs;
+// Channels [ch0, ch0 + N) of each corner of a pixel row of C channels.
+template <typename T, int C, int N>
+__device__ __forceinline__ void gather(GroupCorners<T, N>& e, const T* x,
+                                       const Corners& c, int ch0) {
+  constexpr int NV = GroupCorners<T, N>::kVecs;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const uint4* src = reinterpret_cast<const uint4*>(
-        x + (size_t)c.pix[k] * kDcnC + g * kDcnCpg);
+    const uint4* src =
+        reinterpret_cast<const uint4*>(x + (size_t)c.pix[k] * C + ch0);
 #pragma unroll
     for (int j = 0; j < NV; ++j)
       e.v[k][j] = c.valid[k] ? __ldg(src + j) : make_uint4(0, 0, 0, 0);
   }
 }
 
-// Element i (0..7) of corner k, as f32.
-template <typename T>
-__device__ __forceinline__ float corner_value(const GroupCorners<T>& e,
+// Element i (0 .. N - 1) of corner k, as f32.
+template <typename T, int N>
+__device__ __forceinline__ float corner_value(const GroupCorners<T, N>& e,
                                               int k, int i) {
   constexpr int per = 16 / sizeof(T);
   const T* v = reinterpret_cast<const T*>(&e.v[k][i / per]);
   return Traits<T>::to_f(v[i % per]);
 }
 
-// The bilinear sample of the group's 8 channels (zero-padded corners), in
-// the corner order of the plain op.
-template <typename T>
-__device__ __forceinline__ void blend(float (&val)[kDcnCpg],
-                                      const GroupCorners<T>& e,
+// The bilinear sample of the N channels (zero-padded corners), in the
+// corner order of the plain op.
+template <typename T, int N>
+__device__ __forceinline__ void blend(float (&val)[N],
+                                      const GroupCorners<T, N>& e,
                                       const Corners& c) {
 #pragma unroll
-  for (int i = 0; i < kDcnCpg; ++i) {
+  for (int i = 0; i < N; ++i) {
     float v = corner_value(e, 0, i) * c.cw[0];
     v += corner_value(e, 1, i) * c.cw[1];
     v += corner_value(e, 2, i) * c.cw[2];

@@ -1,5 +1,7 @@
 """Write ``wgmma.cuh``: the Hopper ``wgmma.mma_async`` instructions that
-``conv3x3.cu`` runs, one inline-asm wrapper per (element type, N).
+``conv3x3.cu`` and ``dcn_fwd.cu`` run, one inline-asm wrapper per (element
+type, N), with A from registers (``Wgmma``) and, for :data:`SS_WIDTHS`,
+from shared memory (``WgmmaSS``).
 
 An inline-asm operand list cannot be built by templates, and the N/2 f32
 accumulators of an m64nN product each need their own operand, so the
@@ -16,10 +18,14 @@ from pathlib import Path
 
 # the kernel's output widths (N of m64nN); the wrapper pads cout up to one
 WIDTHS = (8, 16, 32, 64, 128, 216, 256)
-# (C++ type, PTX K of one instruction, PTX type, trailing immediates):
-# A from registers, B K-major from shared memory through a descriptor
-TYPES = (("__nv_bfloat16", 16, "bf16", "p, 1, 1, 0"),
-         ("float", 8, "tf32", "p, 1, 1"))
+# the widths with A read from shared memory too (dcn_fwd.cu at 128 channels)
+SS_WIDTHS = (64,)
+# (C++ type, PTX K of one instruction, PTX type, trailing immediates with A
+# from registers, with A from shared memory): B K-major from shared memory
+# through a descriptor; A from shared memory K-major too (TF32 takes no
+# transpose immediates)
+TYPES = (("__nv_bfloat16", 16, "bf16", "p, 1, 1, 0", "p, 1, 1, 0, 0"),
+         ("float", 8, "tf32", "p, 1, 1", "p, 1, 1"))
 HEADER = Path(__file__).with_name("wgmma.cuh")
 
 
@@ -48,6 +54,29 @@ def _wrapper(ctype: str, k: int, ptx: str, tail: str, n: int) -> str:
     return "\n".join(lines)
 
 
+def _wrapper_ss(ctype: str, k: int, ptx: str, tail: str, n: int) -> str:
+    nacc = n // 2
+    outs = ", ".join(f"%{i}" for i in range(nacc))
+    lines = [
+        f"template <>\nstruct WgmmaSS<{ctype}, {n}> {{",
+        "  __device__ static __forceinline__ void run(float* d, uint64_t "
+        "desc_a,",
+        "                                             uint64_t desc_b, int "
+        "scale_d) {",
+        "    asm volatile(",
+        '        "{\\n.reg .pred p;\\nsetp.ne.b32 p, '
+        f'%{nacc + 2}, 0;\\n"',
+        f'        "wgmma.mma_async.sync.aligned.m64n{n}k{k}.f32.{ptx}.{ptx} "',
+        f'        "{{{outs}}}, "',
+        f'        "%{nacc}, %{nacc + 1}, {tail};\\n}}\\n"',
+        "        : " + ", ".join(f'"+f"(d[{i}])' for i in range(nacc)),
+        '        : "l"(desc_a), "l"(desc_b), "r"(scale_d));',
+        "  }",
+        "};",
+    ]
+    return "\n".join(lines)
+
+
 def render() -> str:
     parts = [
         "// Written by gen_wgmma.py; do not edit.  wgmma.mma_async m64nNkK",
@@ -55,7 +84,8 @@ def render() -> str:
         "// A fragment of each warp's 16 rows), B (K x N) K-major in shared",
         "// memory through the descriptor `desc`, f32 accumulators d[N / 2];",
         "// scale_d = 0 overwrites d, 1 adds to it.  K = 16 for bf16, 8 for",
-        "// TF32 (f32 registers, read as TF32).",
+        "// TF32 (f32 registers, read as TF32).  WgmmaSS: the same with A",
+        "// K-major in shared memory through the descriptor `desc_a`.",
         "#pragma once",
         "",
         "#include <cuda_bf16.h>",
@@ -66,10 +96,16 @@ def render() -> str:
         "template <typename T, int N>",
         "struct Wgmma;",
         "",
+        "template <typename T, int N>",
+        "struct WgmmaSS;",
+        "",
     ]
-    for ctype, k, ptx, tail in TYPES:
+    for ctype, k, ptx, tail, _ in TYPES:
         for n in WIDTHS:
             parts += [_wrapper(ctype, k, ptx, tail, n), ""]
+    for ctype, k, ptx, _, tail in TYPES:
+        for n in SS_WIDTHS:
+            parts += [_wrapper_ss(ctype, k, ptx, tail, n), ""]
     parts += ["}  // namespace rvsr", ""]
     return "\n".join(parts)
 

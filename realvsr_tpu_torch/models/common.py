@@ -383,8 +383,12 @@ class ConvTranspose(nn.Module):
 
 
 def _nchw_pool(pool, x: torch.Tensor) -> torch.Tensor:
-    return pool(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1) \
-        .contiguous()
+    # an NCHW copy, not the channels-last view of x: on CUDA (torch 2.11)
+    # avg_pool2d's backward of a channels-last input with these
+    # overlapping windows is wrong (86% of the gradient's largest), though
+    # its forward is right; tests/test_torch_cuda.py holds both pools
+    return pool(x.permute(0, 3, 1, 2).contiguous(), 3, 2, 1) \
+        .permute(0, 2, 3, 1).contiguous()
 
 
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:

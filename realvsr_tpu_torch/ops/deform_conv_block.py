@@ -45,7 +45,8 @@ def modulated_deform_conv_block(x: torch.Tensor, offset: torch.Tensor,
 
     x: (B, H, W, C); offset: (B, H, W, dg*9*2) laid out (dg, tap, (dy,
     dx)); mask: (B, H, W, dg*9) after the sigmoid, or None for ones; weight
-    (cout, C, 3, 3) (OIHW; the kernel takes cout = 64); bias (cout,) or
+    (cout, C, 3, 3) (OIHW; the kernels take cout = C at the widths of
+    ``ops/kernels/dcn.py::route``); bias (cout,) or
     None.  Forward only.
     """
     if tuple(weight.shape[2:]) != (3, 3) or padding != 1:

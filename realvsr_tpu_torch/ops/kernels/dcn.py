@@ -1,28 +1,34 @@
 """Kernels 1 and 2: DCNv2 forward and backward on Hopper
-(``csrc/dcn_fwd.cu``, ``csrc/dcn_bwd.cu``, and ``csrc/dcn_narrow.cu`` at
-16 channels; sampling in ``csrc/dcn_sample.cuh``).
+(``csrc/dcn_fwd.cu``, ``csrc/dcn_bwd.cu`` at 64 and 128 channels in 8
+groups, and ``csrc/dcn_narrow.cu`` at every other width up to 64; sampling
+in ``csrc/dcn_sample.cuh``).
 
 The forward replaces ``realvsr_tpu/ops/pallas/dcn_frame_kernel.py::
 dcn_frame_fused`` (input prep ``realvsr_tpu/ops/deform_conv_block.py::
 _frame_prep``), the backward ``dcn_frame_kernel.py::dcn_frame_fused_bwd``
-with its XLA epilogues ``_fold_dpg`` / ``_fold_dcoord``.  Both are bound on
-the H100 by memory: the forward moves ~1.1 GB (x, offsets, mask, out) for
-116 GFLOP at the L1 shape (3, 512, 1024, 64); the backward ~1.25 KB per
-pixel (x, offsets, mask, g read; dx and the offset and mask gradients
-written) for 4 * 576 * 64 flop.  The forward keeps its weight resident and
-overlaps the gathers of tap t + 1 with wgmma on tap t; the backward takes
-one deformable group per block, sums dx in a shared-memory footprint and
-folds dW into the same pass; see the sources.  Positions are exact f32:
-the TPU kernels' int16 fixed-point positions and lane panels are not
-carried over.  Both take 64 input channels in 8 deformable groups.
+with its XLA epilogues ``_fold_dpg`` / ``_fold_dcoord``.  At 64 channels
+both are bound on the H100 by memory: the forward moves ~1.1 GB (x,
+offsets, mask, out) for 116 GFLOP at the L1 shape (3, 512, 1024, 64); the
+backward ~1.25 KB per pixel for 4 * 576 * 64 flop; at 128 the tap products
+weigh as much as the bytes.  The forward overlaps the gathers of tap t + 1
+with wgmma on tap t (the weight resident at 64 channels, streamed tap by
+tap at 128); the backward takes one deformable group per block, sums dx in
+a shared-memory footprint and folds dW into the same pass; see the sources.
+Positions are exact f32: the TPU kernels' int16 fixed-point positions and
+lane panels are not carried over.
 
-At the width of the repo's debug configs, 16 input channels in 4
-deformable groups (16 outputs), both run ``csrc/dcn_narrow.cu`` instead: a
-simple kernel each way (one pixel a thread, the tap products on the f32
-cores, dx and dW summed with f32 atomics), as the 64-wide layouts (128-byte
-weight chunks, 8-channel dx footprints) do not fit 4 channels a group.  The
-wrappers pick the instantiation from the tensors' widths (:data:`WIDTHS`)
-and raise on any other; nothing falls back to the plain version.
+The wrappers pick the kernel from the tensors' widths (input channels C =
+output channels, ``dg`` deformable groups; :func:`route`):
+
+* (64, 8) and (128, 8): the wgmma pair ``dcn_fwd.cu`` / ``dcn_bwd.cu``;
+* any other C <= 64 with dg dividing C (16 in 4, the repo's debug configs;
+  32 in 4 or 8, 48 in 8, 64 in 4, ...): ``dcn_narrow.cu``, a simple kernel
+  each way (one pixel a thread, the tap products on the f32 cores, dx and
+  dW summed with f32 atomics), as the wgmma layouts (128-byte weight
+  chunks, 8- or 16-channel dx footprints) do not fit;
+* anything else (C above 64 but 128 in 8 groups: 256, or 128 in 4) raises a
+  ValueError naming ``ROADMAP.md``, queue 2; nothing falls back to the
+  plain version.
 
 Two forms of the offsets and mask, one kernel each way:
 
@@ -57,51 +63,82 @@ from realvsr_tpu_torch.ops.kernels import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # x, off, off_stride, msk, msk_stride, logits, weight, packed, bias, out,
-# B, H, W, act, max_off, clamp, stream
+# B, H, W, C, act, max_off, clamp, stream
 _FWD_FUNCS = tuple(
     (f"dcn_fwd_{s}", (_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I,
-                      _I, _F, _I, _P))
+                      _I, _I, _F, _I, _P))
     for s in _build.SUFFIX.values())
-# x, off, off_stride, msk, msk_stride, logits, weight, gout, dx, doff,
-# doff_stride, dmsk, dmsk_stride, dw, B, H, W, max_off, clamp, rf, stream
+# x, off, off_stride, msk, msk_stride, logits, weight, wt, gout, dx, doff,
+# doff_stride, dmsk, dmsk_stride, dw, B, H, W, C, max_off, clamp, rf, stream
 _BWD_FUNCS = tuple(
-    (f"dcn_bwd_{s}", (_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I,
-                      _P, _I, _I, _I, _F, _I, _I, _P))
+    (f"dcn_bwd_{s}", (_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P,
+                      _I, _P, _I, _I, _I, _I, _F, _I, _I, _P))
     for s in _build.SUFFIX.values())
 # x, off, off_stride, msk, msk_stride, logits, weight, bias, out, B, H, W,
-# act, max_off, clamp, stream; then the backward's, as dcn_bwd's without rf
+# C, G, act, max_off, clamp, stream; then the backward's, as dcn_bwd's
+# without wt and rf and with G after C
 _NARROW_FUNCS = tuple(
     (f"dcn_narrow_fwd_{s}", (_P, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I,
-                             _I, _F, _I, _P))
+                             _I, _I, _I, _F, _I, _P))
     for s in _build.SUFFIX.values()) + tuple(
     (f"dcn_narrow_bwd_{s}", (_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P,
-                             _I, _P, _I, _I, _I, _F, _I, _P))
+                             _I, _P, _I, _I, _I, _I, _I, _F, _I, _P))
     for s in _build.SUFFIX.values())
-C, GROUPS, COUT = 64, 8, 64   # dcn_fwd.cu / dcn_bwd.cu: channels, groups, outputs
-NARROW = (16, 4)              # dcn_narrow.cu: 16 channels (and outputs), 4 groups
-# the (input channels, deformable groups) the kernels take; outputs = inputs
-WIDTHS = ((C, GROUPS), NARROW)
+C, GROUPS, COUT = 64, 8, 64   # the flagship's width: channels, groups, outputs
+WGMMA_WIDTHS = ((64, 8), (128, 8))  # dcn_fwd.cu / dcn_bwd.cu
+NARROW_MAX = 64               # dcn_narrow.cu: kCMax, the widest C it takes
+NARROW = (16, 4)              # the debug configs' width, on dcn_narrow.cu
 NARROW_RUN = 256              # dcn_narrow.cu: kThreads, pixels of a block / run
-NARROW_BLOCKS_PER_SM = 4      # dcn_narrow.cu: kBwdBlocksPerSm
-_SMEM_MAX, _LINE = 232448, 128
-# tile rows of both kernels (dcn_fwd.cu, dcn_bwd.cu: kTileRows), of 16
-# pixels (forward) or 32 (backward); each runs one block per SM, of 32
-# threads a row
+NARROW_BLOCKS_PER_SM = 4      # dcn_narrow.cu: kBwdBlocksPerSm, at most
+NARROW_CO = 16                # dcn_narrow.cu: kCo, a forward thread's sums
+_SMEM_MAX, _SMEM_SM, _LINE = 232448, 228 * 1024, 128
+# tile rows of both wgmma kernels at C = 64 (dcn_fwd.cu: Shape::TH,
+# dcn_bwd.cu: Layout::TH), of 16 pixels (forward) or 32 (backward); each
+# runs one block per SM, of 32 threads a row (:func:`tile_rows` at 128)
 TILE_ROWS = {torch.bfloat16: 16, torch.float32: 8}
 BWD_TW = 32                   # dcn_bwd.cu: kTW
 RF_MAX = 8                    # dcn_bwd.cu: kRfMax
-_FP_STRIDE = 9                # dcn_bwd.cu: kFpStride
+
+
+def route(c: int, dg: int) -> str:
+    """The kernel pair that takes C channels (in and out) in ``dg``
+    deformable groups: "wgmma" (:data:`WGMMA_WIDTHS`), "narrow" (any other
+    C <= :data:`NARROW_MAX` with dg dividing C); raises a ValueError on
+    anything else."""
+    if (c, dg) in WGMMA_WIDTHS:
+        return "wgmma"
+    if 1 <= c <= NARROW_MAX and dg >= 1 and c % dg == 0:
+        return "narrow"
+    raise ValueError(
+        f"no DCN kernel for C = {c} in {dg} deformable groups: the kernels "
+        f"take C = 64 or 128 in 8 groups, or C <= {NARROW_MAX} in any "
+        "number of groups dividing C (more widths: ROADMAP.md, queue 2)")
+
+
+def tile_rows(dtype: torch.dtype, c: int = C, bwd: bool = False) -> int:
+    """Tile rows of the wgmma pair at C channels (64 or 128): of the
+    forward (``dcn_fwd.cu``: Shape::TH), or of the backward (``dcn_bwd.cu``:
+    Layout::TH, 4 in both types at 128)."""
+    if c == 128:
+        return 4 if bwd else TILE_ROWS[dtype] // 2
+    return TILE_ROWS[dtype]
+
+
+def _es(dtype):
+    return torch.tensor([], dtype=dtype).element_size()
 
 
 def fwd_smem_bytes(dtype: torch.dtype, c: int = C, dg: int = GROUPS) -> int:
-    """Shared memory of a forward block (``dcn_fwd.cu::smem_bytes``): the
-    resident packed weight and two A stages of a tile's pixels; at
-    :data:`NARROW` (``dcn_narrow.cu``) the f32 weight and bias."""
-    if (c, dg) == NARROW:
-        return (9 * c * c + c) * 4
-    es = torch.tensor([], dtype=dtype).element_size()
-    chunks = C * es // _LINE
-    return chunks * (9 * COUT + 2 * TILE_ROWS[dtype] * 16) * _LINE
+    """Shared memory of a forward block: ``dcn_fwd.cu::Shape::kSmem`` (the
+    packed weight, resident at 64 channels and a ring of two taps at 128,
+    and two A stages of a tile's pixels); on ``dcn_narrow.cu`` the f32
+    weight, outputs padded to :data:`NARROW_CO`, and bias."""
+    if route(c, dg) == "narrow":
+        cp = -(-c // NARROW_CO) * NARROW_CO
+        return (9 * c * cp + cp) * 4
+    chunks = c * _es(dtype) // _LINE
+    weight = (9 if c == 64 else 2) * chunks * c * _LINE
+    return weight + 2 * chunks * tile_rows(dtype, c) * 16 * _LINE
 
 
 def footprint_radius(max_offset: float | None) -> int:
@@ -124,33 +161,45 @@ def footprint(tile_y0: int, tile_x0: int, rf: int, th: int):
 
 def bwd_smem_bytes(dtype: torch.dtype, rf: int, c: int = C,
                    dg: int = GROUPS) -> int:
-    """Shared memory of a backward block (``dcn_bwd.cu::smem_bytes``); at
-    :data:`NARROW` (``dcn_narrow.cu``, no footprint) the f32 weight and a
-    run's g and S, rows padded by one."""
-    if (c, dg) == NARROW:
-        return (9 * c * c + 2 * NARROW_RUN * (c + 1)) * 4
-    es = torch.tensor([], dtype=dtype).element_size()
-    pad = 16 // es
-    th = TILE_ROWS[dtype]
+    """Shared memory of a backward block (``dcn_bwd.cu::smem_bytes``: the
+    group's weight, resident at 64 channels and a ring of two taps at 128,
+    the g tile, dS, two S buffers, the block reduction and the dx footprint
+    of C / 8 + 1 ints a pixel); on ``dcn_narrow.cu`` (no footprint) one
+    tap's f32 weight and a run's g and S, rows padded by one."""
+    if route(c, dg) == "narrow":
+        return (c * c + 2 * NARROW_RUN * (c + 1)) * 4
+    es = _es(dtype)
+    pad, cpg = 16 // es, c // GROUPS
+    th = tile_rows(dtype, c, bwd=True)
     px = th * BWD_TW
-    fixed = (9 * 8 * (C + pad) * es + px * (C + pad) * es + px * 8 * 4
-             + 2 * 8 * (px + pad) * es + px // 8)
+    threads = px * cpg // 8
+    fixed = ((9 if c == 64 else 2) * cpg * (c + pad) * es
+             + px * (c + pad) * es + px * cpg * 4
+             + 2 * cpg * (px + pad) * es + threads // 32 * 4)
     _, _, fh, fw = footprint(0, 0, rf, th)
-    return fixed + fh * fw * _FP_STRIDE * 4
+    return fixed + fh * fw * (cpg + 1) * 4
+
+
+def narrow_blocks_per_sm(c: int) -> int:
+    """Backward blocks an SM of ``dcn_narrow.cu`` at C channels
+    (``bwd_launch``'s per_sm): at most :data:`NARROW_BLOCKS_PER_SM`, as
+    shared memory allows."""
+    smem = (c * c + 2 * NARROW_RUN * (c + 1)) * 4
+    return min(NARROW_BLOCKS_PER_SM, _SMEM_SM // (smem + 1024))
 
 
 def bwd_grid(b: int, h: int, w: int, sms: int, dtype: torch.dtype,
              c: int = C, dg: int = GROUPS):
     """The backward's walk: for each block of its grid, (group, tiles); a
-    tile is ``(b * tiles_y + ty) * tiles_x + tx`` (``dcn_bwd.cu``).  At
-    :data:`NARROW` (``dcn_narrow.cu``) a block takes every group (group
-    None) and its tiles are runs of :data:`NARROW_RUN` consecutive pixels,
-    run r the pixels ``[r * NARROW_RUN, (r + 1) * NARROW_RUN)``."""
-    if (c, dg) == NARROW:
+    tile is ``(b * tiles_y + ty) * tiles_x + tx`` (``dcn_bwd.cu``).  On
+    ``dcn_narrow.cu`` a block takes every group (group None) and its tiles
+    are runs of :data:`NARROW_RUN` consecutive pixels, run r the pixels
+    ``[r * NARROW_RUN, (r + 1) * NARROW_RUN)``."""
+    if route(c, dg) == "narrow":
         runs = -(-b * h * w // NARROW_RUN)
-        blocks = min(runs, NARROW_BLOCKS_PER_SM * sms)
+        blocks = min(runs, narrow_blocks_per_sm(c) * sms)
         return [(None, list(range(i, runs, blocks))) for i in range(blocks)]
-    th = TILE_ROWS[dtype]
+    th = tile_rows(dtype, c, bwd=True)
     ntiles = b * -(-h // th) * -(-w // BWD_TW)
     slots = min(ntiles, sms // GROUPS)
     return [(i % GROUPS, list(range(i // GROUPS, ntiles, slots)))
@@ -162,7 +211,7 @@ def _clamp_args(max_offset):
 
 
 def _check_x(name, x, dg):
-    """Validate the input both kernels read; returns (b, h, w, c)."""
+    """Validate the input both kernels read; returns (b, h, w, c, route)."""
     if not x.is_cuda:
         raise ValueError(f"{name}: no kernel for device {x.device}")
     if x.dtype not in _build.SUFFIX:
@@ -170,15 +219,14 @@ def _check_x(name, x, dg):
     if x.dim() != 4:
         raise ValueError(f"{name}: x must be (B, H, W, C)")
     b, h, w, c = x.shape
-    if (c, dg) not in WIDTHS:
-        raise ValueError(
-            f"{name}: the kernels take C = {C} in {GROUPS} deformable groups "
-            f"or C = {NARROW[0]} in {NARROW[1]}, got C = {c}, dg = {dg} "
-            "(more widths: ROADMAP.md, queue 2)")
+    try:
+        kernel = route(c, dg)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
     if b * h * w >= 2 ** 31:
         raise ValueError(f"{name}: {b * h * w} pixels exceed 32-bit indices")
     _build.check_tensor(x, "x", (b, h, w, c), x.dtype, x.device)
-    return b, h, w, c
+    return b, h, w, c, kernel
 
 
 def _sources(x, offset, mask, om, dg):
@@ -198,29 +246,29 @@ def _sources(x, offset, mask, om, dg):
 def _launch_fwd(x, offset, mask, om, weight, bias, dg, act, max_offset):
     if act not in _build.ACTS:
         raise ValueError(f"dcn_fwd: unknown activation {act!r}")
-    b, h, w, c = _check_x("dcn_fwd", x, dg)
+    b, h, w, c, kernel = _check_x("dcn_fwd", x, dg)
     src = _sources(x, offset, mask, om, dg)
     dt, dev = x.dtype, x.device
-    # the narrow kernels' shared memory is static: nvcc holds it
-    if (c, dg) != NARROW and fwd_smem_bytes(dt, c, dg) > _SMEM_MAX:
+    if fwd_smem_bytes(dt, c, dg) > _SMEM_MAX:
         raise ValueError("dcn_fwd: shared memory exceeded")
     _build.check_tensor(weight, "weight", (c, c, 3, 3), dt, dev)
     if bias is not None:
         _build.check_tensor(bias, "bias", (c,), dt, dev)
     out = torch.empty(b, h, w, c, device=dev, dtype=dt)
     sfx = _build.SUFFIX[dt]
-    if (c, dg) == NARROW:
+    if kernel == "narrow":
         fn = getattr(_build.load("dcn_narrow", _NARROW_FUNCS),
                      f"dcn_narrow_fwd_{sfx}")
-        weights = (weight.data_ptr(),)
+        weights, widths = (weight.data_ptr(),), (c, dg)
     else:
-        packed = torch.empty(C * 9 * COUT, device=dev, dtype=dt)
+        packed = torch.empty(c * 9 * c, device=dev, dtype=dt)
         fn = getattr(_build.load("dcn_fwd", _FWD_FUNCS), f"dcn_fwd_{sfx}")
-        weights = (weight.data_ptr(), packed.data_ptr())
+        weights, widths = (weight.data_ptr(), packed.data_ptr()), (c,)
     with torch.cuda.device(dev):
         code = fn(x.data_ptr(), *src, *weights,
                   None if bias is None else bias.data_ptr(), out.data_ptr(),
-                  b, h, w, _build.ACTS[act], *_clamp_args(max_offset),
+                  b, h, w, *widths, _build.ACTS[act],
+                  *_clamp_args(max_offset),
                   torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "dcn_fwd")
     return out
@@ -250,9 +298,10 @@ def dcn_fwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     x: (B, H, W, C) contiguous NHWC; offset: (B, H, W, dg*9*2) laid out
     (dg, tap, (dy, dx)); mask: (B, H, W, dg*9) after the sigmoid; weight
     (C, C, 3, 3); bias (C,) or None; act None / "relu" / "lrelu";
-    max_offset None (exact) or R (offsets clamped to [-R, R]); (C, dg) one
-    of :data:`WIDTHS`: (64, 8) or (16, 4).  All of one dtype, bf16 or f32
-    (at C = 64 f32 runs the tensor cores in TF32; at 16 the f32 cores).
+    max_offset None (exact) or R (offsets clamped to [-R, R]); (C, dg) as
+    :func:`route` takes them: (64, 8), (128, 8), or C <= 64 in any dg
+    dividing C.  All of one dtype, bf16 or f32 (on the wgmma pair f32 runs
+    the tensor cores in TF32; on the narrow kernels the f32 cores).
     """
     if x.device.type == "cpu":
         return dcn_fwd_plain(x, offset, mask, weight, bias, deformable_groups,
@@ -323,11 +372,11 @@ def dcn_bwd_om_plain(x, om, weight, g, deformable_groups=8,
 
 
 def _launch_bwd(x, offset, mask, om, weight, g, dg, max_offset):
-    b, h, w, c = _check_x("dcn_bwd", x, dg)
+    b, h, w, c, kernel = _check_x("dcn_bwd", x, dg)
     src = _sources(x, offset, mask, om, dg)
     dt, dev = x.dtype, x.device
     rf = footprint_radius(max_offset)
-    if (c, dg) != NARROW and bwd_smem_bytes(dt, rf, c, dg) > _SMEM_MAX:
+    if bwd_smem_bytes(dt, rf, c, dg) > _SMEM_MAX:
         raise ValueError("dcn_bwd: shared memory exceeded")
     _build.check_tensor(weight, "weight", (c, c, 3, 3), dt, dev)
     _build.check_tensor(g, "g", (b, h, w, c), dt, dev)
@@ -341,16 +390,18 @@ def _launch_bwd(x, offset, mask, om, weight, g, dg, max_offset):
         dsts = (dom.data_ptr(), dg * 27,
                 dom.data_ptr() + dg * 18 * dom.element_size(), dg * 27)
     sfx = _build.SUFFIX[dt]
-    if (c, dg) == NARROW:
+    if kernel == "narrow":
         fn = getattr(_build.load("dcn_narrow", _NARROW_FUNCS),
                      f"dcn_narrow_bwd_{sfx}")
-        radius = ()
-    else:
+        weights, widths, radius = (weight.data_ptr(),), (c, dg), ()
+    else:   # at 128 channels the kernel lays the weight out in wt first
+        wt = torch.empty(c * 9 * c, device=dev, dtype=dt) if c == 128 else None
         fn = getattr(_build.load("dcn_bwd", _BWD_FUNCS), f"dcn_bwd_{sfx}")
-        radius = (rf,)
+        weights = (weight.data_ptr(), None if wt is None else wt.data_ptr())
+        widths, radius = (c,), (rf,)
     with torch.cuda.device(dev):
-        code = fn(x.data_ptr(), *src, weight.data_ptr(), g.data_ptr(),
-                  dx.data_ptr(), *dsts, dw.data_ptr(), b, h, w,
+        code = fn(x.data_ptr(), *src, *weights, g.data_ptr(),
+                  dx.data_ptr(), *dsts, dw.data_ptr(), b, h, w, *widths,
                   *_clamp_args(max_offset), *radius,
                   torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "dcn_bwd")

@@ -156,8 +156,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         dcn_bwd_om(x, torch.zeros(1, 8, 32, 432, device=cuda)[..., :216], w,
                    torch.zeros(1, 8, 32, 64, device=cuda))
     with pytest.raises(ValueError, match="deformable groups"):
-        dcn_fwd_om(x, torch.zeros(1, 8, 32, 108, device=cuda), w,
-                   deformable_groups=4)
+        dcn_fwd_om(x, torch.zeros(1, 8, 32, 135, device=cuda), w,
+                   deformable_groups=5)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -193,6 +193,37 @@ def test_conv3x3_any_width_matches_plain(cuda, dtype, shape, c2, cout, act,
     assert (conv3x3.launches, conv3x3_fused.launches) == (n[0], n[1] + 1)
     ref = conv3x3_plain(x, wgt, bs, act, res, x2)
     assert out.shape == ref.shape == (b, h, w, cout)
+    assert max_abs_err(out, ref) <= tolerance(ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c1,c2,cout,act,residual", [
+    (128, 0, 128, "relu", False),     # a ResBlock's conv1
+    (128, 0, 128, None, True),        # its conv2, + the residual
+    (128, 128, 128, "lrelu", False),  # PCD's concat(nbr, ref) offset convs
+    (128, 0, 216, "lrelu", False),    # conv_offset_mask, 8 groups
+    (128, 0, 256, "lrelu", False),    # upconv2
+    (128, 0, 512, "lrelu", False),    # upconv1: the mma.sync kernel
+], ids=["128-128relu", "128-128res", "256-128lrelu", "128-216", "128-256",
+        "128-512sync"])
+def test_conv3x3_edvr_l_widths_match_plain(cuda, dtype, c1, c2, cout, act,
+                                           residual):
+    """EDVR-L's (nf 128) conv widths on a ragged shape; cout 512 routes to
+    the mma.sync kernel."""
+    g = _gen(11)
+    shape = (2, 21, 37)
+    x = torch.randn(*shape, c1, generator=g).to(cuda, dtype)
+    x2 = torch.randn(*shape, c2, generator=g).to(cuda, dtype) if c2 else None
+    w = ((torch.rand(cout, c1 + c2, 3, 3, generator=g) * 2 - 1)
+         / (9 * (c1 + c2)) ** 0.5).to(cuda, dtype)
+    b = (torch.randn(cout, generator=g) * 0.1).to(cuda, dtype)
+    res = (torch.randn(*shape, cout, generator=g).to(cuda, dtype)
+           if residual else None)
+    n = conv3x3_fused.launches
+    out = conv3x3(x, w, b, act, res, x2)
+    ref = conv3x3_plain(x, w, b, act, res, x2)
+    torch.cuda.synchronize()
+    assert conv3x3_fused.launches == n + 1
     assert max_abs_err(out, ref) <= tolerance(ref)
 
 
@@ -569,29 +600,141 @@ def test_dcn_narrow_kernels_match_plain(cuda, dtype, shape, act, max_offset,
 
 
 def test_dcn_rejects_other_widths_without_fallback(cuda):
-    """C = 32 in 8 groups (and 64 in 4) has no kernel: a ValueError naming
-    the ROADMAP, no launch, no plain fallback."""
-    x, off, mask, _, _, g = _narrow_inputs((1, 8, 16, 16), torch.float32,
-                                           cuda)
+    """C = 256 in 8 groups, 128 in 4, 96 in 8 (above 64, not 128 in 8) and
+    48 in 5 (groups not dividing C) have no kernel: a ValueError naming the
+    ROADMAP, no launch, no plain fallback."""
     n = (dcn_fwd.launches, dcn_bwd.launches)
-    x32 = torch.randn(1, 8, 16, 32, device=cuda)
-    w32 = torch.randn(32, 32, 3, 3, device=cuda)
-    off8 = torch.zeros(1, 8, 16, 8 * 18, device=cuda)
-    mask8 = torch.zeros(1, 8, 16, 8 * 9, device=cuda)
-    with pytest.raises(ValueError, match="ROADMAP.md, queue 2"):
-        dcn_fwd(x32, off8, mask8, w32, None, 8)
-    with pytest.raises(ValueError, match="ROADMAP.md, queue 2"):
-        dcn_fwd_om(x32, _om(off8, mask8 + 0.5), w32, None, 8)
-    with pytest.raises(ValueError, match="ROADMAP.md, queue 2"):
-        dcn_bwd(x32, off8, mask8, w32, torch.zeros_like(x32), 8)
-    with pytest.raises(ValueError, match="ROADMAP.md, queue 2"):
-        dcn_bwd_om(x32, _om(off8, mask8 + 0.5), w32, torch.zeros_like(x32),
-                   8)
-    x64 = torch.randn(1, 8, 16, 64, device=cuda)
-    with pytest.raises(ValueError, match="ROADMAP.md, queue 2"):
-        dcn_fwd(x64, off, mask, torch.randn(64, 64, 3, 3, device=cuda),
-                None, 4)
+    for c, dg in ((256, 8), (128, 4), (96, 8), (48, 5)):
+        x = torch.randn(1, 8, 16, c, device=cuda)
+        w = torch.randn(c, c, 3, 3, device=cuda)
+        off = torch.zeros(1, 8, 16, dg * 18, device=cuda)
+        mask = torch.zeros(1, 8, 16, dg * 9, device=cuda)
+        with pytest.raises(ValueError, match="ROADMAP.md, queue 2"):
+            dcn_fwd(x, off, mask, w, None, dg)
+        with pytest.raises(ValueError, match="ROADMAP.md, queue 2"):
+            dcn_fwd_om(x, _om(off, mask + 0.5), w, None, dg)
+        with pytest.raises(ValueError, match="ROADMAP.md, queue 2"):
+            dcn_bwd(x, off, mask, w, torch.zeros_like(x), dg)
+        with pytest.raises(ValueError, match="ROADMAP.md, queue 2"):
+            dcn_bwd_om(x, _om(off, mask + 0.5), w, torch.zeros_like(x), dg)
+        with pytest.raises(ValueError, match="ROADMAP.md, queue 2"):
+            modulated_deform_conv_block(x, off, mask, w, None,
+                                        deformable_groups=dg, max_offset=4)
     assert (dcn_fwd.launches, dcn_bwd.launches) == n
+
+
+def _width_inputs(shape, dg, dtype, dev, seed=0, std=2.5):
+    """x, offsets (std ``std`` px), mask, weight, bias and cotangent at any
+    width: C = shape[-1] channels in and out, ``dg`` groups."""
+    b, h, w, c = shape
+    g = _gen(seed)
+    x = torch.randn(b, h, w, c, generator=g)
+    off = torch.randn(b, h, w, dg * 18, generator=g) * std
+    mask = torch.rand(b, h, w, dg * 9, generator=g)
+    wgt = (torch.rand(c, c, 3, 3, generator=g) * 2 - 1) / (9 * c) ** 0.5
+    bias = torch.randn(c, generator=g) * 0.1
+    gout = torch.randn(b, h, w, c, generator=g)
+    return [t.to(dev, dtype) for t in (x, off, mask, wgt, bias, gout)]
+
+
+# the widths beside (64, 8) and (16, 4): EDVR-L's 128 in 8 groups on the
+# wgmma pair, and the narrow kernels' other cases (whole 8- and 4-channel
+# groups, 6 channels a group: 2-element loads, 16 a group at 64)
+OTHER_WIDTHS = [(128, 8), (32, 4), (32, 8), (48, 8), (64, 4)]
+
+
+@pytest.mark.parametrize("om", [False, True], ids=["separate", "om"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("max_offset", [4, 8, None], ids=["r4", "r8",
+                                                          "exact"])
+@pytest.mark.parametrize("c,dg", OTHER_WIDTHS,
+                         ids=[f"C{c}_dg{g}" for c, g in OTHER_WIDTHS])
+def test_dcn_other_widths_match_plain(cuda, c, dg, max_offset, dtype, om):
+    """The forward and backward at the other widths, both forms, on a
+    ragged shape of several tiles, one launch each."""
+    x, off, mask, wgt, bias, g = _width_inputs((2, 21, 45, c), dg, dtype,
+                                               cuda, seed=c + dg)
+    n = (dcn_fwd.launches, dcn_bwd.launches)
+    if om:
+        t = _om(off, mask)
+        out = dcn_fwd_om(x, t, wgt, bias, dg, act="lrelu",
+                         max_offset=max_offset)
+        ref = dcn_fwd_om_plain(x, t, wgt, bias, dg, "lrelu", max_offset)
+        grads = dcn_bwd_om(x, t, wgt, g, dg, max_offset)
+        grefs = dcn_bwd_om_plain(x, t, wgt, g, dg, max_offset)
+        doff = grads[1][..., :dg * 18]
+    else:
+        out = dcn_fwd(x, off, mask, wgt, bias, dg, act="lrelu",
+                      max_offset=max_offset)
+        ref = dcn_fwd_plain(x, off, mask, wgt, bias, dg, "lrelu", max_offset)
+        grads = dcn_bwd(x, off, mask, wgt, g, dg, max_offset)
+        grefs = dcn_bwd_plain(x, off, mask, wgt, g, dg, max_offset)
+        doff = grads[1]
+    torch.cuda.synchronize()
+    assert (dcn_fwd.launches - n[0], dcn_bwd.launches - n[1]) == (1, 1)
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert max_abs_err(out, ref) <= tolerance(ref)
+    for o, r in zip(grads, grefs):
+        assert o.shape == r.shape and o.dtype == r.dtype
+        assert max_abs_err(o, r) <= grad_tolerance(r)
+    if max_offset is not None:
+        assert not doff[off.abs() > max_offset].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("max_offset,std", [(None, 12.0), (12, 12.0),
+                                            (8, 0.0)],
+                         ids=["exact_far", "r12_far", "on_grid"])
+def test_dcn_bwd_128_footprint_edges(cuda, dtype, max_offset, std):
+    """The 128-channel backward with corners outside the dx footprint (no
+    clamp, and a clamp wider than its radius of 8: the global path) and
+    with every position on the grid (one-sided differences)."""
+    x, off, mask, wgt, _, g = _width_inputs((1, 40, 72, 128), 8, dtype, cuda,
+                                            seed=9, std=std)
+    out = dcn_bwd(x, off, mask, wgt, g, 8, max_offset)
+    ref = dcn_bwd_plain(x, off, mask, wgt, g, 8, max_offset)
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        assert max_abs_err(o, r) <= grad_tolerance(r)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_block_api_at_128_channels_matches_plain(cuda, dtype):
+    """Kernel 5's API at EDVR-L's width, ±4, through kernel 1."""
+    x, off, mask, wgt, bias, _ = _width_inputs((2, 33, 40, 128), 8, dtype,
+                                               cuda, seed=3)
+    n = (modulated_deform_conv_block.launches, dcn_fwd.launches)
+    out = modulated_deform_conv_block(x, off, mask, wgt, bias,
+                                      deformable_groups=8, max_offset=4)
+    ref = modulated_deform_conv_plain(x, off, mask, wgt, bias, 1, 1, 1, 8, 4)
+    torch.cuda.synchronize()
+    assert (modulated_deform_conv_block.launches - n[0],
+            dcn_fwd.launches - n[1]) == (1, 0)
+    assert max_abs_err(out, ref) <= tolerance(ref)
+
+
+def test_tsa_pools_backward_on_card_matches_cpu(cuda):
+    """TSA's 3x3 / stride-2 max and average pools on NHWC tensors, forward
+    and input gradient, card against CPU in f32 (on CUDA, avg_pool2d's
+    backward of a channels-last view with these overlapping windows is
+    wrong in torch 2.11: the helpers pool an NCHW copy)."""
+    from realvsr_tpu_torch.models.common import (avg_pool_3x3_s2,
+                                                 max_pool_3x3_s2)
+
+    g = _gen(30)
+    x = torch.randn(2, 16, 16, 128, generator=g)
+    cot = torch.randn(2, 8, 8, 128, generator=g)
+    for pool in (max_pool_3x3_s2, avg_pool_3x3_s2):
+        outs = []
+        for dev in ("cpu", cuda):
+            leaf = x.to(dev).clone().requires_grad_()
+            y = pool(leaf)
+            (y * cot.to(dev)).sum().backward()
+            outs.append((y.detach().cpu(), leaf.grad.cpu()))
+        (y0, d0), (y1, d1) = outs
+        assert torch.equal(y1, y0)
+        torch.testing.assert_close(d1, d0, rtol=0,
+                                   atol=1e-6 * d0.abs().max().item())
 
 
 def test_streaming_matches_sliding_window_on_card(cuda):

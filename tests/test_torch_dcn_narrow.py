@@ -1,5 +1,6 @@
-"""The DCN kernels' narrow instantiation (16 channels in 4 deformable groups,
-the width of the repo's debug configs; ``csrc/dcn_narrow.cu``), on the CPU.
+"""The DCN kernels' narrow design (``csrc/dcn_narrow.cu``) at 16 channels in
+4 deformable groups, the width of the repo's debug configs, on the CPU (its
+other widths: ``test_torch_dcn_widths.py``).
 
 The kernels run only on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``); here, from numpy seeds in f32, at ±4, ±8 and exact:
@@ -13,7 +14,8 @@ The kernels run only on the card (``tests/test_torch_cuda.py``,
   (corner weight), against the plain versions;
 * (c) the backward's walk (``bwd_grid``): every run of 256 pixels taken by
   one block, each pixel in one run; and the shared memory of both kernels,
-  with the constants these read from ``dcn_narrow.cu``'s source.
+  with the constants and expressions these read from ``dcn_narrow.cu``'s
+  source.
 
 Tolerances: 1e-5 x the largest magnitude of each result (f32 sums in other
 orders), as the port's other DCN parity tests.
@@ -204,19 +206,23 @@ def test_narrow_bwd_walk_takes_each_run_once(shape):
                                             (t + 1) * dcn.NARROW_RUN)
                                   for t in runs])
         assert (np.sort(covered[covered < pixels]) == np.arange(pixels)).all()
-        # static shared memory (48 KB at most), and 4 blocks an SM fit
+        # at this width: 48 KB of shared memory at most, and 4 blocks an
+        # SM fit
         assert dcn.fwd_smem_bytes(dtype, C, DG) <= 48 * 1024
         smem = dcn.bwd_smem_bytes(dtype, 8, C, DG)
         assert smem <= 48 * 1024
         assert dcn.NARROW_BLOCKS_PER_SM * (smem + 1024) <= 228 * 1024
+        assert dcn.narrow_blocks_per_sm(C) == dcn.NARROW_BLOCKS_PER_SM
     # the 64-wide walk is unchanged by the extra arguments' defaults
     assert dcn.bwd_grid(b, h, w, 132, torch.bfloat16) == dcn.bwd_grid(
         b, h, w, 132, torch.bfloat16, dcn.C, dcn.GROUPS)
 
 
 def test_narrow_constants_are_the_kernel_source():
-    """``dcn.py``'s copies of ``dcn_narrow.cu``'s widths, run length and
-    blocks an SM, and the static shared arrays its smem counts model."""
+    """``dcn.py``'s copies of ``dcn_narrow.cu``'s run length, blocks an SM,
+    a forward thread's sums and widest C, and the shared memory of both
+    kernels (``fwd_smem`` / ``bwd_smem``, dynamic since the kernels take
+    any C <= 64), evaluated from the source's expressions."""
     import re
 
     from realvsr_tpu_torch.ops.kernels import _build
@@ -224,14 +230,28 @@ def test_narrow_constants_are_the_kernel_source():
     src = (_build.CSRC / "dcn_narrow.cu").read_text()
     const = {k: int(v) for k, v in
              re.findall(r"constexpr int (k\w+) = (\d+);", src)}
-    assert (const["kC"], const["kG"]) == dcn.NARROW
     assert const["kThreads"] == dcn.NARROW_RUN
     assert const["kBwdBlocksPerSm"] == dcn.NARROW_BLOCKS_PER_SM
-    shared = re.findall(r"__shared__ float \w+\[([^\]]+)\];", src)
-    assert shared == ["9 * kC * kC", "kC", "9 * kC * kC", "kThreads * kLd",
-                      "kThreads * kLd"]
+    assert const["kCo"] == dcn.NARROW_CO
+    assert const["kCMax"] == dcn.NARROW_MAX
+    assert "__shared__ float" not in src.replace("extern __shared__ float",
+                                                 "")
+    fwd = re.search(r"inline int fwd_smem\(int C\) \{(.*?)\n\}", src,
+                    re.S).group(1)
+    bwd = re.search(r"inline int bwd_smem\(int C\) \{ return (.*?); \}",
+                    src).group(1)
+    for c, dg in ((16, 4), (32, 4), (32, 8), (48, 8), (64, 4), (20, 5)):
+        env = dict(const, C=c)
+        cp = eval(re.search(r"const int cp = (.*?);", fwd).group(1)
+                  .replace("/", "//"), {}, env)
+        env["cp"] = cp
+        got_fwd = eval(re.search(r"return (.*?);", fwd).group(1), {}, env)
+        got_bwd = eval(bwd, {}, env)
+        for dtype in (torch.bfloat16, torch.float32):
+            assert dcn.fwd_smem_bytes(dtype, c, dg) == got_fwd
+            assert dcn.bwd_smem_bytes(dtype, 8, c, dg) == got_bwd
     k_c, run, ld = dcn.NARROW[0], dcn.NARROW_RUN, dcn.NARROW[0] + 1
     for dtype in (torch.bfloat16, torch.float32):
         assert dcn.fwd_smem_bytes(dtype, C, DG) == (9 * k_c * k_c + k_c) * 4
         assert dcn.bwd_smem_bytes(dtype, 8, C, DG) == (
-            9 * k_c * k_c + 2 * run * ld) * 4
+            k_c * k_c + 2 * run * ld) * 4

@@ -54,6 +54,10 @@ FAMILIES = {  # name: (network_G, scale, LQ side)
     "edvr_x4_tsa": (dict(which_model_G="EDVR", nf=16, nc=3, nframes=5,
                          groups=4, front_RBs=1, back_RBs=1, center=None,
                          predeblur=False, HR_in=False, w_TSA=True), 4, 16),
+    # EDVR-L's width (nf 128, 8 groups) at cut depth: test_torch_edvr_l.py
+    "edvr_l": (dict(which_model_G="EDVR", nf=128, nc=3, nframes=5,
+                    groups=8, front_RBs=1, back_RBs=1, center=None,
+                    predeblur=False, HR_in=False, w_TSA=True), 4, 16),
 }
 
 
@@ -171,7 +175,7 @@ def _close_params(named, ref, atol):
 OFFSET_GRAD_REL = 5e-4
 
 
-def hold_split_step(family, impl):
+def hold_split_step(family, impl, alt=None):
     """One Split step: the loss to 1e-4 relative, each gradient to 1e-4 of
     its tensor's largest magnitude (the DCN offset chains' to
     :data:`OFFSET_GRAD_REL`), each parameter after Adam to LR * (1e-4
@@ -186,7 +190,12 @@ def hold_split_step(family, impl):
     largest is 4e-6 of the model's) can then take another route.  Each
     gradient's bound there adds how far the JAX package's own exact step
     lies from its block step on that tensor (2.4e-3 of ``sAtt_1``'s
-    largest; at most 2e-4 elsewhere)."""
+    largest; at most 2e-4 elsewhere).
+
+    ``alt``, the JAX step's (losses, grads, params after) through another
+    exact DCN implementation (the tap loop beside the columns), adds to
+    each gradient's bound how far the JAX package's own rounding moves it
+    (``test_torch_edvr_l.py``)."""
     name, jmodel, params, batch, (losses, grads, after) = family
     opt = _opt(name)
     spread = {k: torch.zeros(()) for k in grads}
@@ -198,6 +207,9 @@ def hold_split_step(family, impl):
         finally:
             jdc.set_default_impl(*prev)
         spread = {k: (g - exact[k]).abs().max() for k, g in grads.items()}
+    if alt is not None:
+        spread = {k: spread[k] + (g - alt[1][k]).abs().max()
+                  for k, g in grads.items()}
     model, state = _port(opt, params, R if impl == "block" else None)
     loss = _port_step(model, state, opt, batch)
     assert loss == pytest.approx(losses[0], rel=1e-4)
