@@ -174,6 +174,39 @@ Phases, each of which raises (and so exits non-zero) on failure:
        and ``SRMDPreprocessing`` (x4, l = 21, noise off) of a 32 x 192²
        batch, the card against the CPU.
 
+11. the DCN kernels over the TPU kernel's whole domain and the paths that
+    had only CPU parity (the checks after phase 3's, the general path after
+    the block API, the recipes after phase 8's, the test CLI after phase
+    6's metrics, the times after phase 9's widths):
+    a. ``csrc/dcn_narrow.cu`` forward and backward at 64 -> 32 and 32 ->
+       64 in 8 groups with and without a mask, 96 in 4 groups, 256 in 8
+       and DCNv1 64 -> 64 in 8 (the general path's pixels, both forms
+       where there is a mask, ±4 and exact, bf16 and f32) against their
+       plain versions, and ``DeformConvModule`` (DCNv1) at 3x3 / p1 (the
+       kernels) and p0 (the plain op, against the CPU);
+    b. the general DCN surface as a user calls it (DCNPacks at 64 -> 32
+       and 256 -> 256, a DCNPack at kernel size 5, DeformConvModule at p1
+       and p0) forward and backward on the card, launches held exactly,
+       the kernel modules' outputs and gradients held against the plain
+       op on the same inputs;
+       the times of 128 -> 64, 256 -> 256 and DCNv1 64 -> 64 beside their
+       plain versions and bounds;
+    c. the Combine wrapper (``train_EDVR_woTSA_RealVSR_YCbCr_Combine.yml``)
+       and the bare ``VideoSR_AllPair`` step (``train_EDVR_woTSA_Vimeo90K
+       .yml`` on SyntheticMotion): one step at 64x64 card vs CPU, then the
+       recipe's 192² x 32 batch through the Trainer, f32 and bf16,
+       RECIPE_STEPS steps;
+    d. ``train_TOF-GAN_RealVSR_YCbCr_Split.yml``: one GAN step at 64x64
+       card vs CPU (gradients and running statistics of G's SpyNet BN and
+       D's), then its batch through the Trainer, f32 and bf16, GAN_STEPS
+       steps;
+    e. ``tools/test_wi_gt.py`` (``evaluate_wi_gt``'s CLI) with
+       ``test_EDVR_woTSA_RealVSR_wi_GT.yml`` (a 5-frame 1024x512 clip) and
+       ``test_synthetic_motion_wi_GT.yml`` (4 x 20 frames at 256x256 from
+       ``dump_synthetic_testset``), seeded weights, bf16, ±4, launches per
+       window held; then a 3-frame 64x128 clip card vs CPU in f32, the
+       PSNR / SSIM within WI_GT_TOL.
+
 Prints one JSON line per check and timing, then the card line, the
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 ``--ab PARENT`` builds the DCN kernels of the tree unpacked at PARENT (the
@@ -936,8 +969,10 @@ def training_slice(tmp, profile=False):
 
 def reduced_train_step(recipe=RECIPE, cuts=None, side=64, mode="Synthetic",
                        ft_tsa_only=0, spread=False):
-    """One Split step of ``recipe``'s network (depth cut by ``cuts``) on a
-    batch of 2 with LQ ``side`` x ``side`` from the ``mode`` train set, f32:
+    """One step of ``recipe``'s network (depth cut by ``cuts``) through its
+    wrapper (``make_train_step``'s dispatch on the recipe's ``model``:
+    Split, Combine or the bare AllPair) on a batch of 2 with LQ ``side`` x
+    ``side`` from the ``mode`` train set, f32:
     the card against the CPU from the same weights (offset convs
     randomised) and batch.  The card runs the kernels in TF32 (the narrow
     DCN in f32) through the model and back: loss to 1e-3 relative, each
@@ -959,7 +994,7 @@ def reduced_train_step(recipe=RECIPE, cuts=None, side=64, mode="Synthetic",
                                                   SyntheticVSRDataset)
     from realvsr_tpu_torch.models import define_g
     from realvsr_tpu_torch.train.state import create_train_state
-    from realvsr_tpu_torch.train.wrappers import make_split_train_step
+    from realvsr_tpu_torch.train.wrappers import make_train_step
 
     opt = network_opt(recipe)
     opt.pop("augment")
@@ -986,10 +1021,10 @@ def reduced_train_step(recipe=RECIPE, cuts=None, side=64, mode="Synthetic",
         model.load_state_dict(cpu.state_dict())
         state = create_train_state(model, opt)
         zero_counts()
-        _, logs = make_split_train_step(model, opt)(
+        _, logs = make_train_step(model, opt)(
             state, {k: v.to(dev) for k, v in batch.items()},
             torch.Generator(device=dev))
-        losses[dev] = logs["l_pix"].item()
+        losses[dev] = logs.get("l_tot", logs["l_pix"]).item()
         grads[dev] = {k: p.grad.float().cpu()
                       for k, p in model.named_parameters()}
         after[dev] = {k: p.detach().float().cpu()
@@ -1003,8 +1038,8 @@ def reduced_train_step(recipe=RECIPE, cuts=None, side=64, mode="Synthetic",
             lq.shape, generator=g)))
         model = define_g(opt, device="cpu", dcn_max_offset=r)
         model.load_state_dict(cpu.state_dict())
-        make_split_train_step(model, opt)(create_train_state(model, opt),
-                                          noisy, torch.Generator())
+        make_train_step(model, opt)(create_train_state(model, opt), noisy,
+                                    torch.Generator())
         cpu_spread = {k: (p.grad - grads["cpu"][k]).abs().max().item()
                  for k, p in model.named_parameters()}
     loss_rel = abs(losses["cuda"] / losses["cpu"] - 1)
@@ -1713,25 +1748,27 @@ def generator_recipe_training(tmp, profile=False):
     return out
 
 
-def reduced_gan_step(side=64):
-    """One GAN-Split step of the GAN recipe's G (EDVR_NoUp at full width and
-    depth) and D (nf 64) on a Synthetic batch of 2 at side x side, f32,
-    augmentation off: the card against the CPU from the same weights (G's
-    offset convs randomised).  The losses (l_g_total, l_d_real, l_d_fake)
-    to 1e-3 relative; each gradient of G and D and each of D's running
-    statistics after the step to 5e-2 of its largest magnitude (a BN-fed
-    bias's gradient to 5e-2 of its model's largest, ``bn_fed``) plus the
-    CPU's own change in it under 2^-11 input noise (as the families'
-    steps).  Returns the card step's launches."""
+def reduced_gan_step(side=64, cfg=GAN_CFG, mode="Synthetic"):
+    """One GAN-Split step of ``cfg``'s G (the GAN recipe's EDVR_NoUp, or
+    the TOF-GAN recipe's TOF with SpyNet's BatchNorms, at full width and
+    depth) and D (nf 64) on a batch of 2 at side x side from the ``mode``
+    train set, f32, augmentation off: the card against the CPU from the
+    same weights (G's offset convs randomised).  The losses (l_g_total,
+    l_d_real, l_d_fake) to 1e-3 relative; each gradient of G and D and
+    each running statistic of either after the step to 5e-2 of its largest
+    magnitude (a BN-fed bias's gradient to 5e-2 of its model's largest,
+    ``bn_fed``) plus the CPU's own change in it under 2^-11 input noise (as
+    the families' steps).  Returns the card step's launches."""
     import numpy as np
     import torch
 
-    from realvsr_tpu_torch.data.synthetic import SyntheticVSRDataset
+    from realvsr_tpu_torch.data.synthetic import (SyntheticMotionVSRDataset,
+                                                  SyntheticVSRDataset)
     from realvsr_tpu_torch.models import define_d, define_g
     from realvsr_tpu_torch.train.gan import (create_gan_train_state,
                                              make_gan_split_train_step)
 
-    opt = network_opt(GAN_CFG)
+    opt = network_opt(cfg)
     opt["augment"] = None
     r = train_r()
     ref_g = define_g(opt, device="cpu", dcn_max_offset=r,
@@ -1739,7 +1776,11 @@ def reduced_gan_step(side=64):
     randomise_offset_convs(ref_g, seed=13, std=0.5)
     ref_d = define_d(opt, device="cpu",
                      generator=torch.Generator().manual_seed(14))
-    ds = SyntheticVSRDataset(dict(N_frames=3, GT_size=side))
+    ds = (SyntheticMotionVSRDataset(dict(N_frames=3, GT_size=side, scale=1,
+                                         frame_h=side + 32,
+                                         frame_w=side + 32))
+          if mode == "SyntheticMotion"
+          else SyntheticVSRDataset(dict(N_frames=3, GT_size=side)))
     items = [ds.get(i, np.random.default_rng(i)) for i in (3, 17)]
     batch = {k: torch.from_numpy(np.stack([it[k] for it in items]))
              for k in ("LQs", "GT")}
@@ -1755,8 +1796,8 @@ def reduced_gan_step(side=64):
             torch.Generator(device=dev))
         vals = {f"G.{k}": p.grad for k, p in g.named_parameters()}
         vals.update({f"D.{k}": p.grad for k, p in d.named_parameters()})
-        vals.update({f"D.{k}": t for k, t in d.named_buffers()
-                     if "running" in k})
+        vals.update({f"{n}.{k}": t for n, m in (("G", g), ("D", d))
+                     for k, t in m.named_buffers() if "running" in k})
         return ({k: logs[k].item() for k in ("l_g_total", "l_d_real",
                                              "l_d_fake")},
                 {k: v.float().cpu() for k, v in vals.items()})
@@ -1781,7 +1822,7 @@ def reduced_gan_step(side=64):
         err = (card[k] - v).abs().max().item()
         errs.append((err / (5e-2 * top + spread), err / top, k))
     errs.sort()
-    emit(phase="reduced_gan_step_card_vs_cpu", config=GAN_CFG,
+    emit(phase="reduced_gan_step_card_vs_cpu", config=cfg, data=mode,
          shape=list(batch["LQs"].shape), losses_cpu=cpu_logs,
          losses_card=card_logs, loss_rel_err=loss_rel, loss_tol=1e-3,
          worst_rel_err=max(e[1] for e in errs),
@@ -1867,13 +1908,15 @@ EDVRL_CONVS = [
 EDVRL_CUTS = dict(nf=128, front_RBs=1, back_RBs=1, nframes=5)
 
 
-def width_inputs(shape, dg, dtype, seed, std=2.5):
+def width_inputs(shape, dg, dtype, seed, std=2.5, cout=None):
     """x, offsets (std ``std`` px: taps outside the image, some beyond
-    ±8), mask, weight, bias and cotangent at C = shape[-1] channels in
-    ``dg`` groups, drawn on the card in f32 and cast."""
+    ±8), mask, weight, bias and cotangent at C = shape[-1] channels in,
+    ``cout`` (None: C) out, in ``dg`` groups, drawn on the card in f32 and
+    cast."""
     import torch
 
     b, h, w, c = shape
+    cout = c if cout is None else cout
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rand(*size):
@@ -1883,13 +1926,16 @@ def width_inputs(shape, dg, dtype, seed, std=2.5):
         return torch.randn(*size, generator=g, device="cuda")
 
     out = (randn(b, h, w, c), randn(b, h, w, dg * 18) * std,
-           rand(b, h, w, dg * 9), (rand(c, c, 3, 3) * 2 - 1) / (9 * c) ** 0.5,
-           randn(c) * 0.1, randn(b, h, w, c))
+           rand(b, h, w, dg * 9),
+           (rand(cout, c, 3, 3) * 2 - 1) / (9 * c) ** 0.5,
+           randn(cout) * 0.1, randn(b, h, w, cout))
     return [t.to(dtype) for t in out]
 
 
-def hold_dcn_pair(what, shape, dg, dtype, seed, radii=(4, 8, None)):
-    """Both DCN kernels at (shape, dg), both forms, against their plain
+def hold_dcn_pair(what, shape, dg, dtype, seed, radii=(4, 8, None),
+                  cout=None, has_mask=True):
+    """Both DCN kernels at (shape, dg) and ``cout`` outputs (None: C), both
+    forms (the in-place ``om`` only with a mask), against their plain
     versions with check.py's tolerances; returns {(kernel, form, r): max abs
     err over the outputs}."""
     import torch
@@ -1905,22 +1951,26 @@ def hold_dcn_pair(what, shape, dg, dtype, seed, radii=(4, 8, None)):
 
     errs = {}
     for r in radii:
-        x, off, mask, wgt, bias, gout = width_inputs(shape, dg, dtype, seed)
+        x, off, mask, wgt, bias, gout = width_inputs(shape, dg, dtype, seed,
+                                                     cout=cout)
         om = om_of(off, mask)
-        for form, fwd, fwd_ref, bwd, bwd_ref, names in (
-                ("separate",
-                 lambda: dcn_fwd(x, off, mask, wgt, bias, dg, "lrelu", r),
-                 lambda: dcn_fwd_plain(x, off, mask, wgt, bias, dg, "lrelu",
-                                       r),
-                 lambda: dcn_bwd(x, off, mask, wgt, gout, dg, r),
-                 lambda: dcn_bwd_plain(x, off, mask, wgt, gout, dg, r),
-                 ("dx", "doffset", "dmask", "dweight")),
-                ("om",
-                 lambda: dcn_fwd_om(x, om, wgt, bias, dg, "lrelu", r),
-                 lambda: dcn_fwd_om_plain(x, om, wgt, bias, dg, "lrelu", r),
-                 lambda: dcn_bwd_om(x, om, wgt, gout, dg, r),
-                 lambda: dcn_bwd_om_plain(x, om, wgt, gout, dg, r),
-                 ("dx", "dom", "dweight"))):
+        if not has_mask:
+            mask = None
+        forms = (
+            ("separate",
+             lambda: dcn_fwd(x, off, mask, wgt, bias, dg, "lrelu", r),
+             lambda: dcn_fwd_plain(x, off, mask, wgt, bias, dg, "lrelu", r),
+             lambda: dcn_bwd(x, off, mask, wgt, gout, dg, r),
+             lambda: dcn_bwd_plain(x, off, mask, wgt, gout, dg, r),
+             ("dx", "doffset", "dmask", "dweight")),
+            ("om",
+             lambda: dcn_fwd_om(x, om, wgt, bias, dg, "lrelu", r),
+             lambda: dcn_fwd_om_plain(x, om, wgt, bias, dg, "lrelu", r),
+             lambda: dcn_bwd_om(x, om, wgt, gout, dg, r),
+             lambda: dcn_bwd_om_plain(x, om, wgt, gout, dg, r),
+             ("dx", "dom", "dweight")))
+        for form, fwd, fwd_ref, bwd, bwd_ref, names in forms[
+                :2 if has_mask else 1]:
             out = fwd()
             torch.cuda.synchronize()
             ref = fwd_ref()
@@ -1933,6 +1983,9 @@ def hold_dcn_pair(what, shape, dg, dtype, seed, radii=(4, 8, None)):
             torch.cuda.synchronize()
             grefs = bwd_ref()
             for name, o, rf in zip(names, grads, grefs):
+                if rf is None:   # no mask: no mask gradient
+                    ok = ok and o is None
+                    continue
                 row[name] = dict(max_abs_err=max_abs_err(o, rf),
                                  tol=grad_tolerance(rf))
                 ok = ok and (o.shape == rf.shape and o.dtype == rf.dtype
@@ -1941,13 +1994,15 @@ def hold_dcn_pair(what, shape, dg, dtype, seed, radii=(4, 8, None)):
                              <= row[name]["tol"])
             del grads, grefs
             emit(check=what, form=form, shape=shape, groups=dg,
-                 dtype=str(dtype)[6:], max_offset=r, **row)
+                 cout=wgt.shape[0], mask=has_mask, dtype=str(dtype)[6:],
+                 max_offset=r, **row)
             if not ok:
-                raise AssertionError(f"{what} {shape} dg {dg} {form} "
-                                     f"{dtype} r={r}: {row}")
+                raise AssertionError(f"{what} {shape} -> {wgt.shape[0]} dg "
+                                     f"{dg} mask {has_mask} {form} {dtype} "
+                                     f"r={r}: {row}")
             errs[("dcn_fwd", form, r)] = row["out"]["max_abs_err"]
             errs[("dcn_bwd", form, r)] = max(row[n]["max_abs_err"]
-                                             for n in names)
+                                             for n in names if n in row)
         del x, off, mask, om, gout
         torch.cuda.empty_cache()
     return errs
@@ -2207,6 +2262,461 @@ def time_widths():
             del x, x2, res, out
         torch.cuda.empty_cache()
     return rows
+
+
+# --------------------------------------------------------------------------
+# Phase 11: the DCN kernels over the TPU kernel's whole domain (dcn_narrow.cu
+# at any cin and cout, with no mask), the general DCN surface, and card runs
+# of the paths that had only CPU parity: the Combine wrapper, the bare
+# AllPair step, the TOF-GAN recipe and evaluate_wi_gt.
+
+# (cin, cout, deformable groups, mask): cin != cout both ways, with and
+# without a mask; 96 in 4 groups; 256 in 8 (the chunked backward); DCNv1 at
+# 64 -> 64 in 8 (the general path's DeformConvModule)
+GENERAL_DCN = [(64, 32, 8, True), (64, 32, 8, False), (32, 64, 8, True),
+               (32, 64, 8, False), (96, 96, 4, True), (256, 256, 8, True),
+               (64, 64, 8, False)]
+GENERAL_PIXELS = (2, 64, 96)   # the general path's frames: batch, h, w
+# timed, beside their plain versions and bounds: 128 -> 64, 256 -> 256 and
+# DCNv1 at the flagship's 64 -> 64 in 8 groups (no mask: dcn_narrow.cu)
+GENERAL_TIMED = [(128, 64, 8, True), (256, 256, 8, True), (64, 64, 8, False)]
+COMBINE_CFG = os.path.join("configs", "train",
+                           "train_EDVR_woTSA_RealVSR_YCbCr_Combine.yml")
+ALLPAIR_CFG = os.path.join("configs", "train", "train_EDVR_woTSA_Vimeo90K.yml")
+TOF_GAN_CFG = os.path.join("configs", "train",
+                           "train_TOF-GAN_RealVSR_YCbCr_Split.yml")
+WRAPPERS = {  # name: (recipe, train set, cuts)
+    "combine": (COMBINE_CFG, "Synthetic",
+                ["Synthetic data in place of RealVSR (not in the repo)",
+                 "no validation", f"{RECIPE_STEPS} steps"]),
+    "allpair": (ALLPAIR_CFG, "SyntheticMotion",
+                ["SyntheticMotion in place of Vimeo90K (not in the repo; "
+                 "moving frames, as Vimeo90K's)", "no validation",
+                 f"{RECIPE_STEPS} steps"]),
+}
+TOF_GAN_CUTS = ["SyntheticMotion in place of RealVSR (not in the repo; "
+                "moving frames for SpyNet's flow)",
+                "pretrain_model_G: null (the pretrained TOF is not in the "
+                "repo)", "no validation", f"{GAN_STEPS} iterations"]
+# evaluate_wi_gt: (test config, frames written at its own size: (h, w),
+# sequences, frames a sequence)
+WI_GT = {
+    "realvsr": (os.path.join("configs", "test",
+                             "test_EDVR_woTSA_RealVSR_wi_GT.yml"),
+                (H, W), 1, CLIP),
+    "synthetic_motion": (os.path.join("configs", "test",
+                                      "test_synthetic_motion_wi_GT.yml"),
+                         (256, 256), 4, 20),
+}
+WI_GT_SHORT = (3, 64, 128)       # card-vs-CPU clip: frames, h, w
+WI_GT_TOL = dict(psnr=1e-2, ssim=1e-3)   # dB; SSIM
+
+
+def check_general():
+    """Phase 11's kernel checks: ``dcn_narrow.cu`` forward and backward at
+    GENERAL_DCN (the general path's pixels, ±4 and exact, both forms where
+    there is a mask, bf16 and f32) against their plain versions; then
+    ``DeformConvModule`` (DCNv1, 32 -> 48 in 4 groups) at 3x3 / p1 (the
+    kernels, against the plain op's autograd on the card) and p0 (the
+    plain op, against the CPU in f32 from the same inputs and weight,
+    rounded to the dtype first: an offset's rounding moves its sample and
+    so its position gradient), forward and input, offset and weight
+    gradients.  Returns {key: max abs err}."""
+    import torch
+
+    from realvsr_tpu_torch.models.common import DeformConvModule
+    from realvsr_tpu_torch.ops.deform_conv import modulated_deform_conv_plain
+    from realvsr_tpu_torch.ops.kernels.check import (grad_tolerance,
+                                                     max_abs_err, tolerance)
+
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype)[6:]
+        for cin, cout, dg, m in GENERAL_DCN:
+            case = f"{cin}->{cout} dg{dg}{'' if m else ' v1'}"
+            for k, e in hold_dcn_pair("dcn_general", (*GENERAL_PIXELS, cin),
+                                      dg, dtype, 61, radii=(4, None),
+                                      cout=cout, has_mask=m).items():
+                errs[(*k, case, dname)] = e
+        for padding in (1, 0):
+            g = torch.Generator().manual_seed(63)
+            mod = DeformConvModule(32, 48, 3, padding=padding,
+                                   deformable_groups=4)
+            mod.reset_parameters(g)
+            ho, wo = 64 - 2 * (1 - padding), 96 - 2 * (1 - padding)
+            x = torch.randn(2, 64, 96, 32, generator=g).to(dtype).float()
+            off = (torch.randn(2, ho, wo, 4 * 18, generator=g) * 2.5).to(
+                dtype).float()
+            cot = torch.randn(2, ho, wo, 48, generator=g)
+            weight = {k: v.to(dtype).float()
+                      for k, v in mod.state_dict().items()}
+
+            def run(dev, plain, dt):
+                m_ = DeformConvModule(32, 48, 3, padding=padding,
+                                      deformable_groups=4).to(dev, dt)
+                m_.load_state_dict(weight)
+                xs = x.to(dev, dt).requires_grad_()
+                os_ = off.to(dev, dt).requires_grad_()
+                y = (modulated_deform_conv_plain(
+                    xs, os_, None, m_.weight, None, 1, padding, 1, 4)
+                    if plain else m_(xs, os_))
+                (y.float() * cot.to(dev)).sum().backward()
+                return [t.detach().float().cpu()
+                        for t in (y, xs.grad, os_.grad, m_.weight.grad)]
+
+            n0 = read_counts()
+            got = run("cuda", False, dtype)
+            torch.cuda.synchronize()
+            n1 = read_counts()
+            launched = (n1["dcn_fwd"] - n0["dcn_fwd"],
+                        n1["dcn_bwd"] - n0["dcn_bwd"])
+            ref = (run("cuda", True, dtype) if padding
+                   else run("cpu", False, torch.float32))
+            row = {}
+            for name, o, r in zip(("out", "dx", "doffset", "dweight"), got,
+                                  ref):
+                tol = (tolerance(r.to(dtype)) if name == "out"
+                       else grad_tolerance(r.to(dtype)))
+                row[name] = dict(max_abs_err=max_abs_err(o, r), tol=tol)
+            emit(check="deform_conv_module", padding=padding, dtype=dname,
+                 form="kernels" if padding else "plain", launches=launched,
+                 against="plain autograd on the card" if padding
+                 else "the CPU in f32", **row)
+            if launched != ((1, 1) if padding else (0, 0)) or any(
+                    v["max_abs_err"] > v["tol"] for v in row.values()):
+                raise AssertionError(f"DeformConvModule p{padding} {dtype}: "
+                                     f"{launched} {row}")
+            errs[("deform_conv_module", padding, dname)] = max(
+                v["max_abs_err"] for v in row.values())
+        torch.cuda.empty_cache()
+    return errs
+
+
+def general_dcn_path():
+    """The general DCN surface as a user calls it, on the card, bf16: a
+    DCNPack at 64 -> 32 in the PCD-align mode and one at 256 -> 256 (8
+    groups) with offsets from x itself, a DeformConvModule (DCNv1, 64 -> 64
+    in 8 groups) at p1, each forward and backward (these launch
+    dcn_narrow.cu), and a DCNPack at kernel_size 5 and a DeformConvModule
+    at p0 (the plain op, no launch), on GENERAL_PIXELS frames; the counts
+    set to 0 just before and read just after, held to 3 forward and 3
+    backward launches (and the two 3x3 offset convs on the conv3x3 kernel
+    at 216 outputs).  Then each of the three kernel modules' outputs and
+    gradients (input, offsets, parameters) against the plain op on the same
+    card inputs and cotangents (its DCN swapped for
+    ``modulated_deform_conv_plain``, the offset conv the same), within
+    check.py's tolerances."""
+    import torch
+
+    from realvsr_tpu_torch.models.common import (DCNPack, DeformConvModule,
+                                                 reset_parameters)
+    from realvsr_tpu_torch.ops.deform_conv import (modulated_deform_conv_plain,
+                                                   split_om)
+    from realvsr_tpu_torch.ops.kernels.check import (grad_tolerance,
+                                                     max_abs_err, tolerance)
+
+    g = torch.Generator().manual_seed(65)
+    bf = torch.bfloat16
+    mods = [DCNPack(64, 32, 8), DCNPack(256, 256, 8, extra_offset_mask=False),
+            DeformConvModule(64, 64, 3, padding=1, deformable_groups=8),
+            DCNPack(64, 64, 8, kernel_size=5, padding=2,
+                    extra_offset_mask=False),
+            DeformConvModule(64, 64, 3, padding=0, deformable_groups=8)]
+    for m in mods:
+        reset_parameters(torch.nn.Sequential(m), g)
+        m.to("cuda", bf)
+        if isinstance(m, DCNPack):   # offsets of a few pixels
+            randomise_offset_convs(m, seed=66, std=0.1)
+    b, h, w = GENERAL_PIXELS
+    x64 = torch.randn(b, h, w, 64, generator=g).to("cuda", bf)
+    x256 = torch.randn(b, h, w, 256, generator=g).to("cuda", bf)
+    off1 = (torch.randn(b, h, w, 8 * 18, generator=g) * 2).to("cuda", bf)
+    off0 = (torch.randn(b, h - 2, w - 2, 8 * 18, generator=g) * 2).to(
+        "cuda", bf)
+    # (module, its inputs, act); the first three run the kernels
+    calls = [(mods[0], (x64, x64), "lrelu"), (mods[1], (x256,), None),
+             (mods[2], (x64, off1), None), (mods[3], (x64,), None),
+             (mods[4], (x64, off0), None)]
+    cots = [torch.randn(b, h - 2 * (i == 4), w - 2 * (i == 4),
+                        m.weight.shape[0], generator=g).to("cuda")
+            for i, (m, _, _) in enumerate(calls)]
+
+    def run(forward):
+        """Each call's output and gradients (inputs, then parameters) for
+        ``forward(module, leaves, act)``, from fresh input leaves."""
+        for m in mods:
+            m.zero_grad(set_to_none=True)
+        res = []
+        for (m, ins, act), cot in zip(calls, cots):
+            leaves = [t.detach().clone().requires_grad_() for t in ins]
+            y = forward(m, leaves, act)
+            (y.float() * cot).sum().backward()
+            res.append([y.detach()] + [t.grad for t in leaves]
+                       + [p.grad for p in m.parameters()])
+        return res
+
+    def kernels(m, leaves, act):
+        return m(*leaves, act=act) if isinstance(m, DCNPack) else m(*leaves)
+
+    def plain(m, leaves, act):
+        if isinstance(m, DeformConvModule):
+            return modulated_deform_conv_plain(
+                leaves[0], leaves[1], None, m.weight.to(bf), None, m.stride,
+                m.padding, m.dilation, m.deformable_groups, groups=m.groups)
+        om = m.conv_offset_mask(leaves[-1])
+        return modulated_deform_conv_plain(
+            leaves[0], *split_om(om, m.deformable_groups), m.weight.to(bf),
+            m.bias.to(bf), m.stride, m.padding, m.dilation,
+            m.deformable_groups, m.max_offset, act, m.groups)
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.time()
+    got = run(kernels)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    seconds = time.time() - t0
+    want = {"dcn_fwd": 3, "dcn_bwd": 3, "conv3x3": 0, "conv3x3_fused": 2,
+            "dcn_block": 0}
+    shapes = [list(r[0].shape) for r in got]
+    finite = all(t is not None and bool(torch.isfinite(t).all())
+                 for r in got for t in r)
+    ref = run(plain)
+    held = {}
+    for label, (m, ins, _), o, r in zip(
+            ("dcnpack_64_32", "dcnpack_256", "deform_conv_p1"), calls, got,
+            ref):
+        names = (["out"] + [f"d_input{k}" for k in range(len(ins))]
+                 + [f"d_{n}" for n, _ in m.named_parameters()])
+        for name, a, e in zip(names, o, r):
+            tol = tolerance(e) if name == "out" else grad_tolerance(e)
+            held[f"{label}.{name}"] = dict(max_abs_err=max_abs_err(a, e),
+                                           tol=tol)
+    emit(phase="path", path="general_dcn", launches=launches, expected=want,
+         shapes=shapes, seconds=seconds, against_plain=held)
+    if launches != want or not finite or any(
+            v["max_abs_err"] > v["tol"] for v in held.values()):
+        raise AssertionError(f"general DCN path: {launches} vs {want}, "
+                             f"finite {finite}, {held}")
+    return launches
+
+
+def time_general():
+    """Phase 9 at GENERAL_TIMED, bf16 and f32: ``dcn_narrow.cu`` forward
+    (±4) and backward (±8) at the debug shape's pixels, beside the plain
+    versions and the bounds (as the narrow widths: the tap products at the
+    tensor cores' rate for the dtype, ~9 f32 operations a sampled element
+    forward, ~20 backward).  Returns {key: row}."""
+    import torch
+
+    from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_bwd_plain,
+                                                   dcn_fwd, dcn_fwd_plain)
+
+    rows, r8 = {}, train_r()
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype)[6:]
+        for cin, cout, dg, m in GENERAL_TIMED:
+            shape = (*NARROW_SHAPE[:3], cin)
+            x, off, mask, wgt, bias, gout = width_inputs(shape, dg, dtype, 67,
+                                                         cout=cout)
+            mask = mask if m else None
+            out = dcn_fwd(x, off, mask, wgt, bias, dg, None, R_INFER)
+            grads = dcn_bwd(x, off, mask, wgt, gout, dg, r8)
+            p, k = shape[0] * shape[1] * shape[2], 9 * cin
+            case = f"{cin}->{cout} dg{dg}{'' if m else ' v1'}"
+            for name, fn, pl, moved, tc_ops, f32_ops in (
+                    ("dcn_fwd",
+                     lambda: dcn_fwd(x, off, mask, wgt, bias, dg, None,
+                                     R_INFER),
+                     lambda: dcn_fwd_plain(x, off, mask, wgt, bias, dg, None,
+                                           R_INFER),
+                     nbytes(x, off, mask, wgt, bias, out), 2 * p * k * cout,
+                     9 * p * k),
+                    ("dcn_bwd",
+                     lambda: dcn_bwd(x, off, mask, wgt, gout, dg, r8),
+                     lambda: dcn_bwd_plain(x, off, mask, wgt, gout, dg, r8),
+                     nbytes(x, off, mask, wgt, gout, *grads),
+                     4 * p * k * cout, 20 * p * k)):
+                b_ms, b_by = bound(moved, tc_ops, f32_ops, dname)
+                row = dict(ms=cuda_ms(fn, 20), plain_ms=cuda_ms(pl, 3),
+                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                emit(timing=name, case=f"general {case}", shape=shape,
+                     cout=cout, mask=m, dtype=dname,
+                     max_offset=R_INFER if name == "dcn_fwd" else r8, **row)
+                rows[(name, case, dname)] = row
+            del x, off, mask, gout, out, grads
+        torch.cuda.empty_cache()
+    return rows
+
+
+def wrapper_training(tmp, profile=False):
+    """The Combine wrapper (``make_combine_train_step``) and the bare
+    ``VideoSR_AllPair`` step through ``make_train_step``'s dispatch: one
+    step of each recipe's network (EDVR_NoUp, full width and depth) at 64x64
+    card vs CPU (``reduced_train_step``), then the recipe's network and
+    batch (192² x 32, 3 frames, its cutblur on) through the port's Trainer,
+    f32 (TF32) and bf16, ±8, offsets randomised, RECIPE_STEPS steps, with
+    the flagship's launches a step.  Returns {(name, dtype): result}."""
+    import torch
+
+    per_step = dict(EXPECT["edvr_noup"], dcn_bwd=4, dcn_block=0)
+    out = {}
+    for name, (recipe, mode, cuts) in WRAPPERS.items():
+        reduced_train_step(recipe, None, 64, mode)
+        torch.backends.cudnn.allow_tf32 = True
+        for dtype in ("float32", "bfloat16"):
+            opt = _train_opt(tmp, dtype, recipe, mode=mode,
+                             steps=RECIPE_STEPS)
+            warm = warm_motion(opt)
+            res = run_trainer(opt, per_step, offsets_seed=11,
+                              profile=profile)
+            summary = res.pop("profile", None)
+            emit(phase="training_recipe", path=name, config=recipe,
+                 model=opt["model"], dtype=dtype, data=mode,
+                 data_setup_s=warm, augment=opt["augment"], cuts=cuts, **res)
+            if summary:
+                print(f"--- torch.profiler, training {name} {dtype}\n"
+                      f"{summary}")
+            out[(name, dtype)] = res
+        torch.backends.cudnn.allow_tf32 = False
+    return out
+
+
+def tof_gan_training(tmp, profile=False):
+    """``train_TOF-GAN_RealVSR_YCbCr_Split.yml``: the GAN step with
+    SpyNet's BatchNorm in G.  One step at 64x64 card vs CPU
+    (``reduced_gan_step``: G's and D's gradients and both models' running
+    statistics), then the recipe's G (TOF, nf 64, 10 blocks) and D
+    (MultiscaleDiscriminator_v4, 2 PatchGANs on the Y pyramid, ragan) at
+    its 192² x 32 batch through the port's Trainer, f32 (TF32) and bf16,
+    GAN_STEPS steps (cuts TOF_GAN_CUTS), TOF's launches a step (D runs no
+    kernel), G never gated off."""
+    import torch
+
+    reduced_gan_step(cfg=TOF_GAN_CFG, mode="SyntheticMotion")
+    out = {}
+    torch.backends.cudnn.allow_tf32 = True
+    for dtype in ("float32", "bfloat16"):
+        opt = _train_opt(tmp, dtype, TOF_GAN_CFG, mode="SyntheticMotion",
+                         steps=GAN_STEPS)
+        opt["path"]["pretrain_model_G"] = None
+        warm = warm_motion(opt)
+        res = run_trainer(opt, GEN_STEP["tof"], profile=profile)
+        summary = res.pop("profile", None)
+        emit(phase="training_gan", config=TOF_GAN_CFG, dtype=dtype,
+             data="SyntheticMotion", data_setup_s=warm, cuts=TOF_GAN_CUTS,
+             augment=opt["augment"], **res)
+        if summary:
+            print(f"--- torch.profiler, training TOF-GAN {dtype}\n{summary}")
+        if any(s["g_active"] != 1.0 for s in res["losses"]):
+            raise AssertionError("a TOF-GAN step gated G off")
+        out[dtype] = res
+    torch.backends.cudnn.allow_tf32 = False
+    return out
+
+
+def _write_pairs(root, name, seqs, frames, h, w, seed):
+    """GT and LQ sequences (``<root>/{GT,LQ}/<seq>/%05d.png``) at h x w:
+    smooth texture moving 3 px a frame, and its LQ blurred and noisy; for
+    the motion config the port's ``dump_synthetic_testset`` at its own
+    frames (moving shapes, realistic degradation)."""
+    import cv2
+    import numpy as np
+
+    if name == "synthetic_motion":
+        from realvsr_tpu_torch.tools.dump_synthetic_testset import dump
+
+        dump(root, num_seqs=seqs, frames=frames, height=h, width=w)
+        return
+    rng = np.random.default_rng(seed)
+    for s in range(seqs):
+        base = cv2.resize(rng.random((h // 8, w // 8 + 8, 3)).astype(
+            np.float32), (w + 3 * frames + 8, h),
+            interpolation=cv2.INTER_CUBIC)
+        for part in ("GT", "LQ"):
+            os.makedirs(os.path.join(root, part, f"{s:03d}"))
+        for t in range(frames):
+            gt = base[:, 3 * t:3 * t + w]
+            lq = cv2.GaussianBlur(gt, (5, 5), 1.2) + rng.normal(
+                size=gt.shape).astype(np.float32) * 0.02
+            for part, img in (("GT", gt), ("LQ", lq)):
+                cv2.imwrite(os.path.join(root, part, f"{s:03d}",
+                                         f"{t:05d}.png"),
+                            (np.clip(img, 0, 1) * 255).round().astype(
+                                np.uint8))
+
+
+def wi_gt_phase(tmp):
+    """``eval/test_wi_gt.py`` through ``tools/test_wi_gt.py`` (its
+    ``main``, as the command line runs it) for each WI_GT config: the
+    config's network (EDVR_NoUp, nf 64, 5 + 10 blocks) with seeded weights
+    (offset convs randomised) saved as its ``pretrain_model_G``, on frames
+    written at the config's own size, on the card in bf16 with the
+    deployment clamp (timed, launches per window held to the flagship's),
+    then on a short clip (WI_GT_SHORT) on the card and on the CPU in f32:
+    the reported PSNR and SSIM within WI_GT_TOL.  Returns {name:
+    launches}."""
+    import torch
+    import yaml
+
+    from realvsr_tpu_torch.models import define_g
+    from realvsr_tpu_torch.tools.test_wi_gt import main as test_wi_gt
+
+    out = {}
+    for i, (name, (cfg, (h, w), seqs, frames)) in enumerate(WI_GT.items()):
+        opt = network_opt(cfg)
+        model = define_g(opt, device="cpu",
+                         generator=torch.Generator().manual_seed(70 + i))
+        randomise_offset_convs(model, seed=71 + i, std=0.5)
+        weights = os.path.join(tmp, f"wi_gt_{name}.pth")
+        torch.save(model.state_dict(), weights)
+        del model
+
+        def run(root, device, dtype, tag, max_offset=None):
+            o = dict(opt, name=f"chip_smoke_wi_gt_{name}_{tag}")
+            o["datasets"] = {"test": dict(
+                opt["datasets"]["test"], dataroot_LQ=os.path.join(root, "LQ"),
+                dataroot_GT=os.path.join(root, "GT"))}
+            o["path"] = dict(opt["path"], pretrain_model_G=weights)
+            path = os.path.join(tmp, f"wi_gt_{name}_{tag}.yml")
+            with open(path, "w") as f:
+                yaml.safe_dump(o, f)
+            argv = ["-opt", path, "--device", device, "--dtype", dtype]
+            if max_offset is not None:
+                argv += ["--max_offset", str(max_offset)]
+            return test_wi_gt(argv)
+
+        full = os.path.join(tmp, f"wi_gt_{name}")
+        _write_pairs(full, name, seqs, frames, h, w, seed=72 + i)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.time()
+        res = run(full, "cuda", "bfloat16", "full", R_INFER)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches = read_counts()
+        windows = seqs * frames
+        want = {k: v * windows for k, v in EXPECT["edvr_noup"].items()}
+        want.update(dcn_bwd=0, dcn_block=0)
+        short = os.path.join(tmp, f"wi_gt_{name}_short")
+        t, sh, sw = WI_GT_SHORT
+        _write_pairs(short, name, 1, t, sh, sw, seed=73 + i)
+        card = run(short, "cuda", "float32", "short_card")
+        cpu = run(short, "cpu", "float32", "short_cpu")
+        err = {k: abs(card[k] - cpu[k]) for k in ("psnr", "ssim")}
+        emit(phase="evaluate_wi_gt", config=cfg, frames=[seqs, frames, h, w],
+             dtype="bfloat16", max_offset=R_INFER, result=res,
+             seconds=seconds, frames_per_s=windows / seconds,
+             launches=launches, expected=want, short_clip=WI_GT_SHORT,
+             short_card=card, short_cpu=cpu, short_err=err, tol=WI_GT_TOL,
+             weights="seeded, offset convs std 0.5 (not the trained model)")
+        if not (launches == want and all(math.isfinite(v) for v in
+                                         res.values())
+                and all(err[k] <= WI_GT_TOL[k] for k in err)):
+            raise AssertionError(f"evaluate_wi_gt {name}: {launches} vs "
+                                 f"{want}, card {card} cpu {cpu}")
+        out[f"wi_gt_{name}"] = launches
+    return out
 
 
 def peak_gib():
@@ -2999,52 +3509,42 @@ def srmd_check():
 
 
 def ab_parent(parent: str) -> None:
-    """``--ab PARENT``: the DCN kernels of the tree unpacked at PARENT (the
-    parent commit, whose C entry points take no width) built beside this
-    tree's and timed in turns (parent, this, this, parent) on the same
-    inputs, each with the wrapper's allocations and casts: the 64-wide pair
-    at phase 9's shapes (the forward at L1 ±4 in both forms, the backward
-    at L1 train ±8), and the narrow pair at the debug shape, bf16 and
-    f32."""
+    """``--ab PARENT``: ``dcn_narrow.cu`` of the tree unpacked at PARENT
+    (the parent commit, whose narrow kernels take C -> C, C <= 64: C entry
+    points with C and G) built beside this tree's and timed in turns
+    (parent, this, this, parent) on the same inputs, each with the
+    wrapper's allocations and casts: forward (±8) and backward (±8) at the
+    debug shape's pixels at every width the parent takes that phase 9
+    times (NARROW and NARROW_WIDTHS), bf16 and f32.  (The wgmma pair,
+    ``dcn_fwd.cu`` / ``dcn_bwd.cu``, and their sampler are the parent's.)"""
     import ctypes
 
     import torch
 
     from realvsr_tpu_torch.ops.kernels import _build
-    from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_fwd,
-                                                   dcn_fwd_om,
-                                                   footprint_radius)
+    from realvsr_tpu_torch.ops.kernels.dcn import dcn_bwd, dcn_fwd
 
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # the parent's signatures (ops/kernels/dcn.py of that tree)
-    sigs = {"dcn_fwd": (P, P, I, P, I, I, P, P, P, P, I, I, I, I, F, I, P),
-            "dcn_bwd": (P, P, I, P, I, I, P, P, P, P, I, P, I, P, I, I, I,
-                        F, I, I, P),
-            "dcn_narrow_fwd": (P, P, I, P, I, I, P, P, P, I, I, I, I, F, I,
-                               P),
+    sigs = {"dcn_narrow_fwd": (P, P, I, P, I, I, P, P, P, I, I, I, I, I, I,
+                               F, I, P),
             "dcn_narrow_bwd": (P, P, I, P, I, I, P, P, P, P, I, P, I, P, I,
-                               I, I, F, I, P)}
+                               I, I, I, I, F, I, P)}
     out_dir = _build.BUILD_DIR / "parent"
     out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for src in ("dcn_fwd", "dcn_bwd", "dcn_narrow"):
-        lib = out_dir / f"{src}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-               os.path.join(parent, "realvsr_tpu_torch", "csrc", f"{src}.cu")]
-        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True),
-                      lib)
-    libs = {}
-    for src, (proc, lib) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"parent {src}: nvcc failed\n{log}")
-        libs[src] = ctypes.PyDLL(str(lib))
+    lib = out_dir / "dcn_narrow.so"
+    proc = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+         os.path.join(parent, "realvsr_tpu_torch", "csrc", "dcn_narrow.cu")],
+        capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"parent dcn_narrow: nvcc failed\n{proc.stdout}"
+                           f"{proc.stderr}")
+    so = ctypes.PyDLL(str(lib))
     fns = {}
     for name, argtypes in sigs.items():
         for dt, sfx in _build.SUFFIX.items():
-            fn = getattr(libs["dcn_narrow" if "narrow" in name else name],
-                         f"{name}_{sfx}")
+            fn = getattr(so, f"{name}_{sfx}")
             fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
             fns[(name, dt)] = fn
 
@@ -3064,89 +3564,41 @@ def ab_parent(parent: str) -> None:
     r8 = train_r()
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype)[6:]
-        x, off, mask, wgt, bias = dcn_inputs(DCN_CASES[0][1], dtype, 1)
-        om = om_of(off, mask)
-        b, h, w, _ = x.shape
-        packed = torch.empty(64 * 9 * 64, device="cuda", dtype=dtype)
-        for form in ("separate", "om"):
-            def parent_fwd(form=form):
+        for c, dg in [NARROW] + NARROW_WIDTHS:
+            shape = (*NARROW_SHAPE[:3], c)
+            x, off, mask, wgt, bias, gout = width_inputs(shape, dg, dtype, 23)
+            b, h, w, _ = x.shape
+
+            def parent_fwd():
                 out = torch.empty_like(x)
-                src = ((off.data_ptr(), 144, mask.data_ptr(), 72, 0)
-                       if form == "separate" else
-                       (om.data_ptr(), 216,
-                        om.data_ptr() + 144 * om.element_size(), 216, 1))
-                _build.check(fns[("dcn_fwd", dtype)](
-                    x.data_ptr(), *src, wgt.data_ptr(), packed.data_ptr(),
-                    bias.data_ptr(), out.data_ptr(), b, h, w, 0,
-                    float(R_INFER), 1, stream()), "parent dcn_fwd")
+                _build.check(fns[("dcn_narrow_fwd", dtype)](
+                    x.data_ptr(), off.data_ptr(), dg * 18, mask.data_ptr(),
+                    dg * 9, 0, wgt.data_ptr(), bias.data_ptr(),
+                    out.data_ptr(), b, h, w, c, dg, 0, float(r8), 1,
+                    stream()), "parent narrow fwd")
                 return (out,)
 
-            def change_fwd(form=form):
-                if form == "separate":
-                    return (dcn_fwd(x, off, mask, wgt, bias, 8, None,
-                                    R_INFER),)
-                return (dcn_fwd_om(x, om, wgt, bias, 8, None, R_INFER),)
+            def parent_bwd():
+                dx = torch.zeros(b, h, w, c, device="cuda")
+                dw = torch.zeros(c, 9, c, device="cuda")
+                doff, dmask = torch.empty_like(off), torch.empty_like(mask)
+                _build.check(fns[("dcn_narrow_bwd", dtype)](
+                    x.data_ptr(), off.data_ptr(), dg * 18, mask.data_ptr(),
+                    dg * 9, 0, wgt.data_ptr(), gout.data_ptr(),
+                    dx.data_ptr(), doff.data_ptr(), dg * 18,
+                    dmask.data_ptr(), dg * 9, dw.data_ptr(), b, h, w, c, dg,
+                    float(r8), 1, stream()), "parent narrow bwd")
+                return (dx.to(dtype), doff, dmask,
+                        dw.view(c, 3, 3, c).permute(0, 3, 1, 2).to(dtype))
 
-            turns("dcn_fwd", parent_fwd, change_fwd, 20, form=form,
-                  case="L1", shape=DCN_CASES[0][1], dtype=dname,
-                  max_offset=R_INFER)
-        del x, off, mask, om
-        x, off, mask, wgt, gout = dcn_bwd_inputs(TRAIN_L1, dtype, 4,
-                                                 on_card=True)
-        b, h, w, _ = x.shape
-
-        def parent_bwd():
-            dx = torch.zeros(b, h, w, 64, device="cuda")
-            dw = torch.zeros(64, 9, 64, device="cuda")
-            doff, dmask = torch.empty_like(off), torch.empty_like(mask)
-            _build.check(fns[("dcn_bwd", dtype)](
-                x.data_ptr(), off.data_ptr(), 144, mask.data_ptr(), 72, 0,
-                wgt.data_ptr(), gout.data_ptr(), dx.data_ptr(),
-                doff.data_ptr(), 144, dmask.data_ptr(), 72, dw.data_ptr(), b,
-                h, w, float(r8), 1, footprint_radius(r8), stream()),
-                "parent dcn_bwd")
-            # the wrapper's casts, as dcn_bwd returns them
-            return (dx.to(dtype), doff, dmask,
-                    dw.view(64, 3, 3, 64).permute(0, 3, 1, 2).to(dtype))
-
-        turns("dcn_bwd", parent_bwd,
-              lambda: dcn_bwd(x, off, mask, wgt, gout, 8, r8), 5,
-              form="separate", case="L1 train", shape=TRAIN_L1, dtype=dname,
-              max_offset=r8)
-        del x, off, mask, gout
-        x, off, mask, wgt, bias, gout = width_inputs(NARROW_SHAPE, 4, dtype,
-                                                     23)
-        b, h, w, c = x.shape
-
-        def parent_narrow_fwd():
-            out = torch.empty_like(x)
-            _build.check(fns[("dcn_narrow_fwd", dtype)](
-                x.data_ptr(), off.data_ptr(), 72, mask.data_ptr(), 36, 0,
-                wgt.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, 0,
-                float(r8), 1, stream()), "parent narrow fwd")
-            return (out,)
-
-        def parent_narrow_bwd():
-            dx = torch.zeros(b, h, w, c, device="cuda")
-            dw = torch.zeros(c, 9, c, device="cuda")
-            doff, dmask = torch.empty_like(off), torch.empty_like(mask)
-            _build.check(fns[("dcn_narrow_bwd", dtype)](
-                x.data_ptr(), off.data_ptr(), 72, mask.data_ptr(), 36, 0,
-                wgt.data_ptr(), gout.data_ptr(), dx.data_ptr(),
-                doff.data_ptr(), 72, dmask.data_ptr(), 36, dw.data_ptr(), b,
-                h, w, float(r8), 1, stream()), "parent narrow bwd")
-            return (dx.to(dtype), doff, dmask,
-                    dw.view(c, 3, 3, c).permute(0, 3, 1, 2).to(dtype))
-
-        turns("dcn_narrow_fwd", parent_narrow_fwd,
-              lambda: (dcn_fwd(x, off, mask, wgt, bias, 4, None, r8),), 50,
-              case="narrow C16 dg4", shape=NARROW_SHAPE, dtype=dname,
-              max_offset=r8)
-        turns("dcn_narrow_bwd", parent_narrow_bwd,
-              lambda: dcn_bwd(x, off, mask, wgt, gout, 4, r8), 20,
-              case="narrow C16 dg4", shape=NARROW_SHAPE, dtype=dname,
-              max_offset=r8)
-        del x, off, mask, gout
+            case = f"narrow C{c} dg{dg}"
+            turns("dcn_narrow_fwd", parent_fwd,
+                  lambda: (dcn_fwd(x, off, mask, wgt, bias, dg, None, r8),),
+                  50, case=case, shape=shape, dtype=dname, max_offset=r8)
+            turns("dcn_narrow_bwd", parent_bwd,
+                  lambda: dcn_bwd(x, off, mask, wgt, gout, dg, r8), 20,
+                  case=case, shape=shape, dtype=dname, max_offset=r8)
+            del x, off, mask, gout
         torch.cuda.empty_cache()
 
 
@@ -3192,11 +3644,13 @@ def main() -> int:
     narrow_errs = check_narrow()
     x4_errs = check_backward_x4()
     width_errs = check_widths()
+    general_errs = check_general()
     with tempfile.TemporaryDirectory() as tmp:
         paths = inference_paths(tmp)
         paths["edvr_l"] = edvr_l_path(tmp, paths["edvr_x4"][1])
         launches = {p: v[-1] for p, v in paths.items()}
         launches["block_api"] = block_path()
+        launches["general_dcn"] = general_dcn_path()
         train = training_slice(tmp, profiling)
         for d in train:
             launches[f"training_{d}"] = train[d]["launches"]
@@ -3232,16 +3686,22 @@ def main() -> int:
         for (gen, dt), res in generator_recipe_training(
                 tmp, profiling).items():
             launches[f"training_{gen}_recipe_{dt}"] = res["launches"]
+        for (name, dt), res in wrapper_training(tmp, profiling).items():
+            launches[f"training_{name}_recipe_{dt}"] = res["launches"]
+        for dt, res in tof_gan_training(tmp, profiling).items():
+            launches[f"training_tof_gan_{dt}"] = res["launches"]
         launches.update(streaming_phase(paths, tmp)[0])
         tiled_launches, tiled_rows = tiled_phase(paths, tmp)
         launches.update(tiled_launches)
         metrics_phase(paths, tmp)
+        launches.update(wi_gt_phase(tmp))
         launches.update(parallel_phase(
             tmp, train, paths, tiled_rows["full_frame_1080p"]["ms"]))
         rows = time_kernels()
         bwd_rows = time_dcn_bwd()
         rows["dcn_bwd"] = bwd_rows["bfloat16"]
         width_rows = time_widths()
+        general_rows = time_general()
         time_dcnpack()
         for p, (model, lq_root, n, hw, _) in paths.items():
             window = time_path(p, model, lq_root, n, hw)
@@ -3313,6 +3773,43 @@ def main() -> int:
             f32=width_rows[(kernel, "c128", "float32")],
             **width_rows[(kernel, "c128", "bfloat16")])
 
+    def general(kernel):
+        """The generalised dcn_narrow.cu (any cin -> cout, no mask): its
+        launches on the general DCN path, its largest error over every
+        GENERAL_DCN case (both forms, ±4 and exact, bf16 and f32), and its
+        times at GENERAL_TIMED (bf16, f32 beside); the row's own numbers
+        are the first timed case's."""
+        cases = {}
+        for cin, cout, dg, m in GENERAL_TIMED:
+            case = f"{cin}->{cout} dg{dg}{'' if m else ' v1'}"
+            cases[case] = dict(general_rows[(kernel, case, "bfloat16")],
+                               f32=general_rows[(kernel, case, "float32")],
+                               shape=(*NARROW_SHAPE[:3], cin), cout=cout,
+                               mask=m)
+        by_case = {f"{case} {form} {dt} r={r}": e
+                   for k, e in general_errs.items() if len(k) == 5
+                   and k[0] == kernel for _, form, r, case, dt in [k]}
+        first = next(iter(cases))
+        return dict(
+            name=f"{kernel}_general", route="cuda",
+            source="realvsr_tpu_torch/csrc/dcn_narrow.cu",
+            instantiation="any cin -> cout with dg dividing cin, with or "
+                          "without a mask (the generalised dcn_narrow.cu)",
+            replaces=("realvsr_tpu/ops/pallas/dcn_frame_kernel.py:225"
+                      if kernel == "dcn_fwd" else
+                      "realvsr_tpu/ops/pallas/dcn_frame_kernel.py:501"),
+            launches=by_path[kernel]["general_dcn"],
+            launches_by_path={p: v for p, v in by_path[kernel].items()
+                              if p == "general_dcn"},
+            max_abs_err=max(by_case.values()), max_abs_err_by_case=by_case,
+            deform_conv_module_max_abs_err={
+                f"p{pad} {dt}": e for k, e in general_errs.items()
+                if len(k) == 3 for _, pad, dt in [k]},
+            timed_cases=cases, timed_case=first,
+            **{k: v for k, v in cases[first].items()
+               if k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms")})
+
     edvr_l_convs = {name: dict(width_rows[("conv3x3_fused", name,
                                            "bfloat16")],
                                f32=width_rows[("conv3x3_fused", name,
@@ -3368,6 +3865,8 @@ def main() -> int:
              max_abs_err_c128={dt: width_errs[("dcn_block", "c128", dt)]
                                for dt in ("bfloat16", "float32")},
              **rows["dcn_block"]),
+        general("dcn_fwd"),
+        general("dcn_bwd"),
     ]
     emit(phase="done", seconds=time.time() - t_start)
     print(smi())

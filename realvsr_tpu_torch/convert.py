@@ -21,7 +21,9 @@ The naming rules are those of ``realvsr_tpu/train/torch_import.py``
     ``running_mean`` / ``running_var``; the running statistics come from
     the ``batch_stats`` collection when a variables dict ``{"params",
     "batch_stats"}`` is given,
-  * everything else keeps its name (PReLU's ``alpha``).
+  * everything else keeps its name (PReLU's ``alpha``; the DCN modules'
+    ``weight`` / ``bias`` and ``conv_offset_mask``; ``ResBlock``'s unnamed
+    flax convs ``Conv2d_0`` / ``Conv2d_1``, the port's attribute names).
 
 :func:`vgg16_state_dict_from_jax` and :func:`perceptual_params_from_jax`
 carry the JAX package's LPIPS / DISTS parameters (``realvsr_tpu/eval/

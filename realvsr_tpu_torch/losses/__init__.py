@@ -3,14 +3,16 @@
 Counterpart of ``realvsr_tpu/losses/__init__.py`` (the dispatch of
 ``VideoSR_AllPair_model_YCbCr_Split.py:44-87``): l1 | l2 | cb | hb | gw |
 pyr (gaussian pyramid + Charbonnier) | lappyr (LF-SSIM + HF-Charbonnier) |
-msssim; and the GAN losses (``losses/gan.py``).
+msssim; the GAN losses (``losses/gan.py``); and, outside the registry as
+in JAX, ``tv_loss`` and ``style_loss``.
 """
 from __future__ import annotations
 
 from functools import partial
 
 from realvsr_tpu_torch.losses.basic import (charbonnier_loss, gw_loss,
-                                            huber_loss, l1_loss, l2_loss)
+                                            huber_loss, l1_loss, l2_loss,
+                                            style_loss, tv_loss)
 from realvsr_tpu_torch.losses.gan import gan_loss, gradient_penalty
 from realvsr_tpu_torch.losses.pyramid import lap_pyr_loss, pyramid_loss
 from realvsr_tpu_torch.losses.ssim import (ms_ssim_loss, ms_ssim_value,
@@ -36,7 +38,7 @@ def get_pixel_criterion(name: str):
 
 __all__ = [
     "get_pixel_criterion", "l1_loss", "l2_loss", "charbonnier_loss",
-    "huber_loss", "gw_loss", "pyramid_loss", "lap_pyr_loss", "ssim_loss",
-    "ssim_value", "ms_ssim_loss", "ms_ssim_value", "gan_loss",
-    "gradient_penalty",
+    "huber_loss", "gw_loss", "tv_loss", "pyramid_loss", "lap_pyr_loss",
+    "ssim_loss", "ssim_value", "ms_ssim_loss", "ms_ssim_value", "gan_loss",
+    "style_loss", "gradient_penalty",
 ]

@@ -50,3 +50,23 @@ def gw_loss(x1, x2, w: float = 4.0, reduction="mean"):
     dx = (_sobel(x1, _SOBEL_X) - _sobel(x2, _SOBEL_X)).abs()
     dy = (_sobel(x1, _SOBEL_Y) - _sobel(x2, _SOBEL_Y)).abs()
     return _reduce((1 + w * dx) * (1 + w * dy) * (x1 - x2).abs(), reduction)
+
+
+def tv_loss(x: torch.Tensor) -> torch.Tensor:
+    """Total variation on NHWC (loss.py:44-51): the sum of absolute
+    differences of horizontal and vertical neighbours over the whole batch
+    (a sum, not a mean, as ``realvsr_tpu/losses/basic.py::tv_loss``)."""
+    return ((x[:, :, :-1, :] - x[:, :, 1:, :]).abs().sum()
+            + (x[:, :-1, :, :] - x[:, 1:, :, :]).abs().sum())
+
+
+def style_loss(x: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Gram-matrix MSE (loss.py:83-99) on NHWC features; the target's Gram
+    matrix carries no gradient.  The Gram matrix is over the (B * C, H * W)
+    view, cross-image terms included, as the JAX package takes it."""
+    def gram(v):
+        b, h, w, c = v.shape
+        feats = v.permute(0, 3, 1, 2).reshape(b * c, h * w)
+        return feats @ feats.T / (b * c * h * w)
+
+    return ((gram(x) - gram(target).detach()) ** 2).mean()

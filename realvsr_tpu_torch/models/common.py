@@ -1,8 +1,9 @@
 """Shared architecture blocks (``torch.nn``, NHWC activations).
 
 Counterparts of ``realvsr_tpu/models/common.py``: the reference's
-``arch_util.py`` blocks (with the pixel-shuffle ``Upsampler`` and the 3x3 /
-stride 2 pools of TSA) and the DCN "Pack" module.  Parameters keep the
+``arch_util.py`` blocks (with the pixel-shuffle ``Upsampler``, the 3x3 /
+stride 2 pools of TSA, the EDSR ``ResBlock`` and ``make_layer``) and the
+DCN modules (``DCNPack``, ``DeformConvModule``).  Parameters keep the
 reference torch names and layouts (``weight`` OIHW, ``bias``), so
 ``load_state_dict(strict=True)`` takes reference ``.pth`` files and
 :func:`realvsr_tpu_torch.convert.state_dict_from_jax` output alike.
@@ -39,11 +40,19 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from realvsr_tpu_torch.ops.deform_conv import (apply_act,
-                                               modulated_deform_conv_om)
+from realvsr_tpu_torch.ops.deform_conv import (apply_act, deform_conv,
+                                               kernel_shape,
+                                               modulated_deform_conv,
+                                               modulated_deform_conv_om,
+                                               split_om)
 from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3_autograd
 from realvsr_tpu_torch.ops.resize import pixel_shuffle
 from realvsr_tpu_torch.parallel.mesh import all_reduce_sum, world_size
+
+
+def lrelu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
+    """LeakyReLU(0.1), the activation used across the reference archs."""
+    return F.leaky_relu(x, slope)
 
 
 def _uniform_(t: torch.Tensor, bound: float, gen: torch.Generator | None):
@@ -180,40 +189,126 @@ class Blocks(nn.Sequential):
         super().__init__(*[ResidualBlockNoBN(nf) for _ in range(num)])
 
 
-class DCNPack(nn.Module):
-    """ModulatedDeformConvPack (dcn/deform_conv.py:257-292) in the PCD-align
-    mode: offsets and masks are predicted from a separate feature tensor.
+class ResBlock(nn.Module):
+    """EDSR-style residual block (arch_util.py:97-118): conv-ReLU-conv, the
+    result times ``res_scale`` added to the input; torch-default init.
+    The convs are ``Conv2d_0`` and ``Conv2d_1``, the keys the JAX module's
+    unnamed convs export under (``realvsr_tpu/train/torch_import.py``);
+    at 3x3 with input widths the kernel takes (multiples of 16) they run
+    the conv3x3 kernel, ReLU fused into the first."""
 
-    ``conv_offset_mask`` (zero-initialised, on the conv3x3 kernel) gives
-    3*dg*9 channels split into o1, o2, mask; offset = concat(o1, o2) in the
-    (dg, tap, (dy, dx)) layout, mask through the sigmoid.  concat(o1, o2)
-    is the first 2*dg*9 channels as they lie, so the DCN takes the tensor
-    whole (:func:`~realvsr_tpu_torch.ops.deform_conv.
+    def __init__(self, n_feats: int, kernel_size: int = 3,
+                 res_scale: float = 1.0):
+        super().__init__()
+        self.res_scale = res_scale
+        kernel = kernel_size == 3 and n_feats % 16 == 0
+        self.Conv2d_0 = Conv2d(n_feats, n_feats, kernel_size, act="relu",
+                               kernel=kernel)
+        self.Conv2d_1 = Conv2d(n_feats, n_feats, kernel_size, kernel=kernel)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.Conv2d_1(self.Conv2d_0(x))
+        return x + out * self.res_scale
+
+
+def make_layer(block_cls, n: int, **kwargs) -> nn.Sequential:
+    """``n`` identical blocks in an ``nn.Sequential`` (arch_util.py:28-39;
+    keys ``<i>.<...>``, as the JAX package's ``block<i>`` export)."""
+    return nn.Sequential(*[block_cls(**kwargs) for _ in range(n)])
+
+
+class DCNPack(nn.Module):
+    """ModulatedDeformConvPack (dcn/deform_conv.py:257-292), the fields of
+    ``realvsr_tpu/models/common.py::DCNPack``.
+
+    ``conv_offset_mask`` (zero-initialised; ``kernel_size``, ``stride``,
+    ``padding``) gives 3*dg*K channels (K = kernel_size^2) split into o1,
+    o2, mask; offset = concat(o1, o2) in the (dg, tap, (dy, dx)) layout,
+    mask through the sigmoid.  It reads ``offset_feat`` (the PCD-align mode,
+    ``extra_offset_mask=True``, the default) or ``x`` itself
+    (``extra_offset_mask=False``), ``cin`` channels wide either way.
+    ``cout`` may differ from ``cin``; ``groups`` splits the conv.
+    ``max_offset`` clamps the offsets (None: exact).
+
+    At 3x3 / s1 / p1 / d1 / groups 1 (the default) the offset conv runs the
+    conv3x3 kernel where its input width is a multiple of 16, and
+    concat(o1, o2) is the first 2*dg*9 channels as they lie, so the DCN
+    takes the tensor whole (:func:`~realvsr_tpu_torch.ops.deform_conv.
     modulated_deform_conv_om`): on the card the kernels read the offsets in
     place and take the sigmoid themselves, with no chunk, concat or sigmoid
-    tensor.  ``max_offset`` clamps the offsets (None: exact).
+    tensor.  Any other shape takes :func:`~realvsr_tpu_torch.ops.
+    deform_conv.modulated_deform_conv` on the split (the plain op).
+    Parameters: ``conv_offset_mask.{weight,bias}``, ``weight`` (cout, cin //
+    groups, k, k), ``bias``.
     """
 
     def __init__(self, cin: int, cout: int, deformable_groups: int = 8,
-                 max_offset: float | None = None):
+                 max_offset: float | None = None, *, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 1, dilation: int = 1,
+                 groups: int = 1, extra_offset_mask: bool = True):
         super().__init__()
         self.deformable_groups = deformable_groups
         self.max_offset = max_offset
-        self.conv_offset_mask = Conv2d(cin, deformable_groups * 27, 3,
-                                       kernel=True, init="zeros")
-        self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3))
+        self.stride, self.padding = stride, padding
+        self.dilation, self.groups = dilation, groups
+        self.extra_offset_mask = extra_offset_mask
+        self.conv_offset_mask = Conv2d(
+            cin, deformable_groups * 3 * kernel_size ** 2, kernel_size,
+            stride, padding, init="zeros",
+            kernel=(kernel_size, stride, padding) == (3, 1, 1)
+            and cin % 16 == 0)
+        self.weight = nn.Parameter(
+            torch.empty(cout, cin // groups, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.empty(cout))
 
     def reset_parameters(self, gen: torch.Generator | None = None) -> None:
         _uniform_(self.weight, 1 / math.sqrt(self.weight[0].numel()), gen)
         nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor, offset_feat: torch.Tensor,
+    def forward(self, x: torch.Tensor,
+                offset_feat: torch.Tensor | None = None,
                 act: str | None = None) -> torch.Tensor:
-        return modulated_deform_conv_om(
-            x, self.conv_offset_mask(offset_feat), self.weight.to(x.dtype),
-            self.bias.to(x.dtype), self.deformable_groups, self.max_offset,
-            act)
+        if self.extra_offset_mask and offset_feat is None:
+            raise ValueError("DCNPack(extra_offset_mask=True) takes the "
+                             "offset features as its second input")
+        om = self.conv_offset_mask(offset_feat if self.extra_offset_mask
+                                   else x)
+        weight, bias = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        dg = self.deformable_groups
+        if kernel_shape(weight, self.stride, self.padding, self.dilation,
+                        self.groups):
+            return modulated_deform_conv_om(x, om, weight, bias, dg,
+                                            self.max_offset, act)
+        return modulated_deform_conv(
+            x, *split_om(om, dg), weight, bias, self.stride, self.padding,
+            self.dilation, dg, self.max_offset, act, self.groups)
+
+
+class DeformConvModule(nn.Module):
+    """Unmodulated DeformConv (dcn/deform_conv.py:160-196,
+    ``realvsr_tpu/models/common.py::DeformConvModule``): DCNv1 with the
+    offsets given by the caller, no bias, padding 0 by default; parameter
+    ``weight`` (cout, cin // groups, k, k), U(±1/sqrt(fan_in)).  At 3x3 /
+    p1 it runs the DCN kernels on the card, elsewhere the plain op
+    (:func:`~realvsr_tpu_torch.ops.deform_conv.deform_conv`)."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 0, dilation: int = 1,
+                 groups: int = 1, deformable_groups: int = 1):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.dilation, self.groups = dilation, groups
+        self.deformable_groups = deformable_groups
+        self.weight = nn.Parameter(
+            torch.empty(cout, cin // groups, kernel_size, kernel_size))
+
+    def reset_parameters(self, gen: torch.Generator | None = None) -> None:
+        _uniform_(self.weight, 1 / math.sqrt(self.weight[0].numel()), gen)
+
+    def forward(self, x: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+        return deform_conv(x, offset, self.weight.to(x.dtype), self.stride,
+                           self.padding, self.dilation, self.groups,
+                           self.deformable_groups)
 
 
 class Upsampler(nn.Module):

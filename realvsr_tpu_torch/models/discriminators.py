@@ -154,9 +154,13 @@ class UNetDiscriminator(_Model):
 
 
 def _avg_pool_3x3_s2_nopad_count(x: torch.Tensor) -> torch.Tensor:
-    """AvgPool2d(3, 2, padding=1, count_include_pad=False) on NHWC."""
-    return F.avg_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1,
-                        count_include_pad=False).permute(0, 2, 3, 1)
+    """AvgPool2d(3, 2, padding=1, count_include_pad=False) on NHWC, pooled
+    on an NCHW copy: on CUDA (torch 2.11) avg_pool2d's backward of the
+    channels-last view with these overlapping windows is wrong, as TSA's
+    (``models/common.py::_nchw_pool``); tests/test_torch_cuda.py holds it."""
+    return F.avg_pool2d(x.permute(0, 3, 1, 2).contiguous(), 3, 2, 1,
+                        count_include_pad=False).permute(0, 2, 3, 1) \
+        .contiguous()
 
 
 class _Multiscale(_Model):

@@ -13,7 +13,9 @@ interpolation matrices for its matrix unit; that geometry (``block``,
 ``chunk_blocks``, ``frame_fold``, ``frame_gemm``) exists only for Mosaic
 (``dcn_block_kernel.py:1-35``) and is not carried here, nor is
 ``use_pallas``.  On the H100 the clamped forward is the function of the
-hand-written DCN forward ``csrc/dcn_fwd.cu`` (kernel 1's counterpart) with
+hand-written DCN forward (kernel 1's counterpart: ``csrc/dcn_fwd.cu`` or
+``csrc/dcn_narrow.cu``, as ``ops/kernels/dcn.py::route`` picks it, over
+the same domain: any cin and cout, dg dividing cin, a mask or none) with
 ``max_offset=R``, which samples in place from NHWC with exact f32 positions:
 a CUDA tensor launches it, counted in ``modulated_deform_conv_block.
 launches``; a CPU tensor runs :func:`~realvsr_tpu_torch.ops.deform_conv.
@@ -44,10 +46,9 @@ def modulated_deform_conv_block(x: torch.Tensor, offset: torch.Tensor,
     """DCNv2 forward with the offsets clamped to [-int(R), int(R)], NHWC.
 
     x: (B, H, W, C); offset: (B, H, W, dg*9*2) laid out (dg, tap, (dy,
-    dx)); mask: (B, H, W, dg*9) after the sigmoid, or None for ones; weight
-    (cout, C, 3, 3) (OIHW; the kernels take cout = C at the widths of
-    ``ops/kernels/dcn.py::route``); bias (cout,) or
-    None.  Forward only.
+    dx)); mask: (B, H, W, dg*9) after the sigmoid, or None for ones (no
+    mask is read or made); weight (cout, C, 3, 3) (OIHW, any cout); bias
+    (cout,) or None.  Forward only.
     """
     if tuple(weight.shape[2:]) != (3, 3) or padding != 1:
         raise ValueError("block path: 3x3/s1/p1 only")
@@ -56,9 +57,6 @@ def modulated_deform_conv_block(x: torch.Tensor, offset: torch.Tensor,
     if x.device.type == "cpu":
         return modulated_deform_conv_plain(x, offset, mask, weight, bias, 1,
                                            1, 1, dg, r)
-    if mask is None:
-        mask = torch.ones(*x.shape[:3], dg * 9, device=x.device,
-                          dtype=x.dtype)
     out = launch_fwd(x, offset, mask, weight, bias, dg, None, r)
     modulated_deform_conv_block.launches += 1
     return out

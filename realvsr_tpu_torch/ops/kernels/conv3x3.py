@@ -65,11 +65,13 @@ LINE = 128         # bytes of one channel chunk: a row of the swizzle
 
 
 def conv3x3_plain(x, weight, bias=None, act=None, residual=None, x2=None):
-    """The kernel's function in plain PyTorch: conv in f32, + bias, act,
-    cast to the input type, + residual (in the input type)."""
+    """The kernel's function in plain PyTorch: conv in f32 (f64 for a
+    float64 input), + bias, act, cast to the input type, + residual (in the
+    input type)."""
     xin = x if x2 is None else torch.cat([x, x2], dim=-1)
-    y = F.conv2d(xin.permute(0, 3, 1, 2).float(), weight.float(),
-                 None if bias is None else bias.float(), padding=1)
+    ct = torch.promote_types(x.dtype, torch.float32)
+    y = F.conv2d(xin.permute(0, 3, 1, 2).to(ct), weight.to(ct),
+                 None if bias is None else bias.to(ct), padding=1)
     y = apply_act(y, act).permute(0, 2, 3, 1).to(x.dtype)
     if residual is not None:
         y = y + residual

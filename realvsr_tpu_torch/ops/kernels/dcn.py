@@ -1,7 +1,9 @@
-"""Kernels 1 and 2: DCNv2 forward and backward on Hopper
-(``csrc/dcn_fwd.cu``, ``csrc/dcn_bwd.cu`` at 64 and 128 channels in 8
-groups, and ``csrc/dcn_narrow.cu`` at every other width up to 64; sampling
-in ``csrc/dcn_sample.cuh``).
+"""Kernels 1 and 2: DCN forward and backward on Hopper
+(``csrc/dcn_fwd.cu``, ``csrc/dcn_bwd.cu`` at 64 -> 64 and 128 -> 128
+channels in 8 groups with a mask, and ``csrc/dcn_narrow.cu`` at every other
+3x3 / s1 / p1 shape: any input and output widths, any groups dividing the
+input, with a mask or without one (DCNv1); sampling in
+``csrc/dcn_sample.cuh``).
 
 The forward replaces ``realvsr_tpu/ops/pallas/dcn_frame_kernel.py::
 dcn_frame_fused`` (input prep ``realvsr_tpu/ops/deform_conv_block.py::
@@ -17,23 +19,27 @@ a shared-memory footprint and folds dW into the same pass; see the sources.
 Positions are exact f32: the TPU kernels' int16 fixed-point positions and
 lane panels are not carried over.
 
-The wrappers pick the kernel from the tensors' widths (input channels C =
-output channels, ``dg`` deformable groups; :func:`route`):
+The wrappers pick the kernel from the tensors' widths (``cin`` input and
+``cout`` output channels, ``dg`` deformable groups, a mask or none;
+:func:`route`), over the whole domain of the TPU kernel they replace:
 
-* (64, 8) and (128, 8): the wgmma pair ``dcn_fwd.cu`` / ``dcn_bwd.cu``;
-* any other C <= 64 with dg dividing C (16 in 4, the repo's debug configs;
-  32 in 4 or 8, 48 in 8, 64 in 4, ...): ``dcn_narrow.cu``, a simple kernel
-  each way (one pixel a thread, the tap products on the f32 cores, dx and
-  dW summed with f32 atomics), as the wgmma layouts (128-byte weight
-  chunks, 8- or 16-channel dx footprints) do not fit;
-* anything else (C above 64 but 128 in 8 groups: 256, or 128 in 4) raises a
-  ValueError naming ``ROADMAP.md``, queue 2; nothing falls back to the
-  plain version.
+* 64 -> 64 and 128 -> 128 in 8 groups with a mask: the wgmma pair
+  ``dcn_fwd.cu`` / ``dcn_bwd.cu``;
+* every other shape with dg dividing cin (16 in 4, the repo's debug
+  configs; 64 -> 32, 96 in 4, 256 in 8, DCNv1 at any width, ...):
+  ``dcn_narrow.cu``, a simple kernel each way (one pixel a thread, the tap
+  products on the f32 cores, dx and dW summed with f32 atomics; the
+  outputs tiled over the grid and the weight staged by tiles, taps or
+  chunks where it outgrows shared memory), as the wgmma layouts (128-byte
+  weight chunks, 8- or 16-channel dx footprints) do not fit;
+* dg not dividing cin raises a ValueError, as the JAX package cannot run
+  it either; nothing falls back to the plain version.
 
 Two forms of the offsets and mask, one kernel each way:
 
 * separate: ``offset`` (B, H, W, dg*18) and ``mask`` (B, H, W, dg*9) after
-  the sigmoid — :func:`dcn_fwd`, :func:`dcn_bwd`, :func:`dcn_autograd`;
+  the sigmoid, or None (DCNv1: no mask read, none made, no mask gradient)
+  — :func:`dcn_fwd`, :func:`dcn_bwd`, :func:`dcn_autograd`;
 * in place: ``om``, DCNPack's (B, H, W, dg*27) ``conv_offset_mask`` output
   (offsets in channels [0, dg*18), mask logits after them), read where it
   lies; the kernels take the sigmoid of the logits (rounded to the input
@@ -75,22 +81,24 @@ _BWD_FUNCS = tuple(
                       _I, _P, _I, _I, _I, _I, _F, _I, _I, _P))
     for s in _build.SUFFIX.values())
 # x, off, off_stride, msk, msk_stride, logits, weight, bias, out, B, H, W,
-# C, G, act, max_off, clamp, stream; then the backward's, as dcn_bwd's
-# without wt and rf and with G after C
+# Ci, Co, G, act, max_off, clamp, stream; then the backward's, as dcn_bwd's
+# without wt and rf and with Ci, Co, G in place of C
 _NARROW_FUNCS = tuple(
     (f"dcn_narrow_fwd_{s}", (_P, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I,
-                             _I, _I, _I, _F, _I, _P))
+                             _I, _I, _I, _I, _F, _I, _P))
     for s in _build.SUFFIX.values()) + tuple(
     (f"dcn_narrow_bwd_{s}", (_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P,
-                             _I, _P, _I, _I, _I, _I, _I, _F, _I, _P))
+                             _I, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P))
     for s in _build.SUFFIX.values())
 C, GROUPS, COUT = 64, 8, 64   # the flagship's width: channels, groups, outputs
-WGMMA_WIDTHS = ((64, 8), (128, 8))  # dcn_fwd.cu / dcn_bwd.cu
-NARROW_MAX = 64               # dcn_narrow.cu: kCMax, the widest C it takes
+WGMMA_WIDTHS = ((64, 8), (128, 8))  # dcn_fwd.cu / dcn_bwd.cu: C -> C, a mask
 NARROW = (16, 4)              # the debug configs' width, on dcn_narrow.cu
 NARROW_RUN = 256              # dcn_narrow.cu: kThreads, pixels of a block / run
 NARROW_BLOCKS_PER_SM = 4      # dcn_narrow.cu: kBwdBlocksPerSm, at most
 NARROW_CO = 16                # dcn_narrow.cu: kCo, a forward thread's sums
+NARROW_FWD_BUDGET = 160 * 1024  # dcn_narrow.cu: kFwdBudget
+NARROW_BWD_BUDGET = 160 * 1024  # dcn_narrow.cu: kBwdBudget
+NARROW_CHUNK_CO = 32          # dcn_narrow.cu: kChunkCo
 _SMEM_MAX, _SMEM_SM, _LINE = 232448, 228 * 1024, 128
 # tile rows of both wgmma kernels at C = 64 (dcn_fwd.cu: Shape::TH,
 # dcn_bwd.cu: Layout::TH), of 16 pixels (forward) or 32 (backward); each
@@ -100,19 +108,73 @@ BWD_TW = 32                   # dcn_bwd.cu: kTW
 RF_MAX = 8                    # dcn_bwd.cu: kRfMax
 
 
-def route(c: int, dg: int) -> str:
-    """The kernel pair that takes C channels (in and out) in ``dg``
-    deformable groups: "wgmma" (:data:`WGMMA_WIDTHS`), "narrow" (any other
-    C <= :data:`NARROW_MAX` with dg dividing C); raises a ValueError on
-    anything else."""
-    if (c, dg) in WGMMA_WIDTHS:
+def route(cin: int, cout: int | None = None, dg: int = GROUPS,
+          has_mask: bool = True) -> str:
+    """The kernel pair that takes ``cin`` -> ``cout`` channels (``cout``
+    None: ``cin``) in ``dg`` deformable groups, with a mask or without:
+    "wgmma" (C -> C at :data:`WGMMA_WIDTHS`, with a mask), "narrow" (every
+    other shape with dg dividing cin: ``dcn_narrow.cu``).  Raises a
+    ValueError where dg does not divide cin, which the JAX package cannot
+    run either (its offsets are a reshape of the channels into dg groups)."""
+    cout = cin if cout is None else cout
+    if not (cin >= 1 and cout >= 1 and dg >= 1 and cin % dg == 0):
+        raise ValueError(
+            f"no DCN for {cin} -> {cout} channels in {dg} deformable "
+            "groups: the groups must divide the input channels (as in the "
+            "JAX package, whose offsets split the channels into them)")
+    if has_mask and cin == cout and (cin, dg) in WGMMA_WIDTHS:
         return "wgmma"
-    if 1 <= c <= NARROW_MAX and dg >= 1 and c % dg == 0:
-        return "narrow"
-    raise ValueError(
-        f"no DCN kernel for C = {c} in {dg} deformable groups: the kernels "
-        f"take C = 64 or 128 in 8 groups, or C <= {NARROW_MAX} in any "
-        "number of groups dividing C (more widths: ROADMAP.md, queue 2)")
+    return "narrow"
+
+
+def _chunk_of(cpg: int) -> int:
+    """``dcn_narrow.cu::chunk_of``: channels of a group read at once."""
+    return 8 if cpg % 8 == 0 else 4 if cpg % 4 == 0 else \
+        2 if cpg % 2 == 0 else 1
+
+
+def narrow_fwd_plan(cin: int, cout: int) -> tuple[int, int]:
+    """``dcn_narrow.cu::fwd_plan``: (outputs a block's tile, taps of the
+    weight resident at once): all 9 taps of the widest tile of whole
+    :data:`NARROW_CO`-output chunks within the forward budget, else 16
+    outputs a tap at a time."""
+    def smem(cot, ntap):
+        return (ntap * cin * cot + cot) * 4
+    cot = -(-cout // NARROW_CO) * NARROW_CO
+    while cot > NARROW_CO and smem(cot, 9) > NARROW_FWD_BUDGET:
+        cot -= NARROW_CO
+    if smem(cot, 9) <= NARROW_FWD_BUDGET:
+        return cot, 9
+    return NARROW_CO, 1
+
+
+def _chunk_ci(cin, cpg, ch, most):
+    if cpg <= most:
+        return min(most // cpg * cpg, cin)
+    k = most // ch * ch
+    while cpg % k:
+        k -= ch
+    return k
+
+
+def _bwd_smem(kc, ko, one_co):
+    return (kc * ko + NARROW_RUN * (ko + 1)
+            + (1 if one_co else 2) * NARROW_RUN * (kc + 1)) * 4
+
+
+def narrow_bwd_plan(cin: int, cout: int, dg: int) -> tuple[int, int, bool]:
+    """``dcn_narrow.cu::bwd_plan``: (input channels a chunk, outputs a g
+    chunk, whole-row form): the whole-row form (the run's g staged once,
+    ``cout`` wide) with the widest chunk of cin, 64, 32, 16 or 8 input
+    channels within the backward budget; else the chunked form (g and the
+    weight in chunks of :data:`NARROW_CHUNK_CO` outputs)."""
+    cpg = cin // dg
+    ch = _chunk_of(cpg)
+    for most in (cin, 64, 32, 16, 8):
+        kc = _chunk_ci(cin, cpg, ch, most)
+        if _bwd_smem(kc, cout, True) <= NARROW_BWD_BUDGET:
+            return kc, cout, True
+    return _chunk_ci(cin, cpg, ch, NARROW_CHUNK_CO), NARROW_CHUNK_CO, False
 
 
 def tile_rows(dtype: torch.dtype, c: int = C, bwd: bool = False) -> int:
@@ -128,14 +190,17 @@ def _es(dtype):
     return torch.tensor([], dtype=dtype).element_size()
 
 
-def fwd_smem_bytes(dtype: torch.dtype, c: int = C, dg: int = GROUPS) -> int:
+def fwd_smem_bytes(dtype: torch.dtype, c: int = C, dg: int = GROUPS,
+                   cout: int | None = None, has_mask: bool = True) -> int:
     """Shared memory of a forward block: ``dcn_fwd.cu::Shape::kSmem`` (the
     packed weight, resident at 64 channels and a ring of two taps at 128,
     and two A stages of a tile's pixels); on ``dcn_narrow.cu`` the f32
-    weight, outputs padded to :data:`NARROW_CO`, and bias."""
-    if route(c, dg) == "narrow":
-        cp = -(-c // NARROW_CO) * NARROW_CO
-        return (9 * c * cp + cp) * 4
+    weight of the block's output tile (its resident taps,
+    :func:`narrow_fwd_plan`) and its bias."""
+    cout = c if cout is None else cout
+    if route(c, cout, dg, has_mask) == "narrow":
+        cot, ntap = narrow_fwd_plan(c, cout)
+        return (ntap * c * cot + cot) * 4
     chunks = c * _es(dtype) // _LINE
     weight = (9 if c == 64 else 2) * chunks * c * _LINE
     return weight + 2 * chunks * tile_rows(dtype, c) * 16 * _LINE
@@ -160,14 +225,17 @@ def footprint(tile_y0: int, tile_x0: int, rf: int, th: int):
 
 
 def bwd_smem_bytes(dtype: torch.dtype, rf: int, c: int = C,
-                   dg: int = GROUPS) -> int:
+                   dg: int = GROUPS, cout: int | None = None,
+                   has_mask: bool = True) -> int:
     """Shared memory of a backward block (``dcn_bwd.cu::smem_bytes``: the
     group's weight, resident at 64 channels and a ring of two taps at 128,
     the g tile, dS, two S buffers, the block reduction and the dx footprint
     of C / 8 + 1 ints a pixel); on ``dcn_narrow.cu`` (no footprint) one
-    tap's f32 weight and a run's g and S, rows padded by one."""
-    if route(c, dg) == "narrow":
-        return (c * c + 2 * NARROW_RUN * (c + 1)) * 4
+    tap's f32 weight for a chunk of inputs and a run's g and S (and, in the
+    chunked form, dS), rows padded by one (:func:`narrow_bwd_plan`)."""
+    cout = c if cout is None else cout
+    if route(c, cout, dg, has_mask) == "narrow":
+        return _bwd_smem(*narrow_bwd_plan(c, cout, dg))
     es = _es(dtype)
     pad, cpg = 16 // es, c // GROUPS
     th = tile_rows(dtype, c, bwd=True)
@@ -180,24 +248,27 @@ def bwd_smem_bytes(dtype: torch.dtype, rf: int, c: int = C,
     return fixed + fh * fw * (cpg + 1) * 4
 
 
-def narrow_blocks_per_sm(c: int) -> int:
-    """Backward blocks an SM of ``dcn_narrow.cu`` at C channels
-    (``bwd_launch``'s per_sm): at most :data:`NARROW_BLOCKS_PER_SM`, as
-    shared memory allows."""
-    smem = (c * c + 2 * NARROW_RUN * (c + 1)) * 4
+def narrow_blocks_per_sm(c: int, cout: int | None = None,
+                         dg: int = 1) -> int:
+    """Backward blocks an SM of ``dcn_narrow.cu`` at ``c`` -> ``cout``
+    channels in ``dg`` groups (``bwd_launch_form``'s per_sm): at most
+    :data:`NARROW_BLOCKS_PER_SM`, as shared memory allows."""
+    smem = _bwd_smem(*narrow_bwd_plan(c, c if cout is None else cout, dg))
     return min(NARROW_BLOCKS_PER_SM, _SMEM_SM // (smem + 1024))
 
 
 def bwd_grid(b: int, h: int, w: int, sms: int, dtype: torch.dtype,
-             c: int = C, dg: int = GROUPS):
+             c: int = C, dg: int = GROUPS, cout: int | None = None,
+             has_mask: bool = True):
     """The backward's walk: for each block of its grid, (group, tiles); a
     tile is ``(b * tiles_y + ty) * tiles_x + tx`` (``dcn_bwd.cu``).  On
     ``dcn_narrow.cu`` a block takes every group (group None) and its tiles
     are runs of :data:`NARROW_RUN` consecutive pixels, run r the pixels
     ``[r * NARROW_RUN, (r + 1) * NARROW_RUN)``."""
-    if route(c, dg) == "narrow":
+    cout = c if cout is None else cout
+    if route(c, cout, dg, has_mask) == "narrow":
         runs = -(-b * h * w // NARROW_RUN)
-        blocks = min(runs, narrow_blocks_per_sm(c) * sms)
+        blocks = min(runs, narrow_blocks_per_sm(c, cout, dg) * sms)
         return [(None, list(range(i, runs, blocks))) for i in range(blocks)]
     th = tile_rows(dtype, c, bwd=True)
     ntiles = b * -(-h // th) * -(-w // BWD_TW)
@@ -210,8 +281,9 @@ def _clamp_args(max_offset):
     return (0.0, 0) if max_offset is None else (float(max_offset), 1)
 
 
-def _check_x(name, x, dg):
-    """Validate the input both kernels read; returns (b, h, w, c, route)."""
+def _check_x(name, x, weight, dg, has_mask):
+    """Validate the input both kernels read; returns (b, h, w, cin, cout,
+    route)."""
     if not x.is_cuda:
         raise ValueError(f"{name}: no kernel for device {x.device}")
     if x.dtype not in _build.SUFFIX:
@@ -219,47 +291,58 @@ def _check_x(name, x, dg):
     if x.dim() != 4:
         raise ValueError(f"{name}: x must be (B, H, W, C)")
     b, h, w, c = x.shape
+    cout = weight.shape[0]
     try:
-        kernel = route(c, dg)
+        kernel = route(c, cout, dg, has_mask)
     except ValueError as e:
         raise ValueError(f"{name}: {e}") from None
     if b * h * w >= 2 ** 31:
         raise ValueError(f"{name}: {b * h * w} pixels exceed 32-bit indices")
     _build.check_tensor(x, "x", (b, h, w, c), x.dtype, x.device)
-    return b, h, w, c, kernel
+    _build.check_tensor(weight, "weight", (cout, c, 3, 3), x.dtype, x.device)
+    return b, h, w, c, cout, kernel
 
 
 def _sources(x, offset, mask, om, dg):
     """(offset ptr, its pixel stride, mask ptr, its stride, logits) for the
-    kernels, after checking the tensors they come from."""
+    kernels, after checking the tensors they come from, and what must live
+    until the launch.  The kernels load each (dy, dx) pair as one vector,
+    so offset rows must be an even number of elements apart: ``om`` in an
+    odd number of groups (rows of 27 dg) has its offsets copied, its mask
+    logits read in place."""
     b, h, w, _ = x.shape
     dt, dev = x.dtype, x.device
     if om is not None:
         _build.check_tensor(om, "om", (b, h, w, dg * 27), dt, dev)
-        return (om.data_ptr(), dg * 27, om.data_ptr() + dg * 18
-                * om.element_size(), dg * 27, 1)
+        mask_ptr = om.data_ptr() + dg * 18 * om.element_size()
+        if dg % 2:
+            off = om[..., :dg * 18].contiguous()
+            return (off.data_ptr(), dg * 18, mask_ptr, dg * 27, 1), off
+        return (om.data_ptr(), dg * 27, mask_ptr, dg * 27, 1), None
     _build.check_tensor(offset, "offset", (b, h, w, dg * 18), dt, dev)
+    if mask is None:   # DCNv1: the kernel reads no mask
+        return (offset.data_ptr(), dg * 18, None, 0, 0), None
     _build.check_tensor(mask, "mask", (b, h, w, dg * 9), dt, dev)
-    return offset.data_ptr(), dg * 18, mask.data_ptr(), dg * 9, 0
+    return (offset.data_ptr(), dg * 18, mask.data_ptr(), dg * 9, 0), None
 
 
 def _launch_fwd(x, offset, mask, om, weight, bias, dg, act, max_offset):
     if act not in _build.ACTS:
         raise ValueError(f"dcn_fwd: unknown activation {act!r}")
-    b, h, w, c, kernel = _check_x("dcn_fwd", x, dg)
-    src = _sources(x, offset, mask, om, dg)
+    has_mask = om is not None or mask is not None
+    b, h, w, c, cout, kernel = _check_x("dcn_fwd", x, weight, dg, has_mask)
+    src, _keep = _sources(x, offset, mask, om, dg)
     dt, dev = x.dtype, x.device
-    if fwd_smem_bytes(dt, c, dg) > _SMEM_MAX:
+    if fwd_smem_bytes(dt, c, dg, cout, has_mask) > _SMEM_MAX:
         raise ValueError("dcn_fwd: shared memory exceeded")
-    _build.check_tensor(weight, "weight", (c, c, 3, 3), dt, dev)
     if bias is not None:
-        _build.check_tensor(bias, "bias", (c,), dt, dev)
-    out = torch.empty(b, h, w, c, device=dev, dtype=dt)
+        _build.check_tensor(bias, "bias", (cout,), dt, dev)
+    out = torch.empty(b, h, w, cout, device=dev, dtype=dt)
     sfx = _build.SUFFIX[dt]
     if kernel == "narrow":
         fn = getattr(_build.load("dcn_narrow", _NARROW_FUNCS),
                      f"dcn_narrow_fwd_{sfx}")
-        weights, widths = (weight.data_ptr(),), (c, dg)
+        weights, widths = (weight.data_ptr(),), (c, cout, dg)
     else:
         packed = torch.empty(c * 9 * c, device=dev, dtype=dt)
         fn = getattr(_build.load("dcn_fwd", _FWD_FUNCS), f"dcn_fwd_{sfx}")
@@ -276,7 +359,8 @@ def _launch_fwd(x, offset, mask, om, weight, bias, dg, act, max_offset):
 
 def dcn_fwd_plain(x, offset, mask, weight, bias=None, deformable_groups=8,
                   act=None, max_offset=None):
-    """The forward kernel's function in plain PyTorch (3x3 / s1 / p1)."""
+    """The forward kernel's function in plain PyTorch (3x3 / s1 / p1; mask
+    None: DCNv1)."""
     return modulated_deform_conv_plain(
         x, offset, mask, weight, bias, 1, 1, 1, deformable_groups,
         max_offset, act)
@@ -293,15 +377,16 @@ def dcn_fwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
             weight: torch.Tensor, bias: torch.Tensor | None = None,
             deformable_groups: int = 8, act: str | None = None,
             max_offset: float | None = None) -> torch.Tensor:
-    """DCNv2 3x3 / s1 / p1 forward with fused bias and activation.
+    """DCN 3x3 / s1 / p1 forward (DCNv2, or DCNv1 with no mask) with fused
+    bias and activation.
 
-    x: (B, H, W, C) contiguous NHWC; offset: (B, H, W, dg*9*2) laid out
-    (dg, tap, (dy, dx)); mask: (B, H, W, dg*9) after the sigmoid; weight
-    (C, C, 3, 3); bias (C,) or None; act None / "relu" / "lrelu";
-    max_offset None (exact) or R (offsets clamped to [-R, R]); (C, dg) as
-    :func:`route` takes them: (64, 8), (128, 8), or C <= 64 in any dg
-    dividing C.  All of one dtype, bf16 or f32 (on the wgmma pair f32 runs
-    the tensor cores in TF32; on the narrow kernels the f32 cores).
+    x: (B, H, W, Cin) contiguous NHWC; offset: (B, H, W, dg*9*2) laid out
+    (dg, tap, (dy, dx)); mask: (B, H, W, dg*9) after the sigmoid, or None
+    (DCNv1); weight (Cout, Cin, 3, 3); bias (Cout,) or None; act None /
+    "relu" / "lrelu"; max_offset None (exact) or R (offsets clamped to [-R,
+    R]); any widths with dg dividing Cin (:func:`route`).  All of one
+    dtype, bf16 or f32 (on the wgmma pair f32 runs the tensor cores in
+    TF32; on the narrow kernels the f32 cores).
     """
     if x.device.type == "cpu":
         return dcn_fwd_plain(x, offset, mask, weight, bias, deformable_groups,
@@ -342,23 +427,27 @@ dcn_fwd.launches = 0
 def _grads(x, offset, mask, om, weight, g, deformable_groups, max_offset):
     """Autograd of the plain op (no bias, no activation) for the output
     cotangent ``g``, w.r.t. x, the offsets and mask (or ``om``) and the
-    weight."""
+    weight; the mask's None where there is none."""
     with torch.enable_grad():
         srcs = (offset, mask) if om is None else (om,)
-        leaves = [t.detach().requires_grad_() for t in (x, *srcs, weight)]
+        leaves = [None if t is None else t.detach().requires_grad_()
+                  for t in (x, *srcs, weight)]
         off_mask = (leaves[1:3] if om is None
                     else split_om(leaves[1], deformable_groups))
         out = modulated_deform_conv_plain(
             leaves[0], *off_mask, leaves[-1], None, 1, 1, 1,
             deformable_groups, max_offset, None)
-        return torch.autograd.grad(out, leaves, g)
+        got = iter(torch.autograd.grad(
+            out, [t for t in leaves if t is not None], g))
+        return tuple(None if t is None else next(got) for t in leaves)
 
 
 def dcn_bwd_plain(x, offset, mask, weight, g, deformable_groups=8,
                   max_offset=None):
     """The backward kernel's function in plain PyTorch: the gradients of
     :func:`modulated_deform_conv_plain` (no bias, no activation) with
-    output cotangent ``g``.  Returns (dx, doffset, dmask, dweight)."""
+    output cotangent ``g``.  Returns (dx, doffset, dmask, dweight), dmask
+    None where mask is None."""
     return _grads(x, offset, mask, None, weight, g, deformable_groups,
                   max_offset)
 
@@ -372,19 +461,21 @@ def dcn_bwd_om_plain(x, om, weight, g, deformable_groups=8,
 
 
 def _launch_bwd(x, offset, mask, om, weight, g, dg, max_offset):
-    b, h, w, c, kernel = _check_x("dcn_bwd", x, dg)
-    src = _sources(x, offset, mask, om, dg)
+    has_mask = om is not None or mask is not None
+    b, h, w, c, cout, kernel = _check_x("dcn_bwd", x, weight, dg, has_mask)
+    src, _keep = _sources(x, offset, mask, om, dg)
     dt, dev = x.dtype, x.device
     rf = footprint_radius(max_offset)
-    if bwd_smem_bytes(dt, rf, c, dg) > _SMEM_MAX:
+    if bwd_smem_bytes(dt, rf, c, dg, cout, has_mask) > _SMEM_MAX:
         raise ValueError("dcn_bwd: shared memory exceeded")
-    _build.check_tensor(weight, "weight", (c, c, 3, 3), dt, dev)
-    _build.check_tensor(g, "g", (b, h, w, c), dt, dev)
+    _build.check_tensor(g, "g", (b, h, w, cout), dt, dev)
     dx = torch.zeros(b, h, w, c, device=dev, dtype=torch.float32)
-    dw = torch.zeros(c, 9, c, device=dev, dtype=torch.float32)
+    dw = torch.zeros(cout, 9, c, device=dev, dtype=torch.float32)
     if om is None:
-        doffset, dmask = torch.empty_like(offset), torch.empty_like(mask)
-        dsts = (doffset.data_ptr(), dg * 18, dmask.data_ptr(), dg * 9)
+        doffset = torch.empty_like(offset)
+        dmask = None if mask is None else torch.empty_like(mask)
+        dsts = (doffset.data_ptr(), dg * 18,
+                None if dmask is None else dmask.data_ptr(), dg * 9)
     else:
         dom = torch.empty_like(om)
         dsts = (dom.data_ptr(), dg * 27,
@@ -393,7 +484,7 @@ def _launch_bwd(x, offset, mask, om, weight, g, dg, max_offset):
     if kernel == "narrow":
         fn = getattr(_build.load("dcn_narrow", _NARROW_FUNCS),
                      f"dcn_narrow_bwd_{sfx}")
-        weights, widths, radius = (weight.data_ptr(),), (c, dg), ()
+        weights, widths, radius = (weight.data_ptr(),), (c, cout, dg), ()
     else:   # at 128 channels the kernel lays the weight out in wt first
         wt = torch.empty(c * 9 * c, device=dev, dtype=dt) if c == 128 else None
         fn = getattr(_build.load("dcn_bwd", _BWD_FUNCS), f"dcn_bwd_{sfx}")
@@ -406,7 +497,7 @@ def _launch_bwd(x, offset, mask, om, weight, g, dg, max_offset):
                   torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "dcn_bwd")
     dcn_bwd.launches += 1
-    dweight = dw.view(c, 3, 3, c).permute(0, 3, 1, 2).to(dt)
+    dweight = dw.view(cout, 3, 3, c).permute(0, 3, 1, 2).to(dt)
     if om is None:
         return dx.to(dt), doffset, dmask, dweight
     return dx.to(dt), dom, dweight
@@ -415,8 +506,9 @@ def _launch_bwd(x, offset, mask, om, weight, g, dg, max_offset):
 def dcn_bwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
             weight: torch.Tensor, g: torch.Tensor,
             deformable_groups: int = 8, max_offset: float | None = None):
-    """DCNv2 3x3 / s1 / p1 backward: (dx, doffset, dmask, dweight) for the
-    output cotangent ``g`` (B, H, W, C), taken before bias and activation.
+    """DCN 3x3 / s1 / p1 backward: (dx, doffset, dmask, dweight) for the
+    output cotangent ``g`` (B, H, W, Cout), taken before bias and
+    activation; dmask None where mask is None (DCNv1).
 
     Same inputs and layouts as :func:`dcn_fwd`.  dx and dweight are summed
     in f32 with atomics (the order of the sums changes from run to run) and

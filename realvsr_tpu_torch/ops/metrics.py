@@ -1,14 +1,18 @@
-"""Image quality metrics on the host: PSNR and MATLAB-equivalent SSIM.
+"""Image quality metrics: PSNR and MATLAB-equivalent SSIM.
 
 Numerics mirror the reference (``codes/utils/util.py:283-334``): 255-range
 inputs, 11-tap Gaussian window (sigma 1.5), 'valid' crop of 5 px per side.
-The numpy half of ``realvsr_tpu/ops/metrics.py``.
+The numpy functions (``*_np``, on the host) and the tensor ones
+(:func:`psnr`, :func:`ssim`, on either device, differentiable, with a
+``data_range``) of ``realvsr_tpu/ops/metrics.py``.
 """
 from __future__ import annotations
 
 import math
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 
 def _gaussian_window_11() -> np.ndarray:
@@ -67,3 +71,36 @@ def calculate_ssim_np(img1: np.ndarray, img2: np.ndarray) -> float:
             np.mean([_ssim_2d_np(img1[..., i], img2[..., i]) for i in range(img1.shape[2])])
         )
     raise ValueError("Wrong input image dimensions.")
+
+
+def psnr(img1: torch.Tensor, img2: torch.Tensor,
+         data_range: float = 255.0) -> torch.Tensor:
+    """PSNR over the whole tensors, in f32; inputs in [0, data_range]
+    (the mean squared error floored at 1e-12, as the JAX package's)."""
+    mse = ((img1.float() - img2.float()) ** 2).mean()
+    return 20.0 * math.log10(data_range) - 10.0 * torch.log10(
+        mse.clamp_min(1e-12))
+
+
+def ssim(img1: torch.Tensor, img2: torch.Tensor,
+         data_range: float = 255.0) -> torch.Tensor:
+    """MATLAB-equivalent single-scale SSIM of two (H, W) images, in f32:
+    the 11-tap Gaussian window over the valid region, the mean of the SSIM
+    map."""
+    c1 = (0.01 * data_range) ** 2
+    c2 = (0.03 * data_range) ** 2
+    window = torch.as_tensor(_gaussian_window_11(), dtype=torch.float32,
+                             device=img1.device)[None, None]
+
+    def filt(v):
+        return F.conv2d(v[None, None], window)[0, 0]
+
+    x, y = img1.float(), img2.float()
+    mu1, mu2 = filt(x), filt(y)
+    mu1_sq, mu2_sq, mu1_mu2 = mu1 ** 2, mu2 ** 2, mu1 * mu2
+    sigma1_sq = filt(x * x) - mu1_sq
+    sigma2_sq = filt(y * y) - mu2_sq
+    sigma12 = filt(x * y) - mu1_mu2
+    ssim_map = ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / (
+        (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2))
+    return ssim_map.mean()

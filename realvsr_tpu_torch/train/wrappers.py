@@ -53,10 +53,12 @@ def _maybe_augment(opt: dict, gen, gt, lq):
 
 
 def _forward_train(model, lq: torch.Tensor) -> torch.Tensor:
-    """The training forward (JAX's ``_forward_train``), in f32."""
+    """The training forward (JAX's ``_forward_train``), in f32 (f64 for a
+    float64 model, as the parity tests run one)."""
     model.train()
     with updating_batch_stats(model):
-        return model(lq).float()
+        pred = model(lq)
+        return pred.to(torch.promote_types(pred.dtype, torch.float32))
 
 
 def _update(state, loss: torch.Tensor) -> None:

@@ -12,6 +12,7 @@ this file do not use.)
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from realvsr_tpu_torch.ops.kernels.check import (conv3x3_plain_grads,
                                                  grad_tolerance, max_abs_err,
@@ -600,40 +601,65 @@ def test_dcn_narrow_kernels_match_plain(cuda, dtype, shape, act, max_offset,
 
 
 def test_dcn_rejects_other_widths_without_fallback(cuda):
-    """C = 256 in 8 groups, 128 in 4, 96 in 8 (above 64, not 128 in 8) and
-    48 in 5 (groups not dividing C) have no kernel: a ValueError naming the
-    ROADMAP, no launch, no plain fallback."""
+    """The kernels' domain is the TPU kernel's: C = 256 in 8 groups, 128 in
+    4, 96 in 8 (refused before they were widened) and 64 -> 32 launch
+    ``dcn_narrow.cu``, one launch a call in every form and the block API;
+    the one shape left without a kernel, 48 in 5 (groups not dividing the
+    input channels, which JAX cannot run either), raises a ValueError with
+    no launch and no plain fallback."""
+    for c, dg, cout in ((256, 8, 256), (128, 4, 128), (96, 8, 96),
+                        (64, 8, 32)):
+        x, off, mask, wgt, bias, g = _width_inputs((1, 8, 16, c), dg,
+                                                   torch.float32, cuda,
+                                                   cout=cout)
+        n = (dcn_fwd.launches, dcn_bwd.launches,
+             modulated_deform_conv_block.launches)
+        t = _om(off, mask)
+        outs = [dcn_fwd(x, off, mask, wgt, bias, dg),
+                dcn_fwd_om(x, t, wgt, bias, dg),
+                modulated_deform_conv_block(x, off, mask, wgt, bias,
+                                            deformable_groups=dg,
+                                            max_offset=4)]
+        grads = [dcn_bwd(x, off, mask, wgt, g, dg),
+                 dcn_bwd_om(x, t, wgt, g, dg)]
+        torch.cuda.synchronize()
+        assert (dcn_fwd.launches - n[0], dcn_bwd.launches - n[1],
+                modulated_deform_conv_block.launches - n[2]) == (2, 2, 1)
+        assert all(o.shape == (1, 8, 16, cout) for o in outs)
+        assert grads[0][3].shape == grads[1][2].shape == (cout, c, 3, 3)
     n = (dcn_fwd.launches, dcn_bwd.launches)
-    for c, dg in ((256, 8), (128, 4), (96, 8), (48, 5)):
-        x = torch.randn(1, 8, 16, c, device=cuda)
-        w = torch.randn(c, c, 3, 3, device=cuda)
-        off = torch.zeros(1, 8, 16, dg * 18, device=cuda)
-        mask = torch.zeros(1, 8, 16, dg * 9, device=cuda)
-        with pytest.raises(ValueError, match="ROADMAP.md, queue 2"):
-            dcn_fwd(x, off, mask, w, None, dg)
-        with pytest.raises(ValueError, match="ROADMAP.md, queue 2"):
-            dcn_fwd_om(x, _om(off, mask + 0.5), w, None, dg)
-        with pytest.raises(ValueError, match="ROADMAP.md, queue 2"):
-            dcn_bwd(x, off, mask, w, torch.zeros_like(x), dg)
-        with pytest.raises(ValueError, match="ROADMAP.md, queue 2"):
-            dcn_bwd_om(x, _om(off, mask + 0.5), w, torch.zeros_like(x), dg)
-        with pytest.raises(ValueError, match="ROADMAP.md, queue 2"):
-            modulated_deform_conv_block(x, off, mask, w, None,
-                                        deformable_groups=dg, max_offset=4)
+    c, dg = 48, 5
+    x = torch.randn(1, 8, 16, c, device=cuda)
+    w = torch.randn(c, c, 3, 3, device=cuda)
+    off = torch.zeros(1, 8, 16, dg * 18, device=cuda)
+    mask = torch.zeros(1, 8, 16, dg * 9, device=cuda)
+    with pytest.raises(ValueError, match="groups must divide"):
+        dcn_fwd(x, off, mask, w, None, dg)
+    with pytest.raises(ValueError, match="groups must divide"):
+        dcn_fwd_om(x, _om(off, mask + 0.5), w, None, dg)
+    with pytest.raises(ValueError, match="groups must divide"):
+        dcn_bwd(x, off, mask, w, torch.zeros_like(x), dg)
+    with pytest.raises(ValueError, match="groups must divide"):
+        dcn_bwd_om(x, _om(off, mask + 0.5), w, torch.zeros_like(x), dg)
+    with pytest.raises(ValueError, match="groups must divide"):
+        modulated_deform_conv_block(x, off, mask, w, None,
+                                    deformable_groups=dg, max_offset=4)
     assert (dcn_fwd.launches, dcn_bwd.launches) == n
 
 
-def _width_inputs(shape, dg, dtype, dev, seed=0, std=2.5):
+def _width_inputs(shape, dg, dtype, dev, seed=0, std=2.5, cout=None):
     """x, offsets (std ``std`` px), mask, weight, bias and cotangent at any
-    width: C = shape[-1] channels in and out, ``dg`` groups."""
+    width: C = shape[-1] channels in, ``cout`` (None: C) out, ``dg``
+    groups."""
     b, h, w, c = shape
+    cout = c if cout is None else cout
     g = _gen(seed)
     x = torch.randn(b, h, w, c, generator=g)
     off = torch.randn(b, h, w, dg * 18, generator=g) * std
     mask = torch.rand(b, h, w, dg * 9, generator=g)
-    wgt = (torch.rand(c, c, 3, 3, generator=g) * 2 - 1) / (9 * c) ** 0.5
-    bias = torch.randn(c, generator=g) * 0.1
-    gout = torch.randn(b, h, w, c, generator=g)
+    wgt = (torch.rand(cout, c, 3, 3, generator=g) * 2 - 1) / (9 * c) ** 0.5
+    bias = torch.randn(cout, generator=g) * 0.1
+    gout = torch.randn(b, h, w, cout, generator=g)
     return [t.to(dev, dtype) for t in (x, off, mask, wgt, bias, gout)]
 
 
@@ -679,6 +705,111 @@ def test_dcn_other_widths_match_plain(cuda, c, dg, max_offset, dtype, om):
         assert max_abs_err(o, r) <= grad_tolerance(r)
     if max_offset is not None:
         assert not doff[off.abs() > max_offset].any()
+
+
+# the generalised dcn_narrow.cu over the TPU kernel's domain: (cin, cout,
+# dg, mask): cin != cout both ways, 96 in 4 groups (24 a group: chunks of
+# one group in the backward), 256 in 8 (the chunked backward, a 16-output
+# forward tile), DCNv1 at the wgmma pair's widths, 400 -> 24 (the forward's
+# weight streamed tap by tap), 6 -> 10 in 3 groups (2-element loads)
+GENERAL_SHAPES = [(64, 32, 8, True), (64, 32, 8, False), (32, 64, 8, True),
+                  (32, 64, 8, False), (96, 96, 4, True), (256, 256, 8, True),
+                  (64, 64, 8, False), (128, 128, 8, False), (16, 16, 4, False),
+                  (400, 24, 8, True), (6, 10, 3, True)]
+
+
+# each shape in both forms, the in-place om only with a mask (it always
+# carries one)
+GENERAL_CASES = [(*shape, om) for shape in GENERAL_SHAPES
+                 for om in ((False, True) if shape[3] else (False,))]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("max_offset", [4, None], ids=["r4", "exact"])
+@pytest.mark.parametrize(
+    "cin,cout,dg,has_mask,om", GENERAL_CASES,
+    ids=[f"{a}to{b}_dg{g}{'' if m else '_v1'}_{'om' if o else 'separate'}"
+         for a, b, g, m, o in GENERAL_CASES])
+def test_dcn_general_shapes_match_plain(cuda, cin, cout, dg, has_mask, om,
+                                        max_offset, dtype):
+    """The forward and backward of ``dcn_narrow.cu`` at cin != cout, wide
+    inputs and no mask, both forms (the in-place ``om`` only with a mask),
+    on a ragged shape of several runs, one launch each, against the plain
+    versions with check.py's tolerances; with no mask there is no mask
+    gradient."""
+    x, off, mask, wgt, bias, g = _width_inputs((2, 13, 21, cin), dg, dtype,
+                                               cuda, seed=cin + cout + dg,
+                                               cout=cout)
+    mask = mask if has_mask else None
+    n = (dcn_fwd.launches, dcn_bwd.launches)
+    if om:
+        t = _om(off, mask)
+        out = dcn_fwd_om(x, t, wgt, bias, dg, act="lrelu",
+                         max_offset=max_offset)
+        ref = dcn_fwd_om_plain(x, t, wgt, bias, dg, "lrelu", max_offset)
+        grads = dcn_bwd_om(x, t, wgt, g, dg, max_offset)
+        grefs = dcn_bwd_om_plain(x, t, wgt, g, dg, max_offset)
+    else:
+        out = dcn_fwd(x, off, mask, wgt, bias, dg, act="lrelu",
+                      max_offset=max_offset)
+        ref = dcn_fwd_plain(x, off, mask, wgt, bias, dg, "lrelu", max_offset)
+        grads = dcn_bwd(x, off, mask, wgt, g, dg, max_offset)
+        grefs = dcn_bwd_plain(x, off, mask, wgt, g, dg, max_offset)
+    torch.cuda.synchronize()
+    assert (dcn_fwd.launches - n[0], dcn_bwd.launches - n[1]) == (1, 1)
+    assert out.shape == ref.shape == (2, 13, 21, cout)
+    assert max_abs_err(out, ref) <= tolerance(ref)
+    for o, r in zip(grads, grefs):
+        if r is None:
+            assert o is None
+            continue
+        assert o.shape == r.shape and o.dtype == r.dtype
+        assert max_abs_err(o, r) <= grad_tolerance(r)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("padding", [1, 0], ids=["p1_kernel", "p0_columns"])
+def test_deform_conv_module_on_card_matches_cpu(cuda, dtype, padding):
+    """``DeformConvModule`` (DCNv1, external offsets) on the card: at 3x3 /
+    p1 it launches ``dcn_narrow.cu`` each way, at p0 it runs the plain op
+    (the columns a tap at a time) with no launch; forward and gradients
+    against the CPU in f32."""
+    from realvsr_tpu_torch.models.common import DeformConvModule
+
+    mods = {dev: DeformConvModule(32, 48, 3, padding=padding,
+                                  deformable_groups=4).to(dev)
+            for dev in ("cpu", "cuda")}
+    gen = torch.Generator().manual_seed(7)
+    mods["cpu"].reset_parameters(gen)
+    mods["cuda"].load_state_dict(mods["cpu"].state_dict())
+    ho = 17 if padding else 15
+    # inputs and weight rounded to the dtype first, for the CPU too: an
+    # offset's rounding moves its sample and so its position gradient
+    x = torch.randn(2, 17, 23, 32, generator=gen).to(dtype).float()
+    off = (torch.randn(2, ho, 23 - 2 * (1 - padding), 4 * 18,
+                       generator=gen) * 2).to(dtype).float()
+    cot = torch.randn(2, ho, 23 - 2 * (1 - padding), 48, generator=gen)
+    with torch.no_grad():
+        mods["cpu"].weight.copy_(mods["cpu"].weight.to(dtype).float())
+    res = {}
+    for dev in ("cpu", "cuda"):
+        dt = torch.float32 if dev == "cpu" else dtype
+        xs = x.to(dev, dt).detach().requires_grad_()
+        os_ = off.to(dev, dt).detach().requires_grad_()
+        mod = mods[dev].to(dt)
+        n = (dcn_fwd.launches, dcn_bwd.launches)
+        y = mod(xs, os_)
+        (y.float() * cot.to(dev)).sum().backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert (dcn_fwd.launches - n[0], dcn_bwd.launches - n[1]) == \
+                ((1, 1) if padding else (0, 0))
+        res[dev] = [t.detach().float().cpu() for t in
+                    (y, xs.grad, os_.grad, mod.weight.grad)]
+    tol = 5e-2 if dtype == torch.bfloat16 else 2e-3
+    for a, b in zip(res["cuda"], res["cpu"]):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=tol * b.abs().max().item())
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1042,3 +1173,148 @@ def test_degradation_on_card_matches_cpu(cuda):
         torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)
     torch.testing.assert_close(matlab_imresize(hr.to(cuda), 1 / 3).cpu(),
                                matlab_imresize(hr, 1 / 3), atol=1e-5, rtol=0)
+
+
+def _card_vs_cpu_grad(fn, x, cot, cuda):
+    """(output, input gradient) of ``fn`` on the CPU and on the card, for
+    the same NHWC input ``x`` and output cotangent ``cot``."""
+    outs = []
+    for dev in ("cpu", cuda):
+        leaf = x.to(dev).clone().requires_grad_()
+        y = fn(leaf, dev)
+        (y * cot.to(dev)).sum().backward()
+        outs.append((y.detach().cpu(), leaf.grad.cpu()))
+    return outs
+
+
+def test_v2_discriminator_pool_backward_on_card_matches_cpu(cuda):
+    """MultiscaleDiscriminator_v2's 3x3 / stride 2 / pad 1 average pool
+    (count_include_pad=False), which pools a channels-last view of an NHWC
+    tensor with overlapping windows (the pattern of torch 2.11's CUDA
+    avg_pool2d backward fault, see the TSA test above): forward and input
+    gradient, card against CPU in f32."""
+    from realvsr_tpu_torch.models.discriminators import (
+        _avg_pool_3x3_s2_nopad_count)
+
+    g = _gen(31)
+    for shape in ((2, 16, 16, 128), (4, 33, 47, 3)):
+        b, h, w, c = shape
+        x = torch.randn(*shape, generator=g)
+        cot = torch.randn(b, (h + 1) // 2, (w + 1) // 2, c, generator=g)
+        (y0, d0), (y1, d1) = _card_vs_cpu_grad(
+            lambda t, dev: _avg_pool_3x3_s2_nopad_count(t), x, cot, cuda)
+        torch.testing.assert_close(y1, y0, rtol=0, atol=1e-6)
+        torch.testing.assert_close(d1, d0, rtol=0,
+                                   atol=1e-6 * d0.abs().max().item())
+
+
+def _v2_input_grad(monkeypatch, dev, dtype, train, x, cots, slopes=None):
+    """(the input gradient of a MultiscaleDiscriminator_v2 (3 PatchGANs, nf
+    64, seed 5) in ``dtype`` on ``dev`` for output cotangents ``cots``,
+    each of its LeakyReLU(0.2) inputs), float64 on the CPU.  With
+    ``slopes`` (another run's LeakyReLU inputs) each LeakyReLU takes its
+    slope from the sign of that run's input instead of its own."""
+    from realvsr_tpu_torch.models import discriminators
+
+    pre = []
+
+    def lrelu(t):
+        if slopes is None:
+            y = F.leaky_relu(t, 0.2)
+        else:
+            y = torch.where(slopes[len(pre)].to(t.device) > 0, t, 0.2 * t)
+        pre.append(t.detach().cpu().double())
+        return y
+
+    monkeypatch.setattr(discriminators, "_lrelu2", lrelu)
+    net = discriminators.MultiscaleDiscriminatorV2(
+        3, 64, num_D=3, device=dev, dtype=dtype,
+        generator=torch.Generator().manual_seed(5)).to(dtype)
+    net.train(train)
+    leaf = x.to(dev, dtype).clone().requires_grad_()
+    outs = net(leaf)
+    sum((o * c.to(dev, dtype)).sum() for o, c in zip(outs, cots)).backward()
+    return leaf.grad.cpu().double(), pre
+
+
+@pytest.mark.parametrize("mode", ["train", "eval"])
+def test_v2_discriminator_input_grad_on_card_matches_cpu(cuda, monkeypatch,
+                                                         mode):
+    """A whole MultiscaleDiscriminator_v2 (on the pool cascade), in train
+    mode as a GAN step runs it and in eval mode: the gradient of its
+    outputs w.r.t. its NHWC input on the card, against the CPU's float64,
+    as a share of the largest element.
+
+    * float64 on the card: within 1e-9 (H100 readings 2.2e-15 train,
+      1.5e-15 eval).  With the pool fault the f32 card was 45% off; this
+      bound holds any card fault above float64 rounding.
+    * f32 (cuDNN without TF32), on the card and on the CPU: a LeakyReLU
+      input that rounds to the other side of 0 changes its slope by 0.8,
+      and one such flip moves this gradient by up to ~1e-2 of its largest
+      (readings: the card flips one input in train mode and is 9.2e-3
+      off, the CPU one in eval mode and is 2.5e-3 off; without a flip
+      both are within 3.3e-6).  So each f32 run is held against the
+      float64 run that takes its slopes from the f32 run's LeakyReLU
+      inputs, within 2e-5 (readings 7.0e-7 to 3.2e-6); its LeakyReLU
+      inputs within 5e-5 of float64's, layer by layer, as a share of the
+      layer's largest (readings 2.6e-6 to 8.3e-6); and a flip only at an
+      input within that of 0.  Card against CPU, as they come, within the
+      GAN step's card-vs-CPU bound, 5e-2 of the largest (``chip_smoke.py``
+      phase 8)."""
+    train = mode == "train"
+    g = _gen(32)
+    x = torch.rand(2, 64, 64, 3, generator=g)
+    cots = [torch.randn(2, s, s, 1, generator=g) for s in (16, 8, 4)]
+    exact, pre64 = _v2_input_grad(monkeypatch, "cpu", torch.float64, train,
+                                  x, cots)
+    largest = exact.abs().max().item()
+    card64, _ = _v2_input_grad(monkeypatch, cuda, torch.float64, train, x,
+                               cots)
+    readings = {"card float64": (card64 - exact).abs().max().item()
+                / largest}
+    f32 = {}
+    for dev in ("cpu", cuda):
+        d, pre = _v2_input_grad(monkeypatch, dev, torch.float32, train, x,
+                                cots)
+        pinned, _ = _v2_input_grad(monkeypatch, "cpu", torch.float64, train,
+                                   x, cots, slopes=pre)
+        name = f"{torch.device(dev).type} f32"
+        f32[name] = d
+        readings[name] = (d - exact).abs().max().item() / largest
+        readings[f"{name} on its slopes"] = ((d - pinned).abs().max().item()
+                                             / largest)
+        flips, worst = 0, 0.0
+        for a, b in zip(pre, pre64):
+            scale = b.abs().max().item()
+            worst = max(worst, (a - b).abs().max().item() / scale)
+            flip = (a > 0) != (b > 0)
+            flips += int(flip.sum())
+            assert (b[flip].abs() <= 5e-5 * scale).all(), name
+        readings[f"{name} LeakyReLU inputs"] = worst
+        readings[f"{name} flips"] = flips
+    print(f"v2 D input gradient, {mode}: largest {largest}, {readings}")
+    assert readings["card float64"] <= 1e-9
+    for name in ("cpu f32", "cuda f32"):
+        assert readings[f"{name} on its slopes"] <= 2e-5, name
+        assert readings[f"{name} LeakyReLU inputs"] <= 5e-5, name
+    assert (f32["cuda f32"] - f32["cpu f32"]).abs().max().item() <= \
+        5e-2 * largest
+
+
+@pytest.mark.parametrize("which", ["ssim_downsample", "ms_ssim"])
+def test_ssim_pools_backward_on_card_matches_cpu(cuda, which):
+    """The SSIM losses' average pools of channels-last views (ssim_value's
+    downsample above ~384 px, MS-SSIM's 2x2 pools; windows that do not
+    overlap): the loss's input gradient, card against CPU in f32."""
+    from realvsr_tpu_torch.losses.ssim import ms_ssim_value, ssim_value
+
+    g = _gen(33)
+    side = 512 if which == "ssim_downsample" else 192
+    x = torch.rand(2, side, side, 3, generator=g)
+    ref = torch.rand(2, side, side, 3, generator=g)
+    fn = ssim_value if which == "ssim_downsample" else ms_ssim_value
+    (y0, d0), (y1, d1) = _card_vs_cpu_grad(
+        lambda t, dev: fn(t, ref.to(dev)), x, torch.ones(2), cuda)
+    torch.testing.assert_close(y1, y0, rtol=0, atol=1e-5)
+    torch.testing.assert_close(d1, d0, rtol=0,
+                               atol=1e-4 * d0.abs().max().item())

@@ -220,36 +220,42 @@ def test_narrow_bwd_walk_takes_each_run_once(shape):
 
 def test_narrow_constants_are_the_kernel_source():
     """``dcn.py``'s copies of ``dcn_narrow.cu``'s run length, blocks an SM,
-    a forward thread's sums and widest C, and the shared memory of both
-    kernels (``fwd_smem`` / ``bwd_smem``, dynamic since the kernels take
-    any C <= 64), evaluated from the source's expressions."""
+    a forward thread's sums, budgets and chunk, and the shared memory of
+    both kernels (``fwd_smem`` / ``bwd_smem`` at the plans' tiles and
+    chunks), evaluated from the source's expressions."""
     import re
 
     from realvsr_tpu_torch.ops.kernels import _build
 
     src = (_build.CSRC / "dcn_narrow.cu").read_text()
-    const = {k: int(v) for k, v in
-             re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    const = {k: eval(v) for k, v in
+             re.findall(r"constexpr int (k\w+) = ([\d *]+);", src)}
     assert const["kThreads"] == dcn.NARROW_RUN
     assert const["kBwdBlocksPerSm"] == dcn.NARROW_BLOCKS_PER_SM
     assert const["kCo"] == dcn.NARROW_CO
-    assert const["kCMax"] == dcn.NARROW_MAX
+    assert const["kFwdBudget"] == dcn.NARROW_FWD_BUDGET
+    assert const["kBwdBudget"] == dcn.NARROW_BWD_BUDGET
+    assert const["kChunkCo"] == dcn.NARROW_CHUNK_CO
     assert "__shared__ float" not in src.replace("extern __shared__ float",
                                                  "")
-    fwd = re.search(r"inline int fwd_smem\(int C\) \{(.*?)\n\}", src,
-                    re.S).group(1)
-    bwd = re.search(r"inline int bwd_smem\(int C\) \{ return (.*?); \}",
-                    src).group(1)
-    for c, dg in ((16, 4), (32, 4), (32, 8), (48, 8), (64, 4), (20, 5)):
-        env = dict(const, C=c)
-        cp = eval(re.search(r"const int cp = (.*?);", fwd).group(1)
-                  .replace("/", "//"), {}, env)
-        env["cp"] = cp
-        got_fwd = eval(re.search(r"return (.*?);", fwd).group(1), {}, env)
-        got_bwd = eval(bwd, {}, env)
+
+    def expr(name):
+        body = re.search(rf"inline int {name}\(int \w+, int \w+, int \w+\)"
+                         r" \{\s*return (.*?);\s*\}", src, re.S).group(1)
+        return re.sub(r"\((\w+) \? (\w+) : (\w+)\)", r"(\2 if \1 else \3)",
+                      " ".join(body.split()))
+
+    fwd, bwd = expr("fwd_smem"), expr("bwd_smem")
+    for cin, cout, dg in ((16, 16, 4), (32, 32, 4), (32, 32, 8), (48, 48, 8),
+                          (64, 64, 4), (20, 20, 5), (64, 32, 8), (96, 96, 4),
+                          (256, 256, 8), (400, 24, 8)):
+        cot, ntap = dcn.narrow_fwd_plan(cin, cout)
+        kc, ko, one_co = dcn.narrow_bwd_plan(cin, cout, dg)
+        got_fwd = eval(fwd, {}, dict(const, Ci=cin, cot=cot, ntap=ntap))
+        got_bwd = eval(bwd, {}, dict(const, kc=kc, ko=ko, one_co=one_co))
         for dtype in (torch.bfloat16, torch.float32):
-            assert dcn.fwd_smem_bytes(dtype, c, dg) == got_fwd
-            assert dcn.bwd_smem_bytes(dtype, 8, c, dg) == got_bwd
+            assert dcn.fwd_smem_bytes(dtype, cin, dg, cout) == got_fwd
+            assert dcn.bwd_smem_bytes(dtype, 8, cin, dg, cout) == got_bwd
     k_c, run, ld = dcn.NARROW[0], dcn.NARROW_RUN, dcn.NARROW[0] + 1
     for dtype in (torch.bfloat16, torch.float32):
         assert dcn.fwd_smem_bytes(dtype, C, DG) == (9 * k_c * k_c + k_c) * 4

@@ -114,14 +114,72 @@ def test_plain_dcn_matches_jax_at_width(c, dg, r):
 
 
 def test_route_takes_each_design_and_refuses_the_rest():
-    assert dcn.route(64, 8) == dcn.route(128, 8) == "wgmma"
+    """The kernels' domain is the TPU kernel's: the wgmma pair at 64 -> 64
+    and 128 -> 128 in 8 groups with a mask; ``dcn_narrow.cu`` at every
+    other shape (cin != cout, any width, no mask); a ValueError only where
+    the groups do not divide the input channels, which JAX cannot run."""
+    assert dcn.route(64, 64, 8) == dcn.route(128, 128, 8) == "wgmma"
+    assert dcn.route(64) == dcn.route(64, dg=8) == "wgmma"
     for c, dg in ((16, 4), (32, 4), (32, 8), (48, 8), (64, 4), (64, 1),
-                  (64, 64), (24, 3), (8, 8), (1, 1)):
-        assert dcn.route(c, dg) == "narrow", (c, dg)
-    for c, dg in ((256, 8), (128, 4), (96, 8), (48, 5), (128, 16), (0, 1),
-                  (72, 8)):
-        with pytest.raises(ValueError, match="ROADMAP.md, queue 2"):
-            dcn.route(c, dg)
+                  (64, 64), (24, 3), (8, 8), (1, 1), (256, 8), (128, 4),
+                  (96, 8), (128, 16), (72, 8), (96, 4)):
+        assert dcn.route(c, c, dg) == "narrow", (c, dg)
+    for cin, cout, dg in ((64, 32, 8), (32, 64, 8), (128, 64, 8),
+                          (64, 128, 8), (400, 24, 8), (6, 10, 3)):
+        assert dcn.route(cin, cout, dg) == "narrow", (cin, cout)
+    for c in (16, 64, 128, 256):   # DCNv1: no mask, never the wgmma pair
+        assert dcn.route(c, c, 8, has_mask=False) == "narrow"
+    for cin, cout, dg in ((48, 48, 5), (0, 1, 1), (64, 64, 0), (10, 10, 3),
+                          (64, 0, 8)):
+        with pytest.raises(ValueError, match="groups must divide"):
+            dcn.route(cin, cout, dg)
+
+
+def _bwd_chunks(cin, cout, dg):
+    """``dcn_narrow.cu::bwd_kernel``'s walk of one tap: for each chunk of
+    input channels, its (group, first channel, end) parts."""
+    kc, _, _ = dcn.narrow_bwd_plan(cin, cout, dg)
+    cpg = cin // dg
+    return [[(g, max(g * cpg, k0), min(g * cpg + cpg, k0 + kc))
+             for g in range(k0 // cpg, (min(k0 + kc, cin) - 1) // cpg + 1)]
+            for k0 in range(0, cin, kc)]
+
+
+@pytest.mark.parametrize("cin,cout,dg", [
+    (16, 16, 4), (64, 64, 4), (64, 32, 8), (32, 64, 8), (96, 96, 4),
+    (256, 256, 8), (128, 64, 8), (400, 24, 8), (6, 10, 3), (256, 256, 1),
+    (200, 8, 1)])
+def test_narrow_plans_cover_each_channel_once_and_fit(cin, cout, dg):
+    """The generalised kernels' plans (``narrow_fwd_plan`` /
+    ``narrow_bwd_plan``, copies of ``fwd_plan`` / ``bwd_plan``): the
+    forward's output tiles cover cout once in whole 16-output chunks; the
+    backward's chunks take each input channel of a tap once, each chunk
+    whole groups or an equal part of one group, in whole CH-channel loads;
+    both within shared memory, the C -> C <= 64 forms as before (whole
+    weight, whole g row)."""
+    cot, ntap = dcn.narrow_fwd_plan(cin, cout)
+    assert cot % dcn.NARROW_CO == 0 and ntap in (1, 9)
+    assert (ntap * cin * cot + cot) * 4 <= 232448
+    if ntap == 1:
+        assert cot == dcn.NARROW_CO and (9 * cin * 16 + 16) * 4 > \
+            dcn.NARROW_FWD_BUDGET
+    tiles = range(0, cout, cot)
+    assert sorted(c for t in tiles for c in range(t, min(t + cot, cout))) \
+        == list(range(cout))
+    kc, ko, one_co = dcn.narrow_bwd_plan(cin, cout, dg)
+    cpg = cin // dg
+    ch = dcn._chunk_of(cpg)
+    assert kc % ch == 0 and (kc % cpg == 0 or cpg % kc == 0 or kc == cin)
+    parts = [p for chunk in _bwd_chunks(cin, cout, dg) for p in chunk]
+    assert sorted(c for _, lo, hi in parts for c in range(lo, hi)) == \
+        list(range(cin))
+    for g, lo, hi in parts:
+        assert g * cpg <= lo < hi <= g * cpg + cpg and (lo - g * cpg) % ch == 0
+    assert dcn.bwd_smem_bytes(torch.float32, 8, cin, dg, cout, False) \
+        <= 232448
+    assert one_co == (ko == cout)
+    if cin == cout <= 64:
+        assert (cot, ntap, kc, one_co) == (-(-cout // 16) * 16, 9, cin, True)
 
 
 # ---------------------------------------------------------------- (c)
@@ -161,6 +219,19 @@ def test_shared_memory_of_every_width_fits_a_block():
     assert dcn.narrow_blocks_per_sm(64) == 1
     assert dcn.narrow_blocks_per_sm(32) == 3
     assert dcn.narrow_blocks_per_sm(16) == 4
+    # the widened domain: every shape fits a block, 256 -> 256 in 8 groups
+    # in the chunked backward (2 blocks an SM) and a 16-output forward tile
+    for dtype in (bf, f32):
+        for cin, cout, dg in ((64, 32, 8), (32, 64, 8), (96, 96, 4),
+                              (256, 256, 8), (128, 64, 8), (400, 24, 8)):
+            for m in (True, False):
+                assert dcn.fwd_smem_bytes(dtype, cin, dg, cout, m) <= 232448
+                assert dcn.bwd_smem_bytes(dtype, 8, cin, dg, cout, m) <= \
+                    232448
+    assert dcn.narrow_fwd_plan(256, 256) == (16, 9)
+    assert dcn.narrow_bwd_plan(256, 256, 8) == (32, 32, False)
+    assert dcn.narrow_blocks_per_sm(256, 256, 8) == 2
+    assert dcn.narrow_fwd_plan(400, 24) == (16, 1)
 
 
 @pytest.mark.parametrize("hw", [(13, 45), (16, 64)], ids=["ragged", "even"])
