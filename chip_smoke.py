@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``realvsr_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile]
-    python3 chip_smoke.py --ab PARENT   # DCN kernels beside a parent tree's
+    python3 chip_smoke.py --ab PARENT   # redesigned kernels beside a parent's
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -32,7 +32,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    and 8, 48 in 8 and 64 in 4 (the debug shape's pixels), both forms, ±4,
    ±8 and exact, bf16 and f32; the block API at 128 channels ±4; EDVR-L's
    convs (128->128, 256 (128+128)->128, 128->216, 128->256 and upconv1's
-   128->512 on the ``mma.sync`` kernel);
+   128->512 in two column blocks of 256), a ragged 300-output conv with a
+   residual (a last column block of 64), and the nf 16 debug configs'
+   convs on the ``mma.sync`` kernel (16 and 16+16 -> 16, 16 -> 108, 16 ->
+   64), each with the route it took;
 4. inference, each path through ``evaluate_wo_gt`` on a seeded synthetic
    PNG clip, bf16, seeded random weights with randomised DCN offset convs,
    DCN offsets clamped to ±4 (the JAX package's deployment setting), with
@@ -146,8 +149,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    memory of each; at the other widths both DCN kernels at 128 channels
    (the forward at EDVR-L's L1 inference shape, the backward at its L1
    training shape (224, 64, 64, 128)) and on the narrow kernels, beside
-   their plain versions and bounds, EDVR-L's convs beside cuDNN, and
-   EDVR-L's forward ms, frames/s and peak memory;
+   their plain versions and bounds, EDVR-L's convs, the 300-output conv
+   and the debug configs' ``mma.sync`` convs beside cuDNN, and EDVR-L's
+   forward ms, frames/s and peak memory;
 10. multi-process training and the rest of the JAX package (run after
     phase 6's metrics, before phase 9's times); ranks are this script
     started again (``--worker <args.json>``) with torchrun's environment:
@@ -209,10 +213,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
 Prints one JSON line per check and timing, then the card line, the
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
-``--ab PARENT`` builds the DCN kernels of the tree unpacked at PARENT (the
-parent commit) and times them beside this tree's in turns (parent, this,
-this, parent), then stops.  ``--profile`` adds a ``torch.profiler``
-breakdown of one window's forward
+``--ab PARENT`` builds ``conv3x3.cu``, ``conv3x3_sync.cu`` and ``dcn_bwd.cu``
+of the tree unpacked at PARENT (the parent commit) and times EDVR-L's
+upconv1, the 128-channel DCN backward and the controls (the front 64 -> 64
+conv, upconv2 64 -> 256, the 64-channel DCN backward) beside this tree's
+in turns (parent, this, this, parent), then stops.  ``--profile`` adds a
+``torch.profiler`` breakdown of one window's forward
 of each inference model and of the last two steps of each timed training
 run (the flagship's, the families' and the new generators' recipes, the
 GAN's).
@@ -304,12 +310,15 @@ def counters() -> dict:
     counts its own launches in ``.launches``."""
     from realvsr_tpu_torch.ops.deform_conv_block import (
         modulated_deform_conv_block)
-    from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_fused
+    from realvsr_tpu_torch.ops.kernels.conv3x3 import (conv3x3,
+                                                       conv3x3_fused,
+                                                       conv3x3_sync)
     from realvsr_tpu_torch.ops.kernels.dcn import dcn_bwd, dcn_fwd
 
     return {"dcn_fwd": dcn_fwd, "conv3x3": conv3x3,
             "conv3x3_fused": conv3x3_fused, "dcn_bwd": dcn_bwd,
-            "dcn_block": modulated_deform_conv_block}
+            "dcn_block": modulated_deform_conv_block,
+            "conv3x3_sync": conv3x3_sync}
 
 
 def zero_counts() -> None:
@@ -647,13 +656,15 @@ def read_window(lq_root: str, n: int):
 # fea_L2_conv2, fea_L3_conv2, L2_fea_conv and L1_fea_conv (4), TDAN's
 # bottle_neck and 4 offset convs and TSA's 6 3x3 convs; conv3x3 at other
 # widths = the 4 DCNs' conv_offset_mask (64->216) and conv_last, with
-# TDAN's reconstruction and final_conv and EDVR's upconv1 and upconv2.
+# TDAN's reconstruction and final_conv and EDVR's upconv1 and upconv2.  No
+# conv of these paths runs the mma.sync kernel (conv3x3_sync).
 EXPECT = {
-    "edvr_noup": {"dcn_fwd": 4, "conv3x3": 41 + 4, "conv3x3_fused": 4 + 1},
+    "edvr_noup": {"dcn_fwd": 4, "conv3x3": 41 + 4, "conv3x3_fused": 4 + 1,
+                  "conv3x3_sync": 0},
     "tdan": {"dcn_fwd": 4, "conv3x3": 10 + 1 + 4 + 20,
-             "conv3x3_fused": 4 + 2},
+             "conv3x3_fused": 4 + 2, "conv3x3_sync": 0},
     "edvr_x4": {"dcn_fwd": 4, "conv3x3": 41 + 4 + 6,
-                "conv3x3_fused": 4 + 3},
+                "conv3x3_fused": 4 + 3, "conv3x3_sync": 0},
 }
 
 
@@ -1199,7 +1210,7 @@ def block_path():
     emit(phase="path", path="block_api", shape=DCN_CASES[0][1],
          max_offset=R_INFER, launches=launches)
     expect = dict(dcn_fwd=0, conv3x3=0, conv3x3_fused=0, dcn_bwd=0,
-                  dcn_block=1)
+                  dcn_block=1, conv3x3_sync=0)
     if launches != expect or not torch.isfinite(out).all():
         raise AssertionError(f"block API path: launches {launches}")
     return launches
@@ -1355,9 +1366,10 @@ NARROW = (16, 4)                 # its width: channels, groups
 # model's routing: the 64-out conv3x3 is HRconv (16 -> 64); the other widths
 # are the ResBlocks' 4 convs, fea_L2_conv2 / fea_L3_conv2, PCD's 10 offset
 # convs and L2_fea_conv / L1_fea_conv, the 4 conv_offset_mask (16 -> 108)
-# and conv_last
+# and conv_last; all but conv_last (64 -> 3, HRconv's 64 channels in) have
+# 16-wide inputs, which run the mma.sync kernel (conv3x3_sync)
 DEBUG_STEP = {"dcn_fwd": 4, "dcn_bwd": 4, "conv3x3": 1, "conv3x3_fused": 23,
-              "dcn_block": 0}
+              "dcn_block": 0, "conv3x3_sync": 1 + 22}
 # the front end (mode="pyramid") of every EDVR path: the 5 front ResBlocks'
 # 10 convs, fea_L2_conv2 and fea_L3_conv2; the rest of a window is "fuse"
 PYRAMID = {"conv3x3": 12}
@@ -1581,10 +1593,12 @@ GEN_SMOKE = {n: os.path.join("configs", "train",
 # groups of 2 RCABs (2 convs each) and a closing conv, conv_after_body,
 # conv_last 64 -> 3
 EXPECT.update({
-    "tof": {"dcn_fwd": 0, "conv3x3": 2 * 10 + 1, "conv3x3_fused": 1},
-    "fstrn": {"dcn_fwd": 0, "conv3x3": 0, "conv3x3_fused": 0},
+    "tof": {"dcn_fwd": 0, "conv3x3": 2 * 10 + 1, "conv3x3_fused": 1,
+            "conv3x3_sync": 0},
+    "fstrn": {"dcn_fwd": 0, "conv3x3": 0, "conv3x3_fused": 0,
+              "conv3x3_sync": 0},
     "rcan": {"dcn_fwd": 0, "conv3x3": 5 * (2 * 2 + 1) + 1,
-             "conv3x3_fused": 1},
+             "conv3x3_fused": 1, "conv3x3_sync": 0},
 })
 GEN_STEP = {n: dict(EXPECT[n], dcn_bwd=0, dcn_block=0) for n in GENERATORS}
 # card-vs-CPU steps at full width: (depth cuts, LQ side)
@@ -1877,10 +1891,12 @@ EDVRL_NET = dict(nf=128, back_RBs=40)
 # PCD and TSA has 128 outputs (conv3x3_fused): the 5 front and 40 back
 # ResBlocks' convs (90), fea_L2_conv2 / fea_L3_conv2 (2), PCD's 10 offset
 # convs and L2_fea_conv / L1_fea_conv (12), TSA's 6, the 4 conv_offset_mask
-# (128 -> 216) and upconv1 (128 -> 512, the mma.sync kernel), upconv2 (128
-# -> 256) and conv_last (64 -> 3); HRconv alone is 64 -> 64 (conv3x3)
+# (128 -> 216) and upconv1 (128 -> 512, two column blocks of 256), upconv2
+# (128 -> 256) and conv_last (64 -> 3); HRconv alone is 64 -> 64 (conv3x3);
+# all on the wgmma kernel
 EXPECT["edvr_l"] = {"dcn_fwd": 4, "conv3x3": 1,
-                    "conv3x3_fused": 90 + 2 + 12 + 6 + 4 + 3}
+                    "conv3x3_fused": 90 + 2 + 12 + 6 + 4 + 3,
+                    "conv3x3_sync": 0}
 EDVRL_STEP = dict(EXPECT["edvr_l"], dcn_bwd=4, dcn_block=0)
 # (128, 8): EDVR-L's L1 inference shape (7 frames of 256x448) and a
 # training sample (7 frames of LQ 64x64); the L1 / cascade backward of a
@@ -1889,6 +1905,7 @@ DCN128_SHAPES = [("L infer", (7, VIMEO_H, VIMEO_W, 128)),
                  ("L train sample", (7, 64, 64, 128))]
 TRAIN_L1_128 = (224, 64, 64, 128)
 NARROW_WIDTHS = [(32, 4), (32, 8), (48, 8), (64, 4)]
+UPCONV1 = "L upconv1 128->512 lrelu"
 # EDVR-L's conv widths at its window's shapes: (name, shape, c2, cout,
 # act, residual)
 EDVRL_CONVS = [
@@ -1900,10 +1917,23 @@ EDVRL_CONVS = [
      128, "lrelu", False),
     ("L 128->216 lrelu", (7, VIMEO_H, VIMEO_W, 128), 0, 216, "lrelu",
      False),
-    ("L upconv1 128->512 lrelu", (1, VIMEO_H, VIMEO_W, 128), 0, 512,
-     "lrelu", False),
+    (UPCONV1, (1, VIMEO_H, VIMEO_W, 128), 0, 512, "lrelu", False),
     ("L upconv2 128->256 lrelu", (1, 2 * VIMEO_H, 2 * VIMEO_W, 128), 0, 256,
      "lrelu", False),
+    # not a conv of EDVR-L: more than 256 outputs in a ragged last column
+    # block (256 + 64 wide, 44 of its columns used), a residual, H and W
+    # ragged against the 8 x 16 tile
+    ("300 ragged +res", (2, 37, 45, 128), 0, 300, None, True),
+]
+# the nf 16 debug configs' convs (their L1 shapes: 4 clips x 3 frames at
+# 64x64), whose 16-wide inputs run the mma.sync kernel (conv3x3_sync.cu)
+SYNC_CASES = [
+    ("debug ResBlock 16->16 relu", (12, 64, 64, 16), 0, 16, "relu", False),
+    ("debug PCD offset (16+16)->16 lrelu", (12, 64, 64, 16), 16, 16,
+     "lrelu", False),
+    ("debug conv_offset_mask 16->108 lrelu", (12, 64, 64, 16), 0, 108,
+     "lrelu", False),
+    ("debug HRconv 16->64 lrelu", (4, 64, 64, 16), 0, 64, "lrelu", False),
 ]
 EDVRL_CUTS = dict(nf=128, front_RBs=1, back_RBs=1, nframes=5)
 
@@ -2020,7 +2050,9 @@ def check_widths():
     from realvsr_tpu_torch.ops.deform_conv_block import (
         modulated_deform_conv_block)
     from realvsr_tpu_torch.ops.kernels.check import max_abs_err, tolerance
-    from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_plain
+    from realvsr_tpu_torch.ops.kernels.conv3x3 import (conv3x3,
+                                                       conv3x3_plain,
+                                                       uses_wgmma)
 
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -2048,19 +2080,21 @@ def check_widths():
             raise AssertionError(f"block API at 128: {err} > {tol}")
         errs[("dcn_block", "c128", dname)] = err
         del x, off, mask, out, ref
-        for name, shape, c2, cout, act, residual in EDVRL_CONVS:
+        for name, shape, c2, cout, act, residual in EDVRL_CONVS + SYNC_CASES:
             x, x2, wgt, bs, res = conv_inputs(shape, c2, residual, dtype, 47,
                                               cout)
             out = conv3x3(x, wgt, bs, act, res, x2)
             torch.cuda.synchronize()
             ref = conv3x3_plain(x, wgt, bs, act, res, x2)
             err, tol = max_abs_err(out, ref), tolerance(ref)
-            emit(check="conv3x3_fused", case=name, dtype=dname, shape=shape,
-                 c2=c2, cout=cout, max_abs_err=err, tol=tol,
-                 route="mma.sync" if cout > 256 else "wgmma")
+            wgmma = uses_wgmma(shape[3], c2, cout, dtype)
+            kernel = "conv3x3_fused" if wgmma else "conv3x3_sync"
+            emit(check=kernel, case=name, dtype=dname, shape=shape,
+                 c2=c2, cout=cout, residual=residual, max_abs_err=err,
+                 tol=tol, route="wgmma" if wgmma else "mma.sync")
             if not (err <= tol and torch.isfinite(out).all()):
                 raise AssertionError(f"{name} {dtype}: {err} > {tol}")
-            errs[("conv3x3_fused", name, dname)] = err
+            errs[(kernel, name, dname)] = err
             del x, x2, res, out, ref
         torch.cuda.empty_cache()
     return errs
@@ -2145,7 +2179,9 @@ def time_widths():
     import torch.nn.functional as F
 
     from realvsr_tpu_torch.ops.deform_conv import apply_act
-    from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_plain
+    from realvsr_tpu_torch.ops.kernels.conv3x3 import (conv3x3,
+                                                       conv3x3_plain,
+                                                       uses_wgmma)
     from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_bwd_om,
                                                    dcn_bwd_plain, dcn_fwd,
                                                    dcn_fwd_om, dcn_fwd_plain)
@@ -2231,7 +2267,7 @@ def time_widths():
                      dtype=dname, max_offset=r8, **row)
                 rows[(name, f"C{c} dg{dg}", dname)] = row
             del x, off, mask, gout, out, grads
-        for name, shape, c2, cout, act, residual in EDVRL_CONVS:
+        for name, shape, c2, cout, act, residual in EDVRL_CONVS + SYNC_CASES:
             x, x2, wgt, bias, res = conv_inputs(shape, c2, residual, dtype,
                                                 59, cout)
             out = conv3x3(x, wgt, bias, act, res, x2)
@@ -2250,15 +2286,17 @@ def time_widths():
             torch.backends.cudnn.allow_tf32 = dtype == torch.float32
             library_ms = cuda_ms(library, 10)
             torch.backends.cudnn.allow_tf32 = False
+            wgmma = uses_wgmma(shape[3], c2, cout, dtype)
+            kernel = "conv3x3_fused" if wgmma else "conv3x3_sync"
             row = dict(
                 ms=cuda_ms(lambda: conv3x3(x, wgt, bias, act, res, x2), 10),
                 plain_ms=cuda_ms(
                     lambda: conv3x3_plain(x, wgt, bias, act, res, x2), 3),
                 bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                route="mma.sync" if cout > 256 else "wgmma")
-            emit(timing="conv3x3_fused", case=name, shape=shape, cout=cout,
+                route="wgmma" if wgmma else "mma.sync")
+            emit(timing=kernel, case=name, shape=shape, c2=c2, cout=cout,
                  dtype=dname, **row)
-            rows[("conv3x3_fused", name, dname)] = row
+            rows[(kernel, name, dname)] = row
             del x, x2, res, out
         torch.cuda.empty_cache()
     return rows
@@ -2477,7 +2515,7 @@ def general_dcn_path():
     launches = read_counts()
     seconds = time.time() - t0
     want = {"dcn_fwd": 3, "dcn_bwd": 3, "conv3x3": 0, "conv3x3_fused": 2,
-            "dcn_block": 0}
+            "dcn_block": 0, "conv3x3_sync": 0}
     shapes = [list(r[0].shape) for r in got]
     finite = all(t is not None and bool(torch.isfinite(t).all())
                  for r in got for t in r)
@@ -3469,7 +3507,8 @@ def clamp_check(paths):
     k = 1 + len(CLAMP_RADII)
     expect = {"dcn_fwd": 4, "dcn_block": 4 * len(CLAMP_RADII), "dcn_bwd": 0,
               "conv3x3": k * EXPECT["edvr_noup"]["conv3x3"],
-              "conv3x3_fused": k * EXPECT["edvr_noup"]["conv3x3_fused"]}
+              "conv3x3_fused": k * EXPECT["edvr_noup"]["conv3x3_fused"],
+              "conv3x3_sync": 0}
     emit(phase="clamp_check", radii=list(CLAMP_RADII), dtype="float32",
          weights=f"phase 4's flagship, offset convs std {CLAMP_STD}",
          launches=got, launches_expected=expect, **res)
@@ -3508,44 +3547,56 @@ def srmd_check():
         raise AssertionError(f"SRMD card vs CPU: {errs}")
 
 
+AB_CONTROLS = [  # (name, shape, cout, act): on conv3x3.cu in both trees
+    ("front 64->64 relu", (3, H, W, 64), 64, "relu"),
+    (UPCONV2, (1, 2 * VIMEO_H, 2 * VIMEO_W, 64), 256, "lrelu"),
+]
+
+
 def ab_parent(parent: str) -> None:
-    """``--ab PARENT``: ``dcn_narrow.cu`` of the tree unpacked at PARENT
-    (the parent commit, whose narrow kernels take C -> C, C <= 64: C entry
-    points with C and G) built beside this tree's and timed in turns
-    (parent, this, this, parent) on the same inputs, each with the
-    wrapper's allocations and casts: forward (±8) and backward (±8) at the
-    debug shape's pixels at every width the parent takes that phase 9
-    times (NARROW and NARROW_WIDTHS), bf16 and f32.  (The wgmma pair,
-    ``dcn_fwd.cu`` / ``dcn_bwd.cu``, and their sampler are the parent's.)"""
+    """``--ab PARENT``: the kernels this tree redesigns, built from the tree
+    unpacked at PARENT (the parent commit) beside this tree's and timed in
+    turns (parent, this, this, parent) on the same inputs, each with the
+    wrapper's allocations and casts, bf16 and f32: EDVR-L's upconv1 (128 ->
+    512 at (1, 256, 448); the parent's ``conv3x3_sync.cu``, this tree's
+    column blocks on ``conv3x3.cu``) and the 128-channel DCN backward at
+    EDVR-L's L1 training shape (224, 64, 64, 128), ±8; as controls, code
+    this tree keeps: the front 64 -> 64 conv and EDVR's upconv2 64 -> 256
+    (``conv3x3.cu`` at cout <= 256) and the 64-channel DCN backward at the
+    Split recipe's L1 (96, 192, 192, 64), ±8.  The two trees' outputs are
+    held together first."""
     import ctypes
 
     import torch
 
     from realvsr_tpu_torch.ops.kernels import _build
-    from realvsr_tpu_torch.ops.kernels.dcn import dcn_bwd, dcn_fwd
+    from realvsr_tpu_torch.ops.kernels.conv3x3 import (_tile_cols, conv3x3,
+                                                       kernel_width)
+    from realvsr_tpu_torch.ops.kernels.dcn import dcn_bwd
 
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # the parent's signatures (ops/kernels/dcn.py of that tree)
-    sigs = {"dcn_narrow_fwd": (P, P, I, P, I, I, P, P, P, I, I, I, I, I, I,
-                               F, I, P),
-            "dcn_narrow_bwd": (P, P, I, P, I, I, P, P, P, P, I, P, I, P, I,
-                               I, I, I, I, F, I, P)}
+    # the parent's signatures (ops/kernels/conv3x3.py, dcn.py of that tree)
+    sigs = {"conv3x3": (P, I, P, I, P, P, P, P, P, I, I, I, I, I, I, P),
+            "conv3x3_sync": (P, I, P, I, P, P, P, P, I, I, I, I, I, I, P),
+            "dcn_bwd": (P, P, I, P, I, I, P, P, P, P, P, I, P, I, P, I, I, I,
+                        I, F, I, I, P)}
     out_dir = _build.BUILD_DIR / "parent"
     out_dir.mkdir(parents=True, exist_ok=True)
-    lib = out_dir / "dcn_narrow.so"
-    proc = subprocess.run(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-         os.path.join(parent, "realvsr_tpu_torch", "csrc", "dcn_narrow.cu")],
-        capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"parent dcn_narrow: nvcc failed\n{proc.stdout}"
-                           f"{proc.stderr}")
-    so = ctypes.PyDLL(str(lib))
+    procs = {name: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+         str(out_dir / f"{name}.so"),
+         os.path.join(parent, "realvsr_tpu_torch", "csrc", f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in sigs}
     fns = {}
-    for name, argtypes in sigs.items():
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"parent {name}: nvcc failed\n{log}")
+        so = ctypes.PyDLL(str(out_dir / f"{name}.so"))
         for dt, sfx in _build.SUFFIX.items():
             fn = getattr(so, f"{name}_{sfx}")
-            fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+            fn.argtypes, fn.restype = list(sigs[name]), ctypes.c_int
             fns[(name, dt)] = fn
 
     def stream():
@@ -3561,43 +3612,60 @@ def ab_parent(parent: str) -> None:
         emit(ab=what, parent_ms=[ms[0], ms[3]], change_ms=[ms[1], ms[2]],
              **info)
 
+    def parent_conv(x, wgt, bias, act):
+        b, h, w, cin = x.shape
+        cout, dt = wgt.shape[0], x.dtype
+        out = torch.empty(b, h, w, cout, device="cuda", dtype=dt)
+        if cout > 256:  # the parent's mma.sync kernel, its weight copy
+            n = _tile_cols(cout)
+            wt = wgt.permute(0, 2, 3, 1).contiguous()
+            code = fns[("conv3x3_sync", dt)](
+                x.data_ptr(), cin, None, 0, wt.data_ptr(), bias.data_ptr(),
+                None, out.data_ptr(), b, h, w, cout, n, _build.ACTS[act],
+                stream())
+        else:
+            n = kernel_width(cout)
+            packed = torch.empty(cin * 9 * n, device="cuda", dtype=dt)
+            code = fns[("conv3x3", dt)](
+                x.data_ptr(), cin, None, 0, wgt.data_ptr(),
+                packed.data_ptr(), bias.data_ptr(), None, out.data_ptr(), b,
+                h, w, cout, n, _build.ACTS[act], stream())
+        _build.check(code, "parent conv3x3")
+        return (out,)
+
+    def parent_bwd(x, off, mask, wgt, gout, r):
+        b, h, w, c = x.shape
+        dt = x.dtype
+        wt = torch.empty(c * 9 * c, device="cuda", dtype=dt)
+        dx = torch.zeros(b, h, w, c, device="cuda")
+        dw = torch.zeros(c, 9, c, device="cuda")
+        doff, dmask = torch.empty_like(off), torch.empty_like(mask)
+        _build.check(fns[("dcn_bwd", dt)](
+            x.data_ptr(), off.data_ptr(), 144, mask.data_ptr(), 72, 0,
+            wgt.data_ptr(), wt.data_ptr(), gout.data_ptr(), dx.data_ptr(),
+            doff.data_ptr(), 144, dmask.data_ptr(), 72, dw.data_ptr(), b, h,
+            w, c, float(r), 1, min(math.ceil(r), 8), stream()),
+            "parent dcn_bwd")
+        return (dx.to(dt), doff, dmask,
+                dw.view(c, 3, 3, c).permute(0, 3, 1, 2).to(dt))
+
     r8 = train_r()
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype)[6:]
-        for c, dg in [NARROW] + NARROW_WIDTHS:
-            shape = (*NARROW_SHAPE[:3], c)
-            x, off, mask, wgt, bias, gout = width_inputs(shape, dg, dtype, 23)
-            b, h, w, _ = x.shape
-
-            def parent_fwd():
-                out = torch.empty_like(x)
-                _build.check(fns[("dcn_narrow_fwd", dtype)](
-                    x.data_ptr(), off.data_ptr(), dg * 18, mask.data_ptr(),
-                    dg * 9, 0, wgt.data_ptr(), bias.data_ptr(),
-                    out.data_ptr(), b, h, w, c, dg, 0, float(r8), 1,
-                    stream()), "parent narrow fwd")
-                return (out,)
-
-            def parent_bwd():
-                dx = torch.zeros(b, h, w, c, device="cuda")
-                dw = torch.zeros(c, 9, c, device="cuda")
-                doff, dmask = torch.empty_like(off), torch.empty_like(mask)
-                _build.check(fns[("dcn_narrow_bwd", dtype)](
-                    x.data_ptr(), off.data_ptr(), dg * 18, mask.data_ptr(),
-                    dg * 9, 0, wgt.data_ptr(), gout.data_ptr(),
-                    dx.data_ptr(), doff.data_ptr(), dg * 18,
-                    dmask.data_ptr(), dg * 9, dw.data_ptr(), b, h, w, c, dg,
-                    float(r8), 1, stream()), "parent narrow bwd")
-                return (dx.to(dtype), doff, dmask,
-                        dw.view(c, 3, 3, c).permute(0, 3, 1, 2).to(dtype))
-
-            case = f"narrow C{c} dg{dg}"
-            turns("dcn_narrow_fwd", parent_fwd,
-                  lambda: (dcn_fwd(x, off, mask, wgt, bias, dg, None, r8),),
-                  50, case=case, shape=shape, dtype=dname, max_offset=r8)
-            turns("dcn_narrow_bwd", parent_bwd,
-                  lambda: dcn_bwd(x, off, mask, wgt, gout, dg, r8), 20,
-                  case=case, shape=shape, dtype=dname, max_offset=r8)
+        for name, shape, cout, act in [(UPCONV1, (1, VIMEO_H, VIMEO_W, 128),
+                                        512, "lrelu")] + AB_CONTROLS:
+            x, _, wgt, bias, _ = conv_inputs(shape, 0, False, dtype, 61, cout)
+            turns("conv3x3", lambda: parent_conv(x, wgt, bias, act),
+                  lambda: (conv3x3(x, wgt, bias, act),), 20, case=name,
+                  shape=shape, cout=cout, dtype=dname,
+                  control=name != UPCONV1)
+            del x
+        for shape in (TRAIN_L1_128, TRAIN_L1):
+            x, off, mask, wgt, _, gout = width_inputs(shape, 8, dtype, 63)
+            turns("dcn_bwd", lambda: parent_bwd(x, off, mask, wgt, gout, r8),
+                  lambda: dcn_bwd(x, off, mask, wgt, gout, 8, r8), 5,
+                  shape=shape, dtype=dname, max_offset=r8,
+                  control=shape[-1] == 64)
             del x, off, mask, gout
         torch.cuda.empty_cache()
 
@@ -3810,13 +3878,18 @@ def main() -> int:
                if k in ("ms", "plain_ms", "bound_ms", "bound_by",
                         "library_ms")})
 
-    edvr_l_convs = {name: dict(width_rows[("conv3x3_fused", name,
-                                           "bfloat16")],
-                               f32=width_rows[("conv3x3_fused", name,
-                                               "float32")],
-                               max_abs_err=width_errs[("conv3x3_fused", name,
-                                                       "bfloat16")])
-                    for name, *_ in EDVRL_CONVS}
+    def conv_cases(kernel, cases):
+        """Each conv case's bf16 time row (route, bound, cuDNN), f32's
+        beside, and its bf16 and f32 errors against the plain version."""
+        return {name: dict(width_rows[(kernel, name, "bfloat16")],
+                           f32=width_rows[(kernel, name, "float32")],
+                           max_abs_err=width_errs[(kernel, name,
+                                                   "bfloat16")],
+                           max_abs_err_f32=width_errs[(kernel, name,
+                                                       "float32")])
+                for name, *_ in cases}
+
+    sync_cases = conv_cases("conv3x3_sync", SYNC_CASES)
     kernels = [
         dict(name="dcn_fwd", route="cuda",
              source="realvsr_tpu_torch/csrc/dcn_fwd.cu",
@@ -3840,8 +3913,24 @@ def main() -> int:
              launches=by_path["conv3x3_fused"]["tdan"],
              launches_by_path=by_path["conv3x3_fused"],
              max_abs_err=errs[("conv3x3_fused", UPCONV2, bf)],
-             edvr_l_cases=edvr_l_convs,
+             nf128_and_wide_cases=conv_cases("conv3x3_fused", EDVRL_CONVS),
              **rows[("conv3x3_fused", UPCONV2, "bfloat16")]),
+        dict(name="conv3x3_sync", route="cuda",
+             source="realvsr_tpu_torch/csrc/conv3x3_sync.cu",
+             replaces="realvsr_tpu/ops/pallas/conv3x3_kernel.py:125",
+             instantiation="input widths that are not whole 128-byte "
+                           "chunks: the nf 16 debug configs' convs",
+             launches=by_path["conv3x3_sync"]["training_debug_nf16"],
+             launches_by_path={p: v for p, v in
+                               by_path["conv3x3_sync"].items() if v},
+             launches_per_step=debug_step["conv3x3_sync"],
+             max_abs_err=max([errs[("conv3x3_sync", bf)]]
+                             + [c["max_abs_err"]
+                                for c in sync_cases.values()]),
+             timed_case=SYNC_CASES[0][0], cases=sync_cases,
+             **{k: v for k, v in sync_cases[SYNC_CASES[0][0]].items()
+                if k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms")}),
         dict(name="dcn_bwd", route="cuda",
              source="realvsr_tpu_torch/csrc/dcn_bwd.cu",
              replaces="realvsr_tpu/ops/pallas/dcn_frame_kernel.py:501",
@@ -3868,6 +3957,9 @@ def main() -> int:
         general("dcn_fwd"),
         general("dcn_bwd"),
     ]
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels never launched on their path: {idle}")
     emit(phase="done", seconds=time.time() - t_start)
     print(smi())
     print(json.dumps({"kernels": kernels}))

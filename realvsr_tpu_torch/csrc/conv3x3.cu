@@ -13,13 +13,14 @@
 //
 // Bound on the H100 (bf16): 64->64 at (3, 512, 1024) is 116 GFLOP against
 // 0.4 GB, 0.12 ms either way (at the ridge); 128->64 is 232 GFLOP, 0.23 ms
-// of products; 64->216 and 64->256 are bound by their products; 64->3 by
-// reading its input.  So the design keeps the tensor cores fed and reads
-// each input byte about once.
+// of products; 64->216, 64->256 and 128->512 are bound by their products;
+// 64->3 by reading its input.  So the design keeps the tensor cores fed and
+// reads each input byte about once.
 //
 // Design, one persistent block per SM (grid = min(tiles, SMs)), each walking
 // the output tiles blockIdx.x, blockIdx.x + gridDim.x, ... of 8 x 16 pixels
-// (tile index = (b * tiles_y + ty) * tiles_x + tx).  One thread of warpgroup
+// (tile index = (b * tiles_y + ty) * tiles_x + tx; past 256 outputs, see
+// 5).  One thread of warpgroup
 // 2 produces (setmaxnreg 40), warpgroups 0 and 1 (setmaxnreg 232; 4 tile
 // rows = 64 pixels each) consume:
 // 1. Products on wgmma (m64nNk16 bf16, m64nNk8 TF32), N = cout padded to
@@ -52,12 +53,27 @@
 //    16 pixels x 128 bytes of outputs in shared memory, and stores them
 //    (and reads the residual) in 16-byte vectors; element by element only
 //    where a row of cout elements is not a whole number of 16-byte vectors
-//    (cout 3).  The ragged edges in H, W and cout are predicated.
-// 5. Input widths that are not whole chunks, and cout > 256, run the
-//    mma.sync kernel of conv3x3_sync.cu (chosen by the wrapper up front);
-//    no conv of the model paths does.
-#include <cuda.h>
-
+//    (cout 3, 300 in bf16).  The ragged edges in H, W and cout are
+//    predicated.
+// 5. More than 256 outputs (EDVR-L's upconv1, 128 -> 512): one wgmma's N
+//    stops at 256, so the outputs split into column blocks of 256, the
+//    last padded to one of the widths (512 = 256 + 256; 300 = 256 + 64,
+//    whose last block runs m64n64 on the first 32 accumulators).  A work
+//    item is (tile, column block), item = tile * ncb + block, walked as the
+//    tiles are; its weight is the block's slice of the packed image
+//    ([block][chunk][tap][256][128 bytes]; the last block's rows past cout
+//    zero, and only its first N rows copied), always streamed (a block's
+//    9 taps outgrow shared memory); its epilogue writes columns block * 256
+//    onwards of rows cout apart, so bias, residual and output keep their
+//    layout and a block offset of 256 keeps the 16-byte alignment.  Items,
+//    not column blocks walked over one resident halo: the halo ring and
+//    the weight stream stay those of a tile (any input width, the same
+//    shared memory as at 256), and the blocks of one tile land on
+//    neighbouring SMs at about the same time, so the second halo read is
+//    an L2 hit (23 KB a chunk against 295 KB of weight a block and tile).
+// 6. Input widths that are not whole chunks (16 and 48, the nf 16 debug
+//    configs' convs) run the mma.sync kernel of conv3x3_sync.cu (chosen by
+//    the wrapper up front); no conv of the nf 64 / 128 model paths does.
 #include "common.cuh"
 #include "sm90.cuh"
 #include "wgmma.cuh"
@@ -70,9 +86,6 @@ constexpr int kHaloH = kTH + 2, kHaloW = kTW + 2;   // its input window
 constexpr int kPlaneBytes = kHaloH * kHaloW * kLine;            // 23040
 constexpr int kStageBytes = (kPlaneBytes + 1023) / 1024 * 1024;  // 23552
 constexpr int kConsumers = 256, kThreads = kConsumers + 128;
-// a wait this long (cycles: seconds at the H100's clocks) is a fault: the
-// kernel traps, which the next CUDA call reports, rather than hang the card
-constexpr long long kWatchdog = 1LL << 33;
 constexpr int kEpiRows = 16, kEpiPad = 8;  // per warp: 16 pixels x 128 B
 
 struct Params {
@@ -84,66 +97,9 @@ struct Params {
   int nchunk, n1;  // 128-byte chunks in all, of which x1's
   int resident, sh, sw;
   int tiles_x, tiles_y, ntiles;
+  int ncb, nitems;  // (cout > 256) column blocks, (tile, block) items
   int halo_off, epi_off, bar_off;  // shared-memory offsets (bytes)
 };
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_ready(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred P1;\n"
-      "mbarrier.test_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, P1;\n}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_ready(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_ready(bar, parity))
-    if (clock64() - t0 > kWatchdog) __trap();
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map, int c0,
-                                            int c1, int c2, int c3,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
 
 // A fragments of one tap for this warp's 16 pixels: 4 k-steps of 32 bytes
 // (16 bf16 / 8 TF32 channels) of a 128-byte chunk.  Lane i addresses pixel
@@ -170,26 +126,30 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4][4], uint32_t plane,
 }
 
 // The epilogue of one warp: its 16 pixels (row gy, columns gx0 ... gx0+15)
-// by the N accumulator columns, in 128-byte column chunks through the
-// warp's staging tile.
+// by the first `width` of the N accumulator columns, which are output
+// columns c0 ... (of rows cout apart), in 128-byte column chunks through
+// the warp's staging tile.
 template <typename T, int N>
 __device__ __forceinline__ void epilogue(const float* acc, const Params& p,
                                          T* stage, long long pix0, int gy,
-                                         int gx0, int lane) {
+                                         int gx0, int lane, int c0,
+                                         int width) {
   using Tr = Traits<T>;
   constexpr int V = Tr::kVec;            // elements in 16 bytes
   constexpr int kCols = kLine / sizeof(T);  // columns per chunk
   constexpr int ld = kCols + kEpiPad;
   const int g = lane >> 2, t = lane & 3;
-  const T* bias = static_cast<const T*>(p.bias);
-  const T* res = static_cast<const T*>(p.residual);
-  T* out = static_cast<T*>(p.out);
-  const int cout = p.cout;
+  const T* bias = p.bias ? static_cast<const T*>(p.bias) + c0 : nullptr;
+  const T* res = p.residual ? static_cast<const T*>(p.residual) + c0 : nullptr;
+  T* out = static_cast<T*>(p.out) + c0;
+  const int cout = p.cout;    // the row pitch
+  const int lim = cout - c0;  // this block's columns that exist
   const bool vec = cout % V == 0;
   constexpr int kPer = kEpiRows * (kLine / 16) / 32;  // vectors a lane
 #pragma unroll
   for (int n0 = 0; n0 < N; n0 += kCols) {
-    const int nw = N - n0 < kCols ? N - n0 : kCols;
+    if (n0 >= width) break;
+    const int nw = width - n0 < kCols ? width - n0 : kCols;
     const int nv = nw / V;  // vectors a row
     // the residual's loads first, in flight while the tile is staged
     uint4 rr[kPer];
@@ -197,18 +157,19 @@ __device__ __forceinline__ void epilogue(const float* acc, const Params& p,
 #pragma unroll
       for (int k = 0; k < kPer; ++k) {
         const int it = lane + 32 * k, r = it / nv, c = n0 + (it % nv) * V;
-        if (it < kEpiRows * nv && gy < p.H && gx0 + r < p.W && c < cout)
+        if (it < kEpiRows * nv && gy < p.H && gx0 + r < p.W && c < lim)
           rr[k] = __ldg(
               reinterpret_cast<const uint4*>(res + (pix0 + r) * cout + c));
       }
     }
 #pragma unroll
-    for (int i = n0 / 8; i < (n0 + nw) / 8; ++i) {
+    for (int i = n0 / 8; i < (N - n0 < kCols ? N : n0 + kCols) / 8; ++i) {
+      if (8 * i >= n0 + nw) break;  // past a narrower last block
       const int col = 8 * i + 2 * t;
       float b0 = 0.f, b1 = 0.f;
       if (bias != nullptr) {
-        if (col < cout) b0 = Tr::to_f(bias[col]);
-        if (col + 1 < cout) b1 = Tr::to_f(bias[col + 1]);
+        if (col < lim) b0 = Tr::to_f(bias[col]);
+        if (col + 1 < lim) b1 = Tr::to_f(bias[col + 1]);
       }
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
@@ -222,7 +183,7 @@ __device__ __forceinline__ void epilogue(const float* acc, const Params& p,
 #pragma unroll
       for (int k = 0; k < kPer; ++k) {
         const int it = lane + 32 * k, r = it / nv, c = n0 + (it % nv) * V;
-        if (it >= kEpiRows * nv || gy >= p.H || gx0 + r >= p.W || c >= cout)
+        if (it >= kEpiRows * nv || gy >= p.H || gx0 + r >= p.W || c >= lim)
           continue;
         uint4 raw = *reinterpret_cast<const uint4*>(stage + r * ld + c - n0);
         if (res != nullptr) {
@@ -237,7 +198,7 @@ __device__ __forceinline__ void epilogue(const float* acc, const Params& p,
     } else {  // rows of cout elements are not whole 16-byte vectors
       for (int it = lane; it < kEpiRows * nw; it += 32) {
         const int r = it / nw, c = n0 + it % nw;
-        if (gy >= p.H || gx0 + r >= p.W || c >= cout) continue;
+        if (gy >= p.H || gx0 + r >= p.W || c >= lim) continue;
         const long long o = (pix0 + r) * cout + c;
         T v = stage[r * ld + c - n0];
         if (res != nullptr) v = Tr::from_f(Tr::to_f(v) + Tr::to_f(res[o]));
@@ -248,11 +209,16 @@ __device__ __forceinline__ void epilogue(const float* acc, const Params& p,
   }
 }
 
-template <typename T, int N>
+// N: the wgmma width.  NL = 0: one column block of N (cout <= 256).  NL >
+// 0: cout > 256 in p.ncb column blocks of N = 256, the last of NL; a work
+// item is (tile, column block), item = tile * ncb + block.
+template <typename T, int N, int NL>
 __global__ void __launch_bounds__(kThreads, 1)
     conv3x3_wgmma(const __grid_constant__ CUtensorMap map1,
                   const __grid_constant__ CUtensorMap map2, const Params p) {
   extern __shared__ __align__(1024) unsigned char smem[];
+  constexpr bool kWide = NL > 0;
+  constexpr int kNL = kWide ? NL : N;
   constexpr uint32_t kSlice = N * kLine;  // one tap of one chunk
   const uint32_t base = smem_u32(smem);
   if (base & 1023) __trap();  // the swizzle needs 1024-byte alignment
@@ -282,11 +248,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   const int nchunk = p.nchunk;
-  const int my_tiles =
-      p.ntiles > (int)blockIdx.x
-          ? (p.ntiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+  const int nitems = kWide ? p.nitems : p.ntiles;
+  const int my_items =
+      nitems > (int)blockIdx.x
+          ? (nitems - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
           : 0;
-  const int units = my_tiles * nchunk;  // (tile, chunk) pairs, chunk fastest
+  const int units = my_items * nchunk;  // (item, chunk) pairs, chunk fastest
 
   if (threadIdx.x >= kConsumers) {  // ---------------- producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
@@ -304,7 +271,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (clock64() - t0 > kWatchdog) __trap();
       if (hu < units &&
           mbar_ready(empty_h(hu % sh), ((hu / sh) & 1) ^ 1)) {
-        const int tile = blockIdx.x + (hu / nchunk) * gridDim.x;
+        const int item = blockIdx.x + (hu / nchunk) * gridDim.x;
+        const int tile = kWide ? item / p.ncb : item;
         const int ci = hu % nchunk;
         const int tx = tile % p.tiles_x;
         const int ty = (tile / p.tiles_x) % p.tiles_y;
@@ -320,9 +288,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       if (wq < wtotal && mbar_ready(empty_w(wq % sw), ((wq / sw) & 1) ^ 1)) {
         const int s = wq % sw;
-        const int slice = ((wq / 9) % nchunk) * 9 + wq % 9;  // chunk, tap
-        mbar_expect_tx(full_w(s), kSlice);
-        bulk_load(sW + s * kSlice, p.weight + (size_t)slice * kSlice, kSlice,
+        int slice = ((wq / 9) % nchunk) * 9 + wq % 9;  // chunk, tap
+        uint32_t bytes = kSlice;
+        if constexpr (kWide) {  // of the item's column block
+          const int cb =
+              (blockIdx.x + (wq / 9 / nchunk) * gridDim.x) % p.ncb;
+          slice += cb * nchunk * 9;
+          if (cb == p.ncb - 1) bytes = kNL * kLine;
+        }
+        mbar_expect_tx(full_w(s), bytes);
+        bulk_load(sW + s * kSlice, p.weight + (size_t)slice * kSlice, bytes,
                   full_w(s));
         ++wq;
         t0 = clock64();
@@ -346,6 +321,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   int wq = 0;
   for (int u = 0; u < units; ++u) {
     const int ci = u % nchunk, s = u % sh;
+    const int item = blockIdx.x + (u / nchunk) * gridDim.x;
+    // the last column block runs the narrower wgmma (on acc's first kNL / 2)
+    const bool last = kWide && item % p.ncb == p.ncb - 1;
     mbar_wait(full_h(s), (u / sh) & 1);
     const uint32_t plane = sHalo + s * kStageBytes;
     // A register sets: two (tap t + 1 loads while tap t runs), or for
@@ -366,9 +344,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint64_t desc = desc_sw128(slice);
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        Wgmma<T, N>::run(acc, a[tap % KA][ks], desc + 2 * ks,
-                         (ci > 0 || tap > 0 || ks > 0) ? 1 : 0);
+      for (int ks = 0; ks < 4; ++ks) {
+        const int scale = (ci > 0 || tap > 0 || ks > 0) ? 1 : 0;
+        if (last)
+          Wgmma<T, kNL>::run(acc, a[tap % KA][ks], desc + 2 * ks, scale);
+        else
+          Wgmma<T, N>::run(acc, a[tap % KA][ks], desc + 2 * ks, scale);
+      }
       wgmma_commit();
       if (tap < 8) {
         if (KA == 2 || !p.resident) {
@@ -388,72 +370,32 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     mbar_arrive(empty_h(s));
     if (ci == nchunk - 1) {
-      const int tile = blockIdx.x + (u / nchunk) * gridDim.x;
+      const int tile = kWide ? item / p.ncb : item;
       const int tx = tile % p.tiles_x;
       const int ty = (tile / p.tiles_x) % p.tiles_y;
       const int b = tile / (p.tiles_x * p.tiles_y);
       const int gy = ty * kTH + trow, gx0 = tx * kTW;
       const long long pix0 = ((long long)b * p.H + gy) * p.W + gx0;
-      epilogue<T, N>(acc, p, stage, pix0, gy, gx0, lane);
+      epilogue<T, N>(acc, p, stage, pix0, gy, gx0, lane,
+                     kWide ? item % p.ncb * N : 0, last ? kNL : N);
     }
   }
 }
 
 // ------------------------------------------------------------------- host
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)ptr;
-  }
-  return fn;
-}
-
-// Error codes of the host side, beside cudaGetLastError()'s.
-constexpr int kErrNoEncode = 9001, kErrEncode = 9002, kErrSmem = 9003,
-              kErrWidth = 9004;
+// Error codes of the host side, beside cudaGetLastError()'s and
+// encode_nhwc's (9001, 9002).
+constexpr int kErrSmem = 9003, kErrWidth = 9004;
 
 // Tensor map of an NHWC tensor (B, H, W, C) with a box of one 128-byte
 // channel chunk by the halo window, 128-byte swizzle, zeros outside.
 template <typename T>
 int encode_halo(CUtensorMap* map, const void* x, int B, int H, int W, int C) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return kErrNoEncode;
-  const cuuint64_t es = sizeof(T);
-  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {C * es, (cuuint64_t)W * C * es,
-                                 (cuuint64_t)H * W * C * es};
-  const cuuint32_t box[4] = {(cuuint32_t)(kLine / es), kHaloW, kHaloH, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r =
-      fn(map,
-         std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-         4, const_cast<void*>(x), dims, strides, box, elem,
-         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrEncode;
+  return encode_nhwc<T>(map, x, B, H, W, C, kHaloW, kHaloH);
 }
 
-template <typename T, int N>
+template <typename T, int N, int NL>
 int launch_n(const void* x1, int c1, const void* x2, int c2,
              const void* weight, const void* bias, const void* residual,
              void* out, int B, int H, int W, int cout, int act,
@@ -471,11 +413,14 @@ int launch_n(const void* x1, int c1, const void* x2, int c2,
   p.tiles_x = (W + kTW - 1) / kTW;
   p.tiles_y = (H + kTH - 1) / kTH;
   p.ntiles = B * p.tiles_x * p.tiles_y;
+  p.ncb = NL > 0 ? (cout + N - 1) / N : 1;
+  p.nitems = p.ntiles * p.ncb;
   const int slice = N * kLine;
   const int epi = 8 * kEpiRows * (kCh + kEpiPad) * (int)sizeof(T);
   const int bar_bytes = 8 * (2 * 4 + 2 * 3 + 1);
   const int all_w = p.nchunk * 9 * slice;
-  p.resident = all_w + 2 * kStageBytes + epi + bar_bytes <= kSmemMax;
+  p.resident =
+      NL == 0 && all_w + 2 * kStageBytes + epi + bar_bytes <= kSmemMax;
   p.sw = p.resident ? 0 : 3;
   const int w_bytes = p.resident ? all_w : p.sw * slice;
   p.sh = (kSmemMax - w_bytes - epi - bar_bytes) / kStageBytes;
@@ -493,26 +438,32 @@ int launch_n(const void* x1, int c1, const void* x2, int c2,
   if (err != 0) return err;
   static bool attribute_set = false;  // once: launches ask for less or equal
   if (!attribute_set) {
-    cudaFuncSetAttribute(conv3x3_wgmma<T, N>,
+    cudaFuncSetAttribute(conv3x3_wgmma<T, N, NL>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          kSmemMax);
     attribute_set = true;
   }
-  const int grid = p.ntiles < sm_count() ? p.ntiles : sm_count();
+  const int grid = p.nitems < sm_count() ? p.nitems : sm_count();
   if (grid > 0)
-    conv3x3_wgmma<T, N><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+    conv3x3_wgmma<T, N, NL><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
         m1, m2, p);
   return (int)cudaGetLastError();
 }
 
+// n: the wgmma width of the last (at cout <= 256 the only) column block.
 template <typename T>
 int launch(const void* x1, int c1, const void* x2, int c2, const void* weight,
            const void* bias, const void* residual, void* out, int B, int H,
            int W, int cout, int n, int act, void* stream) {
-#define RVSR_N(NN)                                                          \
-  case NN:                                                                  \
-    return launch_n<T, NN>(x1, c1, x2, c2, weight, bias, residual, out, B, \
-                           H, W, cout, act, stream);
+  constexpr int kN = 256;  // a column block past 256 outputs
+#define RVSR_N(NN)                                                           \
+  case NN:                                                                   \
+    return cout > kN ? launch_n<T, kN, NN>(x1, c1, x2, c2, weight, bias,     \
+                                           residual, out, B, H, W, cout, act, \
+                                           stream)                           \
+                     : launch_n<T, NN, 0>(x1, c1, x2, c2, weight, bias,      \
+                                          residual, out, B, H, W, cout, act,  \
+                                          stream);
   switch (n) {
     RVSR_N(8)
     RVSR_N(16)
@@ -530,8 +481,9 @@ int launch(const void* x1, int c1, const void* x2, int c2, const void* weight,
 }  // namespace wg
 }  // namespace rvsr
 
-// weight (cout, cin, 3, 3) OIHW -> packed (cin * 9 * n elements), the image
-// conv3x3_bf16 / conv3x3_f32 take.  Returns cudaGetLastError().
+// weight (cout, cin, 3, 3) OIHW -> packed (ceil(cout / n) * cin * 9 * n
+// elements: column blocks of n outputs), the image conv3x3_bf16 /
+// conv3x3_f32 take.  Returns cudaGetLastError().
 extern "C" int conv3x3_pack_bf16(const void* weight, void* packed, int cout,
                                  int cin, int n, void* stream) {
   return rvsr::pack_weight<__nv_bfloat16>(weight, packed, cout, cin, n, stream);
@@ -544,20 +496,23 @@ extern "C" int conv3x3_pack_f32(const void* weight, void* packed, int cout,
 
 // x1 (B,H,W,c1) and optional x2 (B,H,W,c2): the input is their channel
 // concat, c1 and c2 whole 128-byte chunks (multiples of 64 bf16 / 32 f32);
-// weight (cout, c1 + c2, 3, 3) OIHW, laid out by pack_weight_kernel for n
-// output columns (n one of gen_wgmma.py's WIDTHS, >= cout) into packed
-// (scratch of (c1 + c2) * 9 * n elements) first; bias (cout) or null; residual
-// (B,H,W,cout) or null; out (B,H,W,cout).  act: 0 none, 1 relu, 2
-// lrelu(0.1).  Returns cudaGetLastError(), or 9001 (no
-// cuTensorMapEncodeTiled in the driver), 9002 (a tensor map refused), 9003
-// (shared memory), 9004 (n not instantiated).
+// weight (cout, c1 + c2, 3, 3) OIHW, laid out by pack_weight_kernel into
+// packed first: for cout <= 256 one block of n output columns (n one of
+// gen_wgmma.py's WIDTHS, >= cout; scratch of (c1 + c2) * 9 * n elements);
+// past 256, ceil(cout / 256) column blocks of 256 (scratch of that many
+// times (c1 + c2) * 9 * 256), of which the last runs n (one of WIDTHS,
+// >= its columns); bias (cout) or null; residual (B,H,W,cout) or null; out
+// (B,H,W,cout).  act: 0 none, 1 relu, 2 lrelu(0.1).  Returns
+// cudaGetLastError(), or 9001 (no cuTensorMapEncodeTiled in the driver),
+// 9002 (a tensor map refused), 9003 (shared memory), 9004 (n not
+// instantiated).
 extern "C" int conv3x3_bf16(const void* x1, int c1, const void* x2, int c2,
                             const void* weight, void* packed,
                             const void* bias, const void* residual, void* out,
                             int B, int H, int W, int cout, int n, int act,
                             void* stream) {
-  int err = rvsr::pack_weight<__nv_bfloat16>(weight, packed, cout, c1 + c2, n,
-                                          stream);
+  int err = rvsr::pack_weight<__nv_bfloat16>(
+      weight, packed, cout, c1 + c2, cout > 256 ? 256 : n, stream);
   if (err != 0) return err;
   return rvsr::wg::launch<__nv_bfloat16>(x1, c1, x2, c2, packed, bias,
                                          residual, out, B, H, W, cout, n, act,
@@ -568,7 +523,8 @@ extern "C" int conv3x3_f32(const void* x1, int c1, const void* x2, int c2,
                            const void* weight, void* packed, const void* bias,
                            const void* residual, void* out, int B, int H,
                            int W, int cout, int n, int act, void* stream) {
-  int err = rvsr::pack_weight<float>(weight, packed, cout, c1 + c2, n, stream);
+  int err = rvsr::pack_weight<float>(weight, packed, cout, c1 + c2,
+                                     cout > 256 ? 256 : n, stream);
   if (err != 0) return err;
   return rvsr::wg::launch<float>(x1, c1, x2, c2, packed, bias, residual, out,
                                  B, H, W, cout, n, act, stream);

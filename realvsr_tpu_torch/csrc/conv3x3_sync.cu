@@ -2,9 +2,12 @@
 // fused epilogue (conv3x3.cu holds the wgmma form and the function's full
 // statement).  It takes the inputs the wgmma kernel does not: input widths
 // c1 or c2 that are multiples of 16 but not of one 128-byte channel chunk
-// (64 bf16 / 32 f32 channels), and more than 256 output channels.  No conv
-// of the model paths comes here; ops/kernels/conv3x3.py chooses this kernel
-// up front, by shape, never after a failure.
+// (64 bf16 / 32 f32 channels), at any number of outputs.  The nf 16 debug
+// configs (debug_EDVR_woTSA_Split_synthetic.yml, debug_EDVR-GAN_Split_
+// synthetic.yml) run every conv of their trunk here, 23 a step (all but
+// conv_last, whose input is HRconv's 64 channels); no conv of the nf 64 or
+// 128 models does.  ops/kernels/conv3x3.py chooses this kernel up front, by
+// shape, never after a failure.
 //
 // Design: implicit GEMM.  One block computes a 4 x 32 pixel output tile with
 // 8 warps, one 16-pixel row strip each.  The (4+2) x (32+2) input halo is

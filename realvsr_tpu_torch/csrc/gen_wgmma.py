@@ -1,7 +1,7 @@
 """Write ``wgmma.cuh``: the Hopper ``wgmma.mma_async`` instructions that
-``conv3x3.cu`` and ``dcn_fwd.cu`` run, one inline-asm wrapper per (element
-type, N), with A from registers (``Wgmma``) and, for :data:`SS_WIDTHS`,
-from shared memory (``WgmmaSS``).
+``conv3x3.cu``, ``dcn_fwd.cu`` and ``dcn_bwd.cu`` run, one inline-asm
+wrapper per (element type, N), with A from registers (``Wgmma``) and, for
+:data:`SS_WIDTHS`, from shared memory (``WgmmaSS``).
 
 An inline-asm operand list cannot be built by templates, and the N/2 f32
 accumulators of an m64nN product each need their own operand, so the
@@ -18,8 +18,9 @@ from pathlib import Path
 
 # the kernel's output widths (N of m64nN); the wrapper pads cout up to one
 WIDTHS = (8, 16, 32, 64, 128, 216, 256)
-# the widths with A read from shared memory too (dcn_fwd.cu at 128 channels)
-SS_WIDTHS = (64,)
+# the widths with A read from shared memory too (dcn_fwd.cu at 128
+# channels: 64; dcn_bwd.cu's dS at 128: 16)
+SS_WIDTHS = (16, 64)
 # (C++ type, PTX K of one instruction, PTX type, trailing immediates with A
 # from registers, with A from shared memory): B K-major from shared memory
 # through a descriptor; A from shared memory K-major too (TF32 takes no

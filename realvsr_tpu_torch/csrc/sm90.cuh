@@ -1,9 +1,12 @@
 // Hopper pieces shared by the hand-written kernels (conv3x3.cu, dcn_fwd.cu,
 // dcn_bwd.cu): the wgmma fences and waits, the descriptor of a K-major
-// operand with the 128-byte swizzle, ldmatrix, and the packer that lays an
-// OIHW weight out as the image of shared memory the wgmma kernels copy.
+// operand with the 128-byte swizzle, ldmatrix, mbarriers with a watchdog,
+// TMA and bulk copies, the tensor map of an NHWC tile, and the packer that
+// lays an OIHW weight out as the image of shared memory the wgmma kernels
+// copy.
 #pragma once
 
+#include <cuda.h>
 #include <stdint.h>
 
 #include "common.cuh"
@@ -55,6 +58,70 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
+// A wait this long (cycles: seconds at the H100's clocks) is a fault: the
+// kernel traps, which the next CUDA call reports, rather than hang the card.
+constexpr long long kWatchdog = 1LL << 33;
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_ready(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred P1;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, P1;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// Waits for the phase of the given parity to complete; traps after
+// kWatchdog cycles.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_ready(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_ready(bar, parity))
+    if (clock64() - t0 > kWatchdog) __trap();
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // wgmma descriptor of a K-major operand with the 128-byte swizzle: rows of
 // 128 bytes, 8-row groups 1024 bytes apart.
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
@@ -63,10 +130,12 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
 }
 
 // The shared-memory image of an OIHW weight (cout, cin, 3, 3) that the
-// wgmma kernels copy: [cin / ch][tap][n][ch], the 16-byte units of each
-// 128-byte row swizzled (unit j of row o at j ^ (o & 7)), zero rows from
-// cout to n, each value rounded as the tensor cores take it (TF32 for f32).
-// ops/kernels/conv3x3.py::pack_weight is its plain version.
+// wgmma kernels copy: [cout / n][cin / ch][tap][n][ch] (a column block of n
+// output rows at a time, one block where cout <= n), the 16-byte units of
+// each 128-byte row swizzled (unit j of row o at j ^ (o & 7)), zero rows
+// from cout up to whole blocks, each value rounded as the tensor cores take
+// it (TF32 for f32).  ops/kernels/conv3x3.py::pack_weight is its plain
+// version.
 template <typename T>
 __global__ void pack_weight_kernel(const T* __restrict__ w,
                                    T* __restrict__ packed, int cout, int cin,
@@ -78,10 +147,13 @@ __global__ void pack_weight_kernel(const T* __restrict__ w,
     long long r = e / ch;
     const int o = (int)(r % n);
     r /= n;
-    const int tap = (int)(r % 9), c = (int)(r / 9);
+    const int tap = (int)(r % 9);
+    r /= 9;
+    const int c = (int)(r % (cin / ch)), row = (int)(r / (cin / ch)) * n + o;
     const int i = c * ch + ((kl / u) ^ (o & 7)) * u + kl % u;
     float v = 0.f;
-    if (o < cout) v = Traits<T>::to_f(w[((long long)o * cin + i) * 9 + tap]);
+    if (row < cout)
+      v = Traits<T>::to_f(w[((long long)row * cin + i) * 9 + tap]);
     packed[e] = Traits<T>::to_mma(v);
   }
 }
@@ -89,7 +161,7 @@ __global__ void pack_weight_kernel(const T* __restrict__ w,
 template <typename T>
 int pack_weight(const void* weight, void* packed, int cout, int cin, int n,
                 void* stream) {
-  const long long total = (long long)cin * 9 * n;
+  const long long total = (long long)((cout + n - 1) / n) * cin * 9 * n;
   const int blocks = (int)((total + 255) / 256 < 1024 ? (total + 255) / 256
                                                       : 1024);
   pack_weight_kernel<T><<<blocks, 256, 0, (cudaStream_t)stream>>>(
@@ -105,6 +177,61 @@ inline int sm_count() {
     cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
   }
   return n;
+}
+
+// ------------------------------------------------------------------- host
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda).
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                            &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)ptr;
+  }
+  return fn;
+}
+
+// Error codes of encode_nhwc, beside cudaGetLastError()'s.
+constexpr int kErrNoEncode = 9001, kErrEncode = 9002;
+
+// Tensor map of an NHWC tensor (B, H, W, C) with a box of one 128-byte
+// channel chunk by box_h x box_w pixels, 128-byte swizzle, zeros outside.
+template <typename T>
+int encode_nhwc(CUtensorMap* map, const void* x, int B, int H, int W, int C,
+                int box_w, int box_h) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kErrNoEncode;
+  const cuuint64_t es = sizeof(T);
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {C * es, (cuuint64_t)W * C * es,
+                                 (cuuint64_t)H * W * C * es};
+  const cuuint32_t box[4] = {(cuuint32_t)(kLine / es), (cuuint32_t)box_w,
+                             (cuuint32_t)box_h, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r =
+      fn(map,
+         std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+         4, const_cast<void*>(x), dims, strides, box, elem,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode;
 }
 
 }  // namespace rvsr

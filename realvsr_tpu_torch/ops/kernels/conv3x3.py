@@ -6,29 +6,34 @@ Replaces ``realvsr_tpu/ops/pallas/conv3x3_kernel.py::_packed_pallas``
 the second input pointer ``x2`` does) and ``conv3x3_kernel.py::
 conv3x3_fused`` (the same function at any output width, with the custom VJP
 ``conv3x3``).  Both run one CUDA kernel: persistent blocks, ``wgmma`` on
-the whole output width (N = cout padded to one of :data:`WIDTHS`), the
-weight resident in shared memory or streamed tap by tap, the input halo
-loaded by TMA in a ring of stages, and the epilogue (bias, activation,
-cast, residual) in registers with 16-byte stores; see the source for the
-design.  No pair packing: the TPU's 128-lane layout is not carried over.
+the whole output width (N = cout padded to one of :data:`WIDTHS`; past
+256 outputs, column blocks of 256, :func:`column_blocks`), the weight
+resident in shared memory or streamed tap by tap, the input halo loaded by
+TMA in a ring of stages, and the epilogue (bias, activation, cast,
+residual) in registers with 16-byte stores; see the source for the design.
+No pair packing: the TPU's 128-lane layout is not carried over.
 
 The weight goes to the kernel as the image of its shared memory, which a
 small kernel of the same source lays out before each launch
 (:func:`pack_weight_cuda`; :func:`pack_weight` is its plain version): per
-128-byte chunk of input channels (64 bf16 or 32 f32) and tap, N rows of
-that chunk, with the 128-byte swizzle of the ``wgmma`` descriptors, in
-TF32 for f32 (:func:`round_tf32`).  :func:`conv3x3_from_packed` computes
-the conv from that image tap by tap in the kernel's order; the CPU tests
-hold it against the plain conv and the JAX kernel.
+column block (one up to 256 outputs), 128-byte chunk of input channels (64
+bf16 or 32 f32) and tap, N rows of that chunk, with the 128-byte swizzle
+of the ``wgmma`` descriptors, in TF32 for f32 (:func:`round_tf32`).
+:func:`conv3x3_from_packed` computes the conv from that image tap by tap
+in the kernel's order; the CPU tests hold it against the plain conv and
+the JAX kernel.
 
-Inputs whose widths are not whole chunks (c1 or c2 of 16 or 48), and cout
-above 256, run the ``mma.sync`` kernel of ``csrc/conv3x3_sync.cu`` instead,
-chosen here by shape (:func:`uses_wgmma`); no conv of the model paths does.
+Inputs whose widths are not whole chunks (c1 or c2 of 16 or 48) run the
+``mma.sync`` kernel of ``csrc/conv3x3_sync.cu`` instead, chosen here by
+shape (:func:`uses_wgmma`): the nf 16 debug configs' convs (23 of their 24
+a step); no conv of the nf 64 or 128 models.
 
 :func:`conv3x3` launches a kernel for a CUDA tensor; a launch with 64
 output channels counts in ``conv3x3.launches``, one with any other width in
 ``conv3x3_fused.launches``, so the two rows of the TPU table keep their own
-counts.  For a CPU tensor it runs :func:`conv3x3_plain`.
+counts, whichever kernel runs; of these, the launches of the ``mma.sync``
+kernel count in ``conv3x3_sync.launches`` too.  For a CPU tensor it runs
+:func:`conv3x3_plain`.
 :func:`conv3x3_fused` is the JAX-named entry (one input, no ``x2``).
 :func:`conv3x3_autograd` is the differentiable op (the counterpart of the
 JAX custom VJP ``conv3x3``): the kernel forward, and a backward through
@@ -43,6 +48,7 @@ pre-activations near 0.
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
@@ -92,11 +98,22 @@ def kernel_width(cout: int) -> int:
     raise ValueError(f"conv3x3: no wgmma width for {cout} outputs")
 
 
+def column_blocks(cout: int) -> list[tuple[int, int]]:
+    """The wgmma kernel's column blocks, (first output, N): one of
+    :func:`kernel_width` up to 256 outputs; past that, blocks of 256 with
+    the last padded to the width that holds its rest (300 = 256 + 64)."""
+    full = WIDTHS[-1]
+    if cout <= full:
+        return [(0, kernel_width(cout))]
+    return [(c0, full if cout - c0 >= full else kernel_width(cout - c0))
+            for c0 in range(0, cout, full)]
+
+
 def uses_wgmma(c1: int, c2: int, cout: int, dtype: torch.dtype) -> bool:
     """Whether the wgmma kernel takes these widths (else the mma.sync one):
-    whole 128-byte input chunks and at most 256 outputs."""
+    whole 128-byte input chunks, at any number of outputs."""
     ch = chunk(dtype)
-    return c1 % ch == 0 and c2 % ch == 0 and cout <= WIDTHS[-1]
+    return c1 % ch == 0 and c2 % ch == 0
 
 
 def _swizzle(t: torch.Tensor) -> torch.Tensor:
@@ -111,42 +128,49 @@ def _swizzle(t: torch.Tensor) -> torch.Tensor:
 
 def pack_weight(weight: torch.Tensor, n: int, ch: int) -> torch.Tensor:
     """The kernel's shared-memory image of an OIHW weight (cout, cin, 3, 3):
-    (cin / ch, 9, n, ch) — chunk of ``ch`` input channels, tap (dy * 3 +
-    dx), output row (zeros from cout to n), channel — with each 8-row group
-    of 128-byte rows swizzled (:func:`_swizzle`), flattened.  Any dtype
-    (the tests pack indices with it)."""
+    (ceil(cout / n), cin / ch, 9, n, ch) — column block of ``n`` outputs
+    (one where cout <= n), chunk of ``ch`` input channels, tap (dy * 3 +
+    dx), output row of the block (zeros past cout), channel — with each
+    8-row group of 128-byte rows swizzled (:func:`_swizzle`), flattened.
+    Any dtype (the tests pack indices with it)."""
     cout, cin = weight.shape[:2]
+    ncb = -(-cout // n)
     w = weight.permute(2, 3, 0, 1).reshape(9, cout, cin // ch, ch)
-    w = torch.cat([w, w.new_zeros(9, n - cout, cin // ch, ch)], 1)
-    w = w.permute(2, 0, 1, 3).reshape(cin // ch, 9, n, 8, ch // 8)
-    return _swizzle(w).reshape(-1)
+    w = torch.cat([w, w.new_zeros(9, ncb * n - cout, cin // ch, ch)], 1)
+    w = w.reshape(9, ncb, n, cin // ch, ch).permute(1, 3, 0, 2, 4)
+    return _swizzle(w.reshape(ncb, cin // ch, 9, n, 8, ch // 8)).reshape(-1)
 
 
 def unpack_weight(packed: torch.Tensor, cout: int, cin: int, n: int,
                   ch: int) -> torch.Tensor:
-    """(cin / ch, 9, cout, ch) from :func:`pack_weight`'s image."""
-    w = _swizzle(packed.reshape(cin // ch, 9, n, 8, ch // 8))
-    return w.reshape(cin // ch, 9, n, ch)[:, :, :cout]
+    """(cin / ch, 9, cout, ch) from :func:`pack_weight`'s image with
+    column blocks of ``n``."""
+    ncb = packed.numel() // (cin * 9 * n)
+    w = _swizzle(packed.reshape(ncb, cin // ch, 9, n, 8, ch // 8))
+    w = w.reshape(ncb, cin // ch, 9, n, ch).permute(1, 2, 0, 3, 4)
+    return w.reshape(cin // ch, 9, ncb * n, ch)[:, :, :cout]
 
 
 def conv3x3_from_packed(x, packed, cout, bias=None, act=None, residual=None,
                         x2=None, ch=None):
     """:func:`conv3x3_plain` from the packed weight (packed with ``ch``
-    channels a chunk, by default the kernel's for x's dtype), in the
-    kernel's order: per input chunk, per tap, the shifted input times that
-    tap's weight, summed in f32; then bias, act, cast, residual."""
+    channels a chunk, by default the kernel's for x's dtype, and column
+    blocks of 256 past 256 outputs), in the kernel's order: per column
+    block, per input chunk, per tap, the shifted input times that tap's
+    weight, summed in f32; then bias, act, cast, residual."""
     xin = x if x2 is None else torch.cat([x, x2], dim=-1)
     b, h, w, cin = xin.shape
     ch = ch or chunk(x.dtype)
-    n = packed.numel() // (9 * cin)
+    n = min(packed.numel() // (9 * cin), WIDTHS[-1])
     wk = unpack_weight(packed, cout, cin, n, ch).float()
     xp = F.pad(xin.float(), (0, 0, 1, 1, 1, 1))
     y = xin.new_zeros(b, h, w, cout, dtype=torch.float32)
-    for c in range(cin // ch):
-        for tap in range(9):
-            dy, dx = divmod(tap, 3)
-            xs = xp[:, dy:dy + h, dx:dx + w, c * ch:(c + 1) * ch]
-            y = y + xs @ wk[c, tap].t()
+    for c0 in range(0, cout, n):
+        for c in range(cin // ch):
+            for tap in range(9):
+                dy, dx = divmod(tap, 3)
+                xs = xp[:, dy:dy + h, dx:dx + w, c * ch:(c + 1) * ch]
+                y[..., c0:c0 + n] += xs @ wk[c, tap, c0:c0 + n].t()
     if bias is not None:
         y = y + bias.float()
     y = apply_act(y, act).to(x.dtype)
@@ -166,7 +190,7 @@ def pack_weight_cuda(weight: torch.Tensor, n: int) -> torch.Tensor:
     """:func:`pack_weight` of a CUDA weight by the kernel's own packer,
     with f32 rounded to TF32 (:func:`round_tf32`)."""
     cout, cin = weight.shape[:2]
-    packed = torch.empty(cin * 9 * n, device=weight.device,
+    packed = torch.empty(-(-cout // n) * cin * 9 * n, device=weight.device,
                          dtype=weight.dtype)
     lib = _build.load("conv3x3", _FUNCS)
     with torch.cuda.device(weight.device):
@@ -230,9 +254,12 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor,
         _build.check_tensor(bias, "bias", (cout,), dt, dev)
     if residual is not None:
         _build.check_tensor(residual, "residual", (b, h, w, cout), dt, dev)
-    if wgmma:  # the weight and the scratch its packer lays it out in
-        n = kernel_width(cout)
-        wk = (weight, torch.empty((c1 + c2) * 9 * n, device=dev, dtype=dt))
+    if wgmma:  # the weight and the scratch its packer lays it out in;
+        # n: the last (or only) column block's width
+        blocks = column_blocks(cout)
+        n = blocks[-1][1]
+        image = len(blocks) * (c1 + c2) * 9 * blocks[0][1]
+        wk = (weight, torch.empty(image, device=dev, dtype=dt))
         lib, name = _build.load("conv3x3", _FUNCS), "conv3x3"
     else:   # (cout, tap, cin), zero rows up to whole channel tiles
         n = _tile_cols(cout)
@@ -255,10 +282,17 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor,
         conv3x3.launches += 1
     else:
         conv3x3_fused.launches += 1
+    if not wgmma:
+        conv3x3_sync.launches += 1
     return out
 
 
 conv3x3.launches = 0
+
+
+# the count of conv3x3's launches of the mma.sync kernel (each counts in
+# conv3x3 or conv3x3_fused as well)
+conv3x3_sync = SimpleNamespace(launches=0)
 
 
 def conv3x3_fused(x: torch.Tensor, weight: torch.Tensor,

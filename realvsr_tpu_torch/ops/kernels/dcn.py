@@ -106,6 +106,10 @@ _SMEM_MAX, _SMEM_SM, _LINE = 232448, 228 * 1024, 128
 TILE_ROWS = {torch.bfloat16: 16, torch.float32: 8}
 BWD_TW = 32                   # dcn_bwd.cu: kTW
 RF_MAX = 8                    # dcn_bwd.cu: kRfMax
+# dcn_bwd.cu's Bwd128 (the 128-channel backward): tile rows, weight taps
+# in flight
+BWD128_ROWS = {torch.bfloat16: 6, torch.float32: 4}
+BWD128_WS = 3
 
 
 def route(cin: int, cout: int | None = None, dg: int = GROUPS,
@@ -180,9 +184,9 @@ def narrow_bwd_plan(cin: int, cout: int, dg: int) -> tuple[int, int, bool]:
 def tile_rows(dtype: torch.dtype, c: int = C, bwd: bool = False) -> int:
     """Tile rows of the wgmma pair at C channels (64 or 128): of the
     forward (``dcn_fwd.cu``: Shape::TH), or of the backward (``dcn_bwd.cu``:
-    Layout::TH, 4 in both types at 128)."""
+    Layout::TH; at 128 Bwd128::TH, 6 bf16 / 4 f32)."""
     if c == 128:
-        return 4 if bwd else TILE_ROWS[dtype] // 2
+        return BWD128_ROWS[dtype] if bwd else TILE_ROWS[dtype] // 2
     return TILE_ROWS[dtype]
 
 
@@ -227,11 +231,13 @@ def footprint(tile_y0: int, tile_x0: int, rf: int, th: int):
 def bwd_smem_bytes(dtype: torch.dtype, rf: int, c: int = C,
                    dg: int = GROUPS, cout: int | None = None,
                    has_mask: bool = True) -> int:
-    """Shared memory of a backward block (``dcn_bwd.cu::smem_bytes``: the
-    group's weight, resident at 64 channels and a ring of two taps at 128,
-    the g tile, dS, two S buffers, the block reduction and the dx footprint
-    of C / 8 + 1 ints a pixel); on ``dcn_narrow.cu`` (no footprint) one
-    tap's f32 weight for a chunk of inputs and a run's g and S (and, in the
+    """Shared memory of a backward block: at 64 channels
+    ``dcn_bwd.cu::smem_bytes`` (the group's weight, the g tile, dS, two S
+    buffers, the block reduction); at 128 ``Bwd128::smem`` (the TMA'd g
+    tile, a ring of weight taps, two S and two dS slots, the sampling
+    warps' reduction, the mbarriers); then the dx footprint of C
+    / 8 + 1 ints a pixel.  On ``dcn_narrow.cu`` (no footprint) one tap's
+    f32 weight for a chunk of inputs and a run's g and S (and, in the
     chunked form, dS), rows padded by one (:func:`narrow_bwd_plan`)."""
     cout = c if cout is None else cout
     if route(c, cout, dg, has_mask) == "narrow":
@@ -240,10 +246,16 @@ def bwd_smem_bytes(dtype: torch.dtype, rf: int, c: int = C,
     pad, cpg = 16 // es, c // GROUPS
     th = tile_rows(dtype, c, bwd=True)
     px = th * BWD_TW
-    threads = px * cpg // 8
-    fixed = ((9 if c == 64 else 2) * cpg * (c + pad) * es
-             + px * (c + pad) * es + px * cpg * 4
-             + 2 * cpg * (px + pad) * es + threads // 32 * 4)
+    if c == 64:
+        fixed = (9 * cpg * (c + pad) * es + px * (c + pad) * es
+                 + px * cpg * 4 + 2 * cpg * (px + pad) * es + px // 32 * 4)
+    else:
+        chunks = c * es // _LINE
+        bars = 1 + BWD128_WS + 6
+        fixed = (chunks * px * _LINE
+                 + BWD128_WS * chunks * cpg * _LINE
+                 + 2 * cpg * (px + pad) * es + 2 * px * cpg * es
+                 + 2 * px // 32 * 8 + bars * 8 + 15) // 16 * 16
     _, _, fh, fw = footprint(0, 0, rf, th)
     return fixed + fh * fw * (cpg + 1) * 4
 
@@ -261,10 +273,13 @@ def bwd_grid(b: int, h: int, w: int, sms: int, dtype: torch.dtype,
              c: int = C, dg: int = GROUPS, cout: int | None = None,
              has_mask: bool = True):
     """The backward's walk: for each block of its grid, (group, tiles); a
-    tile is ``(b * tiles_y + ty) * tiles_x + tx`` (``dcn_bwd.cu``).  On
-    ``dcn_narrow.cu`` a block takes every group (group None) and its tiles
-    are runs of :data:`NARROW_RUN` consecutive pixels, run r the pixels
-    ``[r * NARROW_RUN, (r + 1) * NARROW_RUN)``."""
+    tile is ``(b * tiles_y + ty) * tiles_x + tx`` (``dcn_bwd.cu``).  At 128
+    channels a block takes a run of (group, tile) items (group None; its
+    tiles are the items' (group, tile) pairs): item j = group * ntiles +
+    tile, block i of min(8 * ntiles, sms) the items [i * n // blocks, (i +
+    1) * n // blocks).  On ``dcn_narrow.cu`` a block takes every group
+    (group None) and its tiles are runs of :data:`NARROW_RUN` consecutive
+    pixels, run r the pixels ``[r * NARROW_RUN, (r + 1) * NARROW_RUN)``."""
     cout = c if cout is None else cout
     if route(c, cout, dg, has_mask) == "narrow":
         runs = -(-b * h * w // NARROW_RUN)
@@ -272,6 +287,11 @@ def bwd_grid(b: int, h: int, w: int, sms: int, dtype: torch.dtype,
         return [(None, list(range(i, runs, blocks))) for i in range(blocks)]
     th = tile_rows(dtype, c, bwd=True)
     ntiles = b * -(-h // th) * -(-w // BWD_TW)
+    if c == 128:
+        n = GROUPS * ntiles
+        blocks = min(n, sms)
+        return [(None, [divmod(j, ntiles) for j in range(
+            i * n // blocks, (i + 1) * n // blocks)]) for i in range(blocks)]
     slots = min(ntiles, sms // GROUPS)
     return [(i % GROUPS, list(range(i // GROUPS, ntiles, slots)))
             for i in range(slots * GROUPS)]

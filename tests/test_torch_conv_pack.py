@@ -7,13 +7,16 @@ makes; the kernel itself, its packer and its walk over the output tiles
 ``chip_smoke.py``).
 Here, with inputs from numpy seeds in f32:
 
-* ``conv3x3_from_packed`` (the conv from the packed weight, chunk by chunk
-  and tap by tap in the kernel's order) against ``conv3x3_plain`` and
-  against the JAX ``conv3x3_fused`` in interpret mode, at cout 3, 64, 216
-  and 256, one input of 64 and two of 64 + 64, ragged H x W; tolerance
-  5e-5: the same f32 products summed in another order;
+* ``conv3x3_from_packed`` (the conv from the packed weight, column block
+  by column block, chunk by chunk and tap by tap in the kernel's order)
+  against ``conv3x3_plain`` and against the JAX ``conv3x3_fused`` in
+  interpret mode, at cout 3, 64, 216, 256 and, in column blocks of 256,
+  300 (256 + 64) and 512 (256 + 256), one input of 64 and two of 64 + 64,
+  ragged H x W; tolerance 5e-5: the same f32 products summed in another
+  order;
 * the packed image element by element against the layout stated in the
-  kernel's source (the kernel's own packer is held to it on the card);
+  kernel's source, 512 outputs in two column blocks among the cases (the
+  kernel's own packer is held to it on the card);
 * which kernel the wrapper chooses for which widths, the TF32 rounding of
   the f32 weight, and that the written-out wgmma header is up to date.
 """
@@ -26,11 +29,16 @@ from realvsr_tpu.ops.pallas.conv3x3_kernel import (
     conv3x3_fused as jax_conv3x3_fused)
 from realvsr_tpu_torch.csrc import gen_wgmma
 from realvsr_tpu_torch.ops.kernels.conv3x3 import (
-    WIDTHS, chunk, conv3x3_from_packed, conv3x3_plain, kernel_width,
-    pack_weight, round_tf32, unpack_weight, uses_wgmma)
+    WIDTHS, chunk, column_blocks, conv3x3_from_packed, conv3x3_plain,
+    kernel_width, pack_weight, round_tf32, unpack_weight, uses_wgmma)
 
 TOL = 5e-5
-COUTS = [3, 64, 216, 256]
+COUTS = [3, 64, 216, 256, 300, 512]
+
+
+def _n(cout):
+    """The packed image's rows a (chunk, tap): its column blocks' N."""
+    return column_blocks(cout)[0][1]
 
 
 def _inputs(seed, cout, b=2, h=5, w=7, c1=64, c2=0):
@@ -49,11 +57,12 @@ def _inputs(seed, cout, b=2, h=5, w=7, c1=64, c2=0):
 @pytest.mark.parametrize("ch", [64, 32], ids=["bf16_layout", "f32_layout"])
 @pytest.mark.parametrize("cout,c2,act,residual", [
     (3, 0, None, False), (64, 0, "relu", True), (216, 0, "lrelu", False),
-    (256, 0, None, True), (64, 64, "lrelu", False), (3, 64, None, False)])
+    (256, 0, None, True), (64, 64, "lrelu", False), (3, 64, None, False),
+    (300, 0, None, True), (512, 0, "lrelu", False), (512, 64, None, True)])
 def test_packed_conv_matches_plain(ch, cout, c2, act, residual):
     (x, x2, wgt, bias, res), _ = _inputs(cout + c2, cout, c2=c2)
     res = res if residual else None
-    packed = pack_weight(wgt, kernel_width(cout), ch)
+    packed = pack_weight(wgt, _n(cout), ch)
     out = conv3x3_from_packed(x, packed, cout, bias, act, res, x2, ch=ch)
     ref = conv3x3_plain(x, wgt, bias, act, res, x2)
     assert out.shape == ref.shape == (2, 5, 7, cout)
@@ -73,7 +82,7 @@ def test_packed_conv_matches_jax_interpret(cout):
                             jnp.asarray(bn), act="lrelu",
                             residual=jnp.asarray(rn), mrows=4,
                             interpret=True)
-    packed = pack_weight(wgt, kernel_width(cout), chunk(torch.bfloat16))
+    packed = pack_weight(wgt, _n(cout), chunk(torch.bfloat16))
     out = conv3x3_from_packed(x, packed, cout, bias, "lrelu", res, ch=64)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL)
 
@@ -93,23 +102,26 @@ def test_packed_conv_two_inputs_matches_jax_interpret():
 
 
 @pytest.mark.parametrize("cout,cin,ch", [(3, 64, 64), (216, 128, 32),
-                                         (64, 128, 64)])
+                                         (64, 128, 64), (512, 128, 64),
+                                         (300, 64, 32)])
 def test_pack_layout_is_the_kernels(cout, cin, ch):
-    """Element (o, i, dy, dx) sits at ((chunk * 9 + tap) * n + o) * ch +
-    ((k // u) ^ (o % 8)) * u + k % u, with chunk, k = divmod(i, ch), tap =
-    3 dy + dx and u = ch / 8 elements in 16 bytes; rows o >= cout are 0."""
-    n = kernel_width(cout)
+    """Element (o, i, dy, dx) sits at (((b * chunks + chunk) * 9 + tap) * n
+    + o % n) * ch + ((k // u) ^ (o % 8)) * u + k % u, with b = o // n its
+    column block of n outputs (one up to 256 outputs), chunk, k = divmod(i,
+    ch), tap = 3 dy + dx and u = ch / 8 elements in 16 bytes; rows past
+    cout are 0."""
+    n = _n(cout)
     w = torch.arange(1, cout * cin * 9 + 1, dtype=torch.int64) \
         .view(cout, cin, 3, 3)
     packed = pack_weight(w, n, ch)
-    assert packed.numel() == cin // ch * 9 * n * ch
+    assert packed.numel() == -(-cout // n) * cin // ch * 9 * n * ch
     u = ch // 8
     want = torch.zeros_like(packed)
     o, i, dy, dx = np.meshgrid(np.arange(cout), np.arange(cin),
                                np.arange(3), np.arange(3), indexing="ij")
     c, k = np.divmod(i, ch)
-    at = ((c * 9 + 3 * dy + dx) * n + o) * ch + ((k // u) ^ (o % 8)) * u \
-        + k % u
+    at = ((((o // n) * (cin // ch) + c) * 9 + 3 * dy + dx) * n + o % n) \
+        * ch + ((k // u) ^ (o % 8)) * u + k % u
     want[torch.from_numpy(at.reshape(-1))] = w.reshape(-1)
     assert torch.equal(packed, want)
     back = unpack_weight(packed, cout, cin, n, ch)
@@ -118,15 +130,26 @@ def test_pack_layout_is_the_kernels(cout, cin, ch):
 
 
 def test_routing_by_width():
-    """Every conv of the model paths takes the wgmma kernel; widths that
-    are not whole 128-byte chunks, or cout > 256, the mma.sync one."""
+    """Every conv of the nf 64 and 128 model paths takes the wgmma kernel,
+    EDVR-L's upconv1 (128 -> 512) and any cout past 256 in column blocks;
+    input widths that are not whole 128-byte chunks (the nf 16 debug
+    configs' 16, and 48) the mma.sync one, at any cout."""
     for dt in (torch.bfloat16, torch.float32):
         for c1, c2, cout in ((64, 0, 64), (64, 64, 64), (64, 0, 3),
-                             (64, 0, 216), (64, 0, 256), (64, 64, 3)):
+                             (64, 0, 216), (64, 0, 256), (64, 64, 3),
+                             (64, 0, 300), (128, 0, 512), (128, 128, 512)):
             assert uses_wgmma(c1, c2, cout, dt)
         assert not uses_wgmma(16, 16, 64, dt)
         assert not uses_wgmma(48, 0, 64, dt)
-        assert not uses_wgmma(64, 0, 300, dt)
+        assert not uses_wgmma(16, 0, 512, dt)
+        assert not uses_wgmma(16, 16, 108, dt)
+    assert column_blocks(512) == [(0, 256), (256, 256)]
+    assert column_blocks(300) == [(0, 256), (256, 64)]
+    assert column_blocks(257) == [(0, 256), (256, 8)]
+    assert column_blocks(1000) == [(0, 256), (256, 256), (512, 256),
+                                   (768, 256)]
+    assert column_blocks(216) == [(0, 216)]
+    assert column_blocks(472) == [(0, 256), (256, 216)]
     assert [kernel_width(c) for c in (1, 3, 8, 9, 20, 64, 65, 200, 216, 217,
                                       256)] == [8, 8, 8, 16, 32, 64, 128,
                                                 216, 216, 256, 256]

@@ -20,11 +20,12 @@ from realvsr_tpu_torch.ops.kernels.check import (conv3x3_plain_grads,
 from realvsr_tpu_torch.ops.deform_conv import modulated_deform_conv_plain
 from realvsr_tpu_torch.ops.deform_conv_block import (
     modulated_deform_conv_block)
-from realvsr_tpu_torch.ops.kernels.conv3x3 import (chunk, conv3x3,
+from realvsr_tpu_torch.ops.kernels.conv3x3 import (chunk, column_blocks,
+                                                   conv3x3,
                                                    conv3x3_autograd,
                                                    conv3x3_fused,
                                                    conv3x3_plain,
-                                                   kernel_width, pack_weight,
+                                                   conv3x3_sync, pack_weight,
                                                    pack_weight_cuda,
                                                    round_tf32)
 from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_bwd_om,
@@ -114,22 +115,23 @@ def test_conv3x3_kernel_matches_plain(cuda, dtype, shape, c2, act, residual):
     bias = (torch.randn(64, generator=g) * 0.1).to(cuda, dtype)
     res = torch.randn(b, h, w, 64, generator=g).to(cuda, dtype) \
         if residual else None
-    n = conv3x3.launches
+    n = (conv3x3.launches, conv3x3_sync.launches)
     out = conv3x3(x, wgt, bias, act, res, x2)
     torch.cuda.synchronize()
-    assert conv3x3.launches == n + 1
+    assert conv3x3.launches == n[0] + 1
+    assert conv3x3_sync.launches == n[1] + (c1 % chunk(dtype) != 0)
     ref = conv3x3_plain(x, wgt, bias, act, res, x2)
     assert max_abs_err(out, ref) <= tolerance(ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("cout,cin", [(3, 64), (64, 128), (216, 64),
-                                      (256, 128)])
+                                      (256, 128), (512, 128), (300, 64)])
 def test_conv3x3_weight_packer_matches_plain(cuda, dtype, cout, cin):
     """The kernel's packer lays the weight out exactly as pack_weight,
-    rounded to TF32 for f32."""
+    rounded to TF32 for f32; past 256 outputs in column blocks of 256."""
     w = torch.randn(cout, cin, 3, 3, generator=_gen(14)).to(cuda, dtype)
-    n = kernel_width(cout)
+    n = column_blocks(cout)[0][1]
     ref = pack_weight(w, n, chunk(dtype))
     if dtype == torch.float32:
         ref = round_tf32(ref)
@@ -173,7 +175,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     ((2, 37, 45, 64), 64, 256, "lrelu", True, False),  # 2 chunks streamed
     ((2, 40, 48, 64), 0, 20, "relu", True, True),    # N = 32, ragged cout
     ((2, 37, 45, 16), 0, 20, "lrelu", True, True),   # mma.sync: 4 n-tiles
-    ((1, 20, 24, 64), 0, 300, None, True, False),    # mma.sync: cout > 256
+    ((1, 20, 24, 64), 0, 300, None, True, False),    # 256 + 64 columns
+    ((2, 37, 45, 64), 0, 300, "lrelu", True, True),  # ... ragged, +res
+    ((2, 21, 37, 64), 64, 512, None, False, True),   # 256 + 256, two inputs
+    ((1, 20, 24, 16), 0, 300, None, True, True),     # mma.sync past 256
 ])
 def test_conv3x3_any_width_matches_plain(cuda, dtype, shape, c2, cout, act,
                                          bias, residual):
@@ -204,13 +209,13 @@ def test_conv3x3_any_width_matches_plain(cuda, dtype, shape, c2, cout, act,
     (128, 128, 128, "lrelu", False),  # PCD's concat(nbr, ref) offset convs
     (128, 0, 216, "lrelu", False),    # conv_offset_mask, 8 groups
     (128, 0, 256, "lrelu", False),    # upconv2
-    (128, 0, 512, "lrelu", False),    # upconv1: the mma.sync kernel
+    (128, 0, 512, "lrelu", False),    # upconv1: two column blocks of 256
 ], ids=["128-128relu", "128-128res", "256-128lrelu", "128-216", "128-256",
-        "128-512sync"])
+        "128-512wgmma"])
 def test_conv3x3_edvr_l_widths_match_plain(cuda, dtype, c1, c2, cout, act,
                                            residual):
-    """EDVR-L's (nf 128) conv widths on a ragged shape; cout 512 routes to
-    the mma.sync kernel."""
+    """EDVR-L's (nf 128) conv widths on a ragged shape, all on the wgmma
+    kernel (cout 512 in two column blocks of 256)."""
     g = _gen(11)
     shape = (2, 21, 37)
     x = torch.randn(*shape, c1, generator=g).to(cuda, dtype)
@@ -220,11 +225,12 @@ def test_conv3x3_edvr_l_widths_match_plain(cuda, dtype, c1, c2, cout, act,
     b = (torch.randn(cout, generator=g) * 0.1).to(cuda, dtype)
     res = (torch.randn(*shape, cout, generator=g).to(cuda, dtype)
            if residual else None)
-    n = conv3x3_fused.launches
+    n = (conv3x3_fused.launches, conv3x3_sync.launches)
     out = conv3x3(x, w, b, act, res, x2)
     ref = conv3x3_plain(x, w, b, act, res, x2)
     torch.cuda.synchronize()
-    assert conv3x3_fused.launches == n + 1
+    assert (conv3x3_fused.launches, conv3x3_sync.launches) == (n[0] + 1,
+                                                               n[1])
     assert max_abs_err(out, ref) <= tolerance(ref)
 
 

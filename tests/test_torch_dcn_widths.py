@@ -13,14 +13,18 @@ The kernels run only on the card (``tests/test_torch_cuda.py``,
 * (b) the widths the wrappers route to each design and refuse;
 * (c) the shared memory of every width against the card's 232448 bytes a
   block, with the sizes of ``dcn_fwd.cu``'s ``Shape`` and ``dcn_bwd.cu``'s
-  ``Layout`` worked out by hand; the 128-channel backward's walk (each
-  (group, tile) once, tiles of 4 rows) and its dx, summed per tile's
-  16-channel footprint plus the global path, against the plain dx.
+  ``Layout`` and ``Bwd128`` worked out by hand; the 128-channel backward's
+  walk (runs of (group, tile) items, each once, tiles of 6 rows in bf16
+  and 4 in f32, every SM busy and every (group, pixel) of the image
+  visited once) and its dx, summed per tile's 16-channel footprint plus
+  the global path, against the plain dx.
 
 Tolerances: 1e-5 x the largest magnitude of each result (f32 sums in other
 orders), as the port's other DCN parity tests.
 """
 import math
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -188,24 +192,27 @@ def test_narrow_plans_cover_each_channel_once_and_fit(cin, cout, dg):
 def test_shared_memory_of_every_width_fits_a_block():
     """Worked out from the sources' layouts: the 128-channel forward holds
     a two-tap weight ring (2 x chunks x 128 rows x 128 B) and two A stages
-    of TH x 16 pixels; the backward a two-tap ring of the group's 16 x
-    (128 + pad) weight, the g tile, dS (f32), two S buffers, one f32 a warp
-    and the footprint of 17 ints a pixel."""
+    of TH x 16 pixels; the backward (``Bwd128``) its g tile (chunks x TH x
+    32 pixels x 128 B), a ring of three weight taps (chunks x 16 rows x 128
+    B), two S slots of 16 x (pixels + pad), two dS slots of pixels x 16 in
+    the input dtype, two f32 a sampling warp, 10 mbarriers (rounded up to
+    16 bytes) and the footprint of 17 ints a pixel."""
     bf, f32 = torch.bfloat16, torch.float32
     assert (dcn.tile_rows(bf, 128), dcn.tile_rows(f32, 128)) == (8, 4)
-    assert dcn.tile_rows(bf, 128, bwd=True) == 4
+    assert dcn.tile_rows(bf, 128, bwd=True) == 6
     assert dcn.tile_rows(f32, 128, bwd=True) == 4
     assert dcn.fwd_smem_bytes(bf, 128, 8) == 2 * 2 * 128 * 128 + 2 * (
         2 * 8 * 16 * 128)                                        # 128 KB
     assert dcn.fwd_smem_bytes(f32, 128, 8) == 2 * 4 * 128 * 128 + 2 * (
         4 * 4 * 16 * 128)                                        # 192 KB
+    fp6 = (6 + 19) * (32 + 19) * 17 * 4
     fp4 = (4 + 19) * (32 + 19) * 17 * 4
     assert dcn.bwd_smem_bytes(bf, 8, 128, 8) == (
-        2 * 16 * 136 * 2 + 128 * 136 * 2 + 128 * 16 * 4
-        + 2 * 16 * 136 * 2 + 8 * 4 + fp4)                       # 140212
+        2 * 192 * 128 + 3 * 2 * 16 * 128 + 2 * 16 * 200 * 2
+        + 2 * 192 * 16 * 2 + 12 * 8 + 10 * 8 + fp6)             # 173404
     assert dcn.bwd_smem_bytes(f32, 8, 128, 8) == (
-        2 * 16 * 132 * 4 + 128 * 132 * 4 + 128 * 16 * 4
-        + 2 * 16 * 132 * 4 + 8 * 4 + fp4)                       # 189364
+        64 * 1024 + 3 * 4 * 16 * 128 + 2 * 16 * 132 * 4 + 2 * 128 * 16 * 4
+        + 8 * 8 + 10 * 8 + fp4)                                 # 203300
     # the 64-wide ones as they were
     assert dcn.fwd_smem_bytes(bf) == 9 * 64 * 128 + 2 * 256 * 128
     assert dcn.fwd_smem_bytes(f32) == 9 * 2 * 64 * 128 + 2 * 2 * 128 * 128
@@ -234,17 +241,63 @@ def test_shared_memory_of_every_width_fits_a_block():
     assert dcn.narrow_fwd_plan(400, 24) == (16, 1)
 
 
+def test_bwd_128_constants_are_the_kernel_source():
+    """``dcn.py``'s mirror of the 128-channel backward (tile rows, weight
+    ring) reads as ``dcn_bwd.cu``'s ``Bwd128`` states it."""
+    src = (Path(dcn.__file__).resolve().parents[2] / "csrc"
+           / "dcn_bwd.cu").read_text()
+    body = src[src.index("struct Bwd128 {"):src.index("};", src.index(
+        "struct Bwd128 {"))]
+    rows = re.search(r"int TH = kF32 \? (\d+) : (\d+);", body)
+    assert (int(rows[1]), int(rows[2])) == (
+        dcn.BWD128_ROWS[torch.float32], dcn.BWD128_ROWS[torch.bfloat16])
+    assert int(re.search(r"int kWs = (\d+);", body)[1]) == dcn.BWD128_WS
+    assert f"int kTW = {dcn.BWD_TW};" in src
+    assert f"int kRfMax = {dcn.RF_MAX};" in src
+
+
 @pytest.mark.parametrize("hw", [(13, 45), (16, 64)], ids=["ragged", "even"])
 def test_bwd_128_walk_visits_each_group_tile_once(hw):
+    """Each block takes a run of (group, tile) items, item j = group *
+    ntiles + tile in order, runs of equal length to one item, each spanning
+    at most two groups (the block's dW stays in registers between group
+    changes); every (group, tile) once."""
     h, w = hw
     for dtype in (torch.bfloat16, torch.float32):
         th = dcn.tile_rows(dtype, 128, bwd=True)
         ntiles = 2 * -(-h // th) * -(-w // dcn.BWD_TW)
         grid = dcn.bwd_grid(2, h, w, 132, dtype, 128, 8)
-        pairs = [(g, t) for g, tiles in grid for t in tiles]
+        assert len(grid) == min(8 * ntiles, 132)
+        pairs = [it for g, items in grid for it in items]
+        assert all(g is None for g, _ in grid)
         assert len(pairs) == len(set(pairs)) == 8 * ntiles
-        for j in range(0, len(grid), 8):
-            assert [grid[j + i][0] for i in range(8)] == list(range(8))
+        assert pairs == [divmod(j, ntiles) for j in range(8 * ntiles)]
+        sizes = {len(items) for _, items in grid}
+        assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+        assert all(len({g for g, _ in items}) <= 2 for _, items in grid)
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 64, 96), (3, 37, 70)],
+                         ids=["even", "ragged"])
+def test_bwd_128_walk_fills_every_sm(b, h, w):
+    """With at least 132 (group, tile) items the grid is 132 blocks, one
+    an SM, whose work differs by at most one item, and the items' tiles
+    cover every (group, pixel) of the image exactly once."""
+    for dtype in (torch.bfloat16, torch.float32):
+        th = dcn.tile_rows(dtype, 128, bwd=True)
+        tiles_y, tiles_x = -(-h // th), -(-w // dcn.BWD_TW)
+        grid = dcn.bwd_grid(b, h, w, 132, dtype, 128, 8)
+        assert 8 * b * tiles_y * tiles_x >= 132 and len(grid) == 132
+        sizes = [len(items) for _, items in grid]
+        assert max(sizes) - min(sizes) <= 1
+        seen = np.zeros((8, b, tiles_y * th, tiles_x * dcn.BWD_TW), np.int64)
+        for _, items in grid:
+            for g, tile in items:
+                tb, rest = divmod(tile, tiles_y * tiles_x)
+                ty, tx = divmod(rest, tiles_x)
+                seen[g, tb, ty * th:(ty + 1) * th,
+                     tx * dcn.BWD_TW:(tx + 1) * dcn.BWD_TW] += 1
+        assert (seen[:, :, :h, :w] == 1).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -252,7 +305,8 @@ def test_bwd_128_walk_visits_each_group_tile_once(hw):
 @pytest.mark.parametrize("r,std", [(8, 4.0), (4.5, 3.0), (None, 12.0)],
                          ids=["r8", "r4.5", "exact_far"])
 def test_bwd_128_footprint_routes_and_sums_dx(r, std, dtype):
-    """At 128 channels (16 a group) and tiles of 4 rows:
+    """At 128 channels (16 a group) and the kernel's tiles (6 rows in
+    bf16, 4 in f32):
     clamped to R <= 8 every corner lies in its tile's footprint, with no
     clamp some do not; dx summed per tile's 16-channel footprint (flushed)
     plus the global path equals the plain dx."""
