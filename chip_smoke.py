@@ -10,8 +10,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
 2. build every kernel from ``realvsr_tpu_torch/csrc`` with nvcc, in
    parallel, print ``-Xptxas -v`` and one line per instantiation with its
    registers and spills (a spill in any source fails the run:
-   ``conv3x3.cu``, ``conv3x3_sync.cu``, ``dcn_fwd.cu``, ``dcn_bwd.cu``,
-   ``dcn_narrow.cu``);
+   ``conv3x3.cu``, ``dcn_fwd.cu``, ``dcn_bwd.cu``, ``dcn_narrow.cu``);
 3. hold each kernel against its plain PyTorch version on the card at the
    paths' shapes, in bf16 and f32, with the tolerances of
    ``realvsr_tpu_torch/ops/kernels/check.py``: the DCN forward at ±4, ±8
@@ -20,7 +19,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the inference shapes; the conv3x3 at other widths
    (64->3 with and without bias, 64->216 lrelu, 64->256 with a residual at
    EDVR's upconv2 shape, 128 (64+64) -> 3 through two inputs), and one
-   shape that routes to the ``mma.sync`` kernel (16+16 -> 64); the block DCN
+   narrow shape (16+16 -> 64, 32-byte chunks); the block DCN
    API at the L1 shape clamped to ±4 and ±8; the DCN backward, in both
    forms, at one training sample (3, 192, 192, 64) clamped to ±4, ±8 and
    exact, with offsets of a few pixels (taps outside the image) and with
@@ -34,7 +33,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    convs (128->128, 256 (128+128)->128, 128->216, 128->256 and upconv1's
    128->512 in two column blocks of 256), a ragged 300-output conv with a
    residual (a last column block of 64), and the nf 16 debug configs'
-   convs on the ``mma.sync`` kernel (16 and 16+16 -> 16, 16 -> 108, 16 ->
+   narrow convs on 32-byte chunks (16 and 16+16 -> 16, 16 -> 108, 16 ->
    64), each with the route it took;
 4. inference, each path through ``evaluate_wo_gt`` on a seeded synthetic
    PNG clip, bf16, seeded random weights with randomised DCN offset convs,
@@ -150,7 +149,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (the forward at EDVR-L's L1 inference shape, the backward at its L1
    training shape (224, 64, 64, 128)) and on the narrow kernels, beside
    their plain versions and bounds, EDVR-L's convs, the 300-output conv
-   and the debug configs' ``mma.sync`` convs beside cuDNN, and EDVR-L's
+   and the debug configs' narrow convs beside cuDNN (and, from
+   torch.profiler, each one's device-only time beside cuDNN's), EDVR-L's
    forward ms, frames/s and peak memory;
 10. multi-process training and the rest of the JAX package (run after
     phase 6's metrics, before phase 9's times); ranks are this script
@@ -213,11 +213,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
 Prints one JSON line per check and timing, then the card line, the
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
-``--ab PARENT`` builds ``conv3x3.cu``, ``conv3x3_sync.cu`` and ``dcn_bwd.cu``
-of the tree unpacked at PARENT (the parent commit) and times EDVR-L's
-upconv1, the 128-channel DCN backward and the controls (the front 64 -> 64
-conv, upconv2 64 -> 256, the 64-channel DCN backward) beside this tree's
-in turns (parent, this, this, parent), then stops.  ``--profile`` adds a
+``--ab PARENT`` builds ``conv3x3.cu``, ``conv3x3_sync.cu`` and ``dcn_fwd.cu``
+of the tree unpacked at PARENT (the parent commit) and times the nf 16
+debug configs' four narrow convs, the 128-channel DCN forward (both forms)
+and the controls (the front 64 -> 64 conv, upconv2 64 -> 256, the
+64-channel DCN forward) beside this tree's in turns (parent, this, this,
+parent), then stops.  ``--profile`` adds a
 ``torch.profiler`` breakdown of one window's forward
 of each inference model and of the last two steps of each timed training
 run (the flagship's, the families' and the new generators' recipes, the
@@ -301,6 +302,31 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int) -> float | None:
+    """Mean device time of ``fn()``'s kernels over ``iters`` calls from
+    torch.profiler (the sum of every kernel's self device time), without
+    the host's pacing and the gaps between launches; None where the
+    profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import (ProfilerActivity, profile as prof,
+                                record_function)
+
+    fn()
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        for _ in range(iters):
+            with record_function("call"):  # the kernels' launching op
+                fn()
+        torch.cuda.synchronize()
+    # the kernels' own rows: an op's row repeats its kernels' time, and
+    # the annotation's device row spans them and the gaps between them
+    us = sum(e.self_device_time_total for e in p.key_averages()
+             if getattr(e, "device_type", None) == DeviceType.CUDA
+             and e.key != "call")
+    return us / iters / 1e3 if us else None
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -312,13 +338,13 @@ def counters() -> dict:
         modulated_deform_conv_block)
     from realvsr_tpu_torch.ops.kernels.conv3x3 import (conv3x3,
                                                        conv3x3_fused,
-                                                       conv3x3_sync)
+                                                       conv3x3_narrow)
     from realvsr_tpu_torch.ops.kernels.dcn import dcn_bwd, dcn_fwd
 
     return {"dcn_fwd": dcn_fwd, "conv3x3": conv3x3,
             "conv3x3_fused": conv3x3_fused, "dcn_bwd": dcn_bwd,
             "dcn_block": modulated_deform_conv_block,
-            "conv3x3_sync": conv3x3_sync}
+            "conv3x3_narrow": conv3x3_narrow}
 
 
 def zero_counts() -> None:
@@ -465,15 +491,16 @@ def check_kernels():
                  shape=shape, cout=cout, act=act, bias=bias,
                  residual=residual)
             del out, ref, x, x2, res
-        # input widths that are not whole 128-byte chunks: the mma.sync
-        # kernel (csrc/conv3x3_sync.cu), ragged tiles
+        # input widths that are not whole 128-byte chunks: the same kernel
+        # on 32-byte chunks (csrc/conv3x3.cu, conv3x3_narrow), ragged tiles
         x, x2, wgt, bias, res = conv_inputs((2, 37, 45, 16), 16, True, dtype,
                                             4)
         out = conv3x3(x, wgt, bias, "relu", res, x2)
         torch.cuda.synchronize()
         ref = conv3x3_plain(x, wgt, bias, "relu", res, x2)
-        hold(("conv3x3_sync", dtype), out, ref, case="16+16->64 relu +res",
-             shape=(2, 37, 45, 16), route="mma.sync")
+        hold(("conv3x3_narrow", dtype), out, ref,
+             case="16+16->64 relu +res", shape=(2, 37, 45, 16),
+             route="wgmma, 32-byte chunks")
         for r in (4, 8):
             x, off, mask, wgt, bias = dcn_inputs(DCN_CASES[0][1], dtype, 1)
             out = modulated_deform_conv_block(x, off, mask, wgt, bias,
@@ -657,14 +684,14 @@ def read_window(lq_root: str, n: int):
 # bottle_neck and 4 offset convs and TSA's 6 3x3 convs; conv3x3 at other
 # widths = the 4 DCNs' conv_offset_mask (64->216) and conv_last, with
 # TDAN's reconstruction and final_conv and EDVR's upconv1 and upconv2.  No
-# conv of these paths runs the mma.sync kernel (conv3x3_sync).
+# conv of these paths has narrow inputs (conv3x3_narrow).
 EXPECT = {
     "edvr_noup": {"dcn_fwd": 4, "conv3x3": 41 + 4, "conv3x3_fused": 4 + 1,
-                  "conv3x3_sync": 0},
+                  "conv3x3_narrow": 0},
     "tdan": {"dcn_fwd": 4, "conv3x3": 10 + 1 + 4 + 20,
-             "conv3x3_fused": 4 + 2, "conv3x3_sync": 0},
+             "conv3x3_fused": 4 + 2, "conv3x3_narrow": 0},
     "edvr_x4": {"dcn_fwd": 4, "conv3x3": 41 + 4 + 6,
-                "conv3x3_fused": 4 + 3, "conv3x3_sync": 0},
+                "conv3x3_fused": 4 + 3, "conv3x3_narrow": 0},
 }
 
 
@@ -1210,7 +1237,7 @@ def block_path():
     emit(phase="path", path="block_api", shape=DCN_CASES[0][1],
          max_offset=R_INFER, launches=launches)
     expect = dict(dcn_fwd=0, conv3x3=0, conv3x3_fused=0, dcn_bwd=0,
-                  dcn_block=1, conv3x3_sync=0)
+                  dcn_block=1, conv3x3_narrow=0)
     if launches != expect or not torch.isfinite(out).all():
         raise AssertionError(f"block API path: launches {launches}")
     return launches
@@ -1367,9 +1394,9 @@ NARROW = (16, 4)                 # its width: channels, groups
 # are the ResBlocks' 4 convs, fea_L2_conv2 / fea_L3_conv2, PCD's 10 offset
 # convs and L2_fea_conv / L1_fea_conv, the 4 conv_offset_mask (16 -> 108)
 # and conv_last; all but conv_last (64 -> 3, HRconv's 64 channels in) have
-# 16-wide inputs, which run the mma.sync kernel (conv3x3_sync)
+# 16-wide inputs, which run the kernel on 32-byte chunks (conv3x3_narrow)
 DEBUG_STEP = {"dcn_fwd": 4, "dcn_bwd": 4, "conv3x3": 1, "conv3x3_fused": 23,
-              "dcn_block": 0, "conv3x3_sync": 1 + 22}
+              "dcn_block": 0, "conv3x3_narrow": 1 + 22}
 # the front end (mode="pyramid") of every EDVR path: the 5 front ResBlocks'
 # 10 convs, fea_L2_conv2 and fea_L3_conv2; the rest of a window is "fuse"
 PYRAMID = {"conv3x3": 12}
@@ -1594,11 +1621,11 @@ GEN_SMOKE = {n: os.path.join("configs", "train",
 # conv_last 64 -> 3
 EXPECT.update({
     "tof": {"dcn_fwd": 0, "conv3x3": 2 * 10 + 1, "conv3x3_fused": 1,
-            "conv3x3_sync": 0},
+            "conv3x3_narrow": 0},
     "fstrn": {"dcn_fwd": 0, "conv3x3": 0, "conv3x3_fused": 0,
-              "conv3x3_sync": 0},
+              "conv3x3_narrow": 0},
     "rcan": {"dcn_fwd": 0, "conv3x3": 5 * (2 * 2 + 1) + 1,
-             "conv3x3_fused": 1, "conv3x3_sync": 0},
+             "conv3x3_fused": 1, "conv3x3_narrow": 0},
 })
 GEN_STEP = {n: dict(EXPECT[n], dcn_bwd=0, dcn_block=0) for n in GENERATORS}
 # card-vs-CPU steps at full width: (depth cuts, LQ side)
@@ -1896,7 +1923,7 @@ EDVRL_NET = dict(nf=128, back_RBs=40)
 # all on the wgmma kernel
 EXPECT["edvr_l"] = {"dcn_fwd": 4, "conv3x3": 1,
                     "conv3x3_fused": 90 + 2 + 12 + 6 + 4 + 3,
-                    "conv3x3_sync": 0}
+                    "conv3x3_narrow": 0}
 EDVRL_STEP = dict(EXPECT["edvr_l"], dcn_bwd=4, dcn_block=0)
 # (128, 8): EDVR-L's L1 inference shape (7 frames of 256x448) and a
 # training sample (7 frames of LQ 64x64); the L1 / cascade backward of a
@@ -1926,7 +1953,8 @@ EDVRL_CONVS = [
     ("300 ragged +res", (2, 37, 45, 128), 0, 300, None, True),
 ]
 # the nf 16 debug configs' convs (their L1 shapes: 4 clips x 3 frames at
-# 64x64), whose 16-wide inputs run the mma.sync kernel (conv3x3_sync.cu)
+# 64x64), whose 16-wide inputs run the kernel on 32-byte chunks
+# (conv3x3_narrow)
 SYNC_CASES = [
     ("debug ResBlock 16->16 relu", (12, 64, 64, 16), 0, 16, "relu", False),
     ("debug PCD offset (16+16)->16 lrelu", (12, 64, 64, 16), 16, 16,
@@ -2050,9 +2078,9 @@ def check_widths():
     from realvsr_tpu_torch.ops.deform_conv_block import (
         modulated_deform_conv_block)
     from realvsr_tpu_torch.ops.kernels.check import max_abs_err, tolerance
-    from realvsr_tpu_torch.ops.kernels.conv3x3 import (conv3x3,
-                                                       conv3x3_plain,
-                                                       uses_wgmma)
+    from realvsr_tpu_torch.ops.kernels.conv3x3 import (LINE, chunk_bytes,
+                                                       conv3x3,
+                                                       conv3x3_plain)
 
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -2087,11 +2115,11 @@ def check_widths():
             torch.cuda.synchronize()
             ref = conv3x3_plain(x, wgt, bs, act, res, x2)
             err, tol = max_abs_err(out, ref), tolerance(ref)
-            wgmma = uses_wgmma(shape[3], c2, cout, dtype)
-            kernel = "conv3x3_fused" if wgmma else "conv3x3_sync"
+            line = chunk_bytes(shape[3], c2, dtype)
+            kernel = "conv3x3_fused" if line == LINE else "conv3x3_narrow"
             emit(check=kernel, case=name, dtype=dname, shape=shape,
                  c2=c2, cout=cout, residual=residual, max_abs_err=err,
-                 tol=tol, route="wgmma" if wgmma else "mma.sync")
+                 tol=tol, route=f"wgmma, {line}-byte chunks")
             if not (err <= tol and torch.isfinite(out).all()):
                 raise AssertionError(f"{name} {dtype}: {err} > {tol}")
             errs[(kernel, name, dname)] = err
@@ -2179,9 +2207,9 @@ def time_widths():
     import torch.nn.functional as F
 
     from realvsr_tpu_torch.ops.deform_conv import apply_act
-    from realvsr_tpu_torch.ops.kernels.conv3x3 import (conv3x3,
-                                                       conv3x3_plain,
-                                                       uses_wgmma)
+    from realvsr_tpu_torch.ops.kernels.conv3x3 import (LINE, chunk_bytes,
+                                                       conv3x3,
+                                                       conv3x3_plain)
     from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_bwd_om,
                                                    dcn_bwd_plain, dcn_fwd,
                                                    dcn_fwd_om, dcn_fwd_plain)
@@ -2283,17 +2311,28 @@ def time_widths():
                 y = apply_act(F.conv2d(x_nchw, w_cl, bias, padding=1), act)
                 return y if res_nchw is None else y + res_nchw
 
+            def kernel_call():
+                return conv3x3(x, wgt, bias, act, res, x2)
+
+            line = chunk_bytes(shape[3], c2, dtype)
+            narrow = line != LINE
+            # narrow convs (~0.05 GFLOP) are launch- and host-paced: more
+            # calls a timing, so that a host hiccup weighs less, and their
+            # device-only time (the profiler's kernel time) read apart
+            iters = 200 if narrow else 10
             torch.backends.cudnn.allow_tf32 = dtype == torch.float32
-            library_ms = cuda_ms(library, 10)
+            library_ms = cuda_ms(library, iters)
+            device = (dict(device_ms=device_ms(kernel_call, 20),
+                           library_device_ms=device_ms(library, 20))
+                      if narrow else {})
             torch.backends.cudnn.allow_tf32 = False
-            wgmma = uses_wgmma(shape[3], c2, cout, dtype)
-            kernel = "conv3x3_fused" if wgmma else "conv3x3_sync"
+            kernel = "conv3x3_narrow" if narrow else "conv3x3_fused"
             row = dict(
-                ms=cuda_ms(lambda: conv3x3(x, wgt, bias, act, res, x2), 10),
+                ms=cuda_ms(kernel_call, iters),
                 plain_ms=cuda_ms(
                     lambda: conv3x3_plain(x, wgt, bias, act, res, x2), 3),
                 bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                route="wgmma" if wgmma else "mma.sync")
+                route=f"wgmma, {line}-byte chunks", **device)
             emit(timing=kernel, case=name, shape=shape, c2=c2, cout=cout,
                  dtype=dname, **row)
             rows[(kernel, name, dname)] = row
@@ -2515,7 +2554,7 @@ def general_dcn_path():
     launches = read_counts()
     seconds = time.time() - t0
     want = {"dcn_fwd": 3, "dcn_bwd": 3, "conv3x3": 0, "conv3x3_fused": 2,
-            "dcn_block": 0, "conv3x3_sync": 0}
+            "dcn_block": 0, "conv3x3_narrow": 0}
     shapes = [list(r[0].shape) for r in got]
     finite = all(t is not None and bool(torch.isfinite(t).all())
                  for r in got for t in r)
@@ -3508,7 +3547,7 @@ def clamp_check(paths):
     expect = {"dcn_fwd": 4, "dcn_block": 4 * len(CLAMP_RADII), "dcn_bwd": 0,
               "conv3x3": k * EXPECT["edvr_noup"]["conv3x3"],
               "conv3x3_fused": k * EXPECT["edvr_noup"]["conv3x3_fused"],
-              "conv3x3_sync": 0}
+              "conv3x3_narrow": 0}
     emit(phase="clamp_check", radii=list(CLAMP_RADII), dtype="float32",
          weights=f"phase 4's flagship, offset convs std {CLAMP_STD}",
          launches=got, launches_expected=expect, **res)
@@ -3555,31 +3594,31 @@ AB_CONTROLS = [  # (name, shape, cout, act): on conv3x3.cu in both trees
 
 def ab_parent(parent: str) -> None:
     """``--ab PARENT``: the kernels this tree redesigns, built from the tree
-    unpacked at PARENT (the parent commit) beside this tree's and timed in
-    turns (parent, this, this, parent) on the same inputs, each with the
-    wrapper's allocations and casts, bf16 and f32: EDVR-L's upconv1 (128 ->
-    512 at (1, 256, 448); the parent's ``conv3x3_sync.cu``, this tree's
-    column blocks on ``conv3x3.cu``) and the 128-channel DCN backward at
-    EDVR-L's L1 training shape (224, 64, 64, 128), ±8; as controls, code
-    this tree keeps: the front 64 -> 64 conv and EDVR's upconv2 64 -> 256
-    (``conv3x3.cu`` at cout <= 256) and the 64-channel DCN backward at the
-    Split recipe's L1 (96, 192, 192, 64), ±8.  The two trees' outputs are
-    held together first."""
+    unpacked at PARENT (the parent commit, with its signatures) beside this
+    tree's and timed in turns (parent, this, this, parent) on the same
+    inputs, each with its wrapper's allocations, copies and casts, bf16 and
+    f32: the nf 16 debug configs' four narrow convs (SYNC_CASES: the
+    parent's ``mma.sync`` kernel of ``conv3x3_sync.cu`` with its weight
+    copy, this tree's ``conv3x3.cu`` on 32-byte chunks) and the 128-channel
+    DCN forward at EDVR-L's L1 inference shape (7, 256, 448, 128), ±4, in
+    both forms; as controls, code this tree keeps: the front 64 -> 64 conv
+    and EDVR's upconv2 64 -> 256 (``conv3x3.cu`` on 128-byte chunks) and
+    the 64-channel DCN forward at the flagship's L1 (3, 512, 1024, 64),
+    ±4.  The two trees' outputs are held together first."""
     import ctypes
 
     import torch
 
     from realvsr_tpu_torch.ops.kernels import _build
-    from realvsr_tpu_torch.ops.kernels.conv3x3 import (_tile_cols, conv3x3,
-                                                       kernel_width)
-    from realvsr_tpu_torch.ops.kernels.dcn import dcn_bwd
+    from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3, kernel_width
+    from realvsr_tpu_torch.ops.kernels.dcn import dcn_fwd, dcn_fwd_om
 
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # the parent's signatures (ops/kernels/conv3x3.py, dcn.py of that tree)
     sigs = {"conv3x3": (P, I, P, I, P, P, P, P, P, I, I, I, I, I, I, P),
             "conv3x3_sync": (P, I, P, I, P, P, P, P, I, I, I, I, I, I, P),
-            "dcn_bwd": (P, P, I, P, I, I, P, P, P, P, P, I, P, I, P, I, I, I,
-                        I, F, I, I, P)}
+            "dcn_fwd": (P, P, I, P, I, I, P, P, P, P, I, I, I, I, I, F, I,
+                        P)}
     out_dir = _build.BUILD_DIR / "parent"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {name: subprocess.Popen(
@@ -3612,61 +3651,84 @@ def ab_parent(parent: str) -> None:
         emit(ab=what, parent_ms=[ms[0], ms[3]], change_ms=[ms[1], ms[2]],
              **info)
 
-    def parent_conv(x, wgt, bias, act):
-        b, h, w, cin = x.shape
+    def parent_conv(x, x2, wgt, bias, act):
+        b, h, w, c1 = x.shape
+        c2 = 0 if x2 is None else x2.shape[-1]
         cout, dt = wgt.shape[0], x.dtype
         out = torch.empty(b, h, w, cout, device="cuda", dtype=dt)
-        if cout > 256:  # the parent's mma.sync kernel, its weight copy
-            n = _tile_cols(cout)
-            wt = wgt.permute(0, 2, 3, 1).contiguous()
+        x2p = None if x2 is None else x2.data_ptr()
+        ch = 128 // x.element_size()
+        if c1 % ch or c2 % ch:  # the parent's route for these widths
+            # the parent's mma.sync kernel: its channel tile and the weight
+            # copy its wrapper made, (cout, tap, cin) with zero rows
+            n = 64 if cout > 32 else 32 if cout > 16 else 16 if cout > 8 \
+                else 8
+            wt = wgt.permute(0, 2, 3, 1)
+            if cout % n:
+                wt = torch.cat([wt, wt.new_zeros(n - cout % n, 3, 3,
+                                                 c1 + c2)])
+            wt = wt.contiguous()
             code = fns[("conv3x3_sync", dt)](
-                x.data_ptr(), cin, None, 0, wt.data_ptr(), bias.data_ptr(),
+                x.data_ptr(), c1, x2p, c2, wt.data_ptr(), bias.data_ptr(),
                 None, out.data_ptr(), b, h, w, cout, n, _build.ACTS[act],
                 stream())
         else:
             n = kernel_width(cout)
-            packed = torch.empty(cin * 9 * n, device="cuda", dtype=dt)
+            packed = torch.empty((c1 + c2) * 9 * n, device="cuda", dtype=dt)
             code = fns[("conv3x3", dt)](
-                x.data_ptr(), cin, None, 0, wgt.data_ptr(),
-                packed.data_ptr(), bias.data_ptr(), None, out.data_ptr(), b,
-                h, w, cout, n, _build.ACTS[act], stream())
+                x.data_ptr(), c1, x2p, c2, wgt.data_ptr(), packed.data_ptr(),
+                bias.data_ptr(), None, out.data_ptr(), b, h, w, cout, n,
+                _build.ACTS[act], stream())
         _build.check(code, "parent conv3x3")
         return (out,)
 
-    def parent_bwd(x, off, mask, wgt, gout, r):
+    def parent_dcn(x, off, mask, om, wgt, bias, r):
         b, h, w, c = x.shape
         dt = x.dtype
-        wt = torch.empty(c * 9 * c, device="cuda", dtype=dt)
-        dx = torch.zeros(b, h, w, c, device="cuda")
-        dw = torch.zeros(c, 9, c, device="cuda")
-        doff, dmask = torch.empty_like(off), torch.empty_like(mask)
-        _build.check(fns[("dcn_bwd", dt)](
-            x.data_ptr(), off.data_ptr(), 144, mask.data_ptr(), 72, 0,
-            wgt.data_ptr(), wt.data_ptr(), gout.data_ptr(), dx.data_ptr(),
-            doff.data_ptr(), 144, dmask.data_ptr(), 72, dw.data_ptr(), b, h,
-            w, c, float(r), 1, min(math.ceil(r), 8), stream()),
-            "parent dcn_bwd")
-        return (dx.to(dt), doff, dmask,
-                dw.view(c, 3, 3, c).permute(0, 3, 1, 2).to(dt))
+        packed = torch.empty(c * 9 * c, device="cuda", dtype=dt)
+        out = torch.empty(b, h, w, c, device="cuda", dtype=dt)
+        src = ((off.data_ptr(), 144, mask.data_ptr(), 72, 0) if om is None
+               else (om.data_ptr(), 216, om.data_ptr() + 144 *
+                     om.element_size(), 216, 1))
+        _build.check(fns[("dcn_fwd", dt)](
+            x.data_ptr(), *src, wgt.data_ptr(), packed.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), b, h, w, c, 0, float(r), 1,
+            stream()), "parent dcn_fwd")
+        return (out,)
 
-    r8 = train_r()
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype)[6:]
-        for name, shape, cout, act in [(UPCONV1, (1, VIMEO_H, VIMEO_W, 128),
-                                        512, "lrelu")] + AB_CONTROLS:
+        for name, shape, c2, cout, act, _ in SYNC_CASES:
+            x, x2, wgt, bias, _ = conv_inputs(shape, c2, False, dtype, 61,
+                                              cout)
+            turns("conv3x3", lambda: parent_conv(x, x2, wgt, bias, act),
+                  lambda: (conv3x3(x, wgt, bias, act, None, x2),), 50,
+                  case=name, shape=shape, c2=c2, cout=cout, dtype=dname,
+                  control=False)
+        for name, shape, cout, act in AB_CONTROLS:
             x, _, wgt, bias, _ = conv_inputs(shape, 0, False, dtype, 61, cout)
-            turns("conv3x3", lambda: parent_conv(x, wgt, bias, act),
+            turns("conv3x3", lambda: parent_conv(x, None, wgt, bias, act),
                   lambda: (conv3x3(x, wgt, bias, act),), 20, case=name,
-                  shape=shape, cout=cout, dtype=dname,
-                  control=name != UPCONV1)
+                  shape=shape, cout=cout, dtype=dname, control=True)
             del x
-        for shape in (TRAIN_L1_128, TRAIN_L1):
-            x, off, mask, wgt, _, gout = width_inputs(shape, 8, dtype, 63)
-            turns("dcn_bwd", lambda: parent_bwd(x, off, mask, wgt, gout, r8),
-                  lambda: dcn_bwd(x, off, mask, wgt, gout, 8, r8), 5,
-                  shape=shape, dtype=dname, max_offset=r8,
-                  control=shape[-1] == 64)
-            del x, off, mask, gout
+        for shape in (DCN128_SHAPES[0][1], DCN_CASES[0][1]):
+            x, off, mask, wgt, bias, _ = width_inputs(shape, 8, dtype, 63)
+            forms = [("separate", None)]
+            if shape[-1] == 128:
+                forms.append(("om", om_of(off, mask)))
+            for form, om in forms:
+                change = (
+                    (lambda: (dcn_fwd(x, off, mask, wgt, bias, 8, None,
+                                      R_INFER),))
+                    if om is None else
+                    (lambda: (dcn_fwd_om(x, om, wgt, bias, 8, None,
+                                         R_INFER),)))
+                turns("dcn_fwd",
+                      lambda: parent_dcn(x, off, mask, om, wgt, bias,
+                                         R_INFER),
+                      change, 10, shape=shape, form=form, dtype=dname,
+                      max_offset=R_INFER, control=shape[-1] == 64)
+            del x, off, mask
         torch.cuda.empty_cache()
 
 
@@ -3690,7 +3752,7 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.time()
-    logs = _build.build(["dcn_fwd", "conv3x3", "conv3x3_sync", "dcn_bwd",
+    logs = _build.build(["dcn_fwd", "conv3x3", "dcn_bwd",
                          "dcn_narrow"])
     for src, log in logs.items():
         print(f"--- nvcc -Xptxas -v: {src}.cu\n{log.strip()}")
@@ -3889,7 +3951,7 @@ def main() -> int:
                                                        "float32")])
                 for name, *_ in cases}
 
-    sync_cases = conv_cases("conv3x3_sync", SYNC_CASES)
+    narrow_cases = conv_cases("conv3x3_narrow", SYNC_CASES)
     kernels = [
         dict(name="dcn_fwd", route="cuda",
              source="realvsr_tpu_torch/csrc/dcn_fwd.cu",
@@ -3915,22 +3977,24 @@ def main() -> int:
              max_abs_err=errs[("conv3x3_fused", UPCONV2, bf)],
              nf128_and_wide_cases=conv_cases("conv3x3_fused", EDVRL_CONVS),
              **rows[("conv3x3_fused", UPCONV2, "bfloat16")]),
-        dict(name="conv3x3_sync", route="cuda",
-             source="realvsr_tpu_torch/csrc/conv3x3_sync.cu",
+        dict(name="conv3x3_narrow", route="cuda",
+             source="realvsr_tpu_torch/csrc/conv3x3.cu",
              replaces="realvsr_tpu/ops/pallas/conv3x3_kernel.py:125",
              instantiation="input widths that are not whole 128-byte "
-                           "chunks: the nf 16 debug configs' convs",
-             launches=by_path["conv3x3_sync"]["training_debug_nf16"],
+                           "chunks (the nf 16 debug configs' convs): the "
+                           "wgmma kernel on 32-byte chunks, the weight "
+                           "laid out by its blocks (one launch)",
+             launches=by_path["conv3x3_narrow"]["training_debug_nf16"],
              launches_by_path={p: v for p, v in
-                               by_path["conv3x3_sync"].items() if v},
-             launches_per_step=debug_step["conv3x3_sync"],
-             max_abs_err=max([errs[("conv3x3_sync", bf)]]
+                               by_path["conv3x3_narrow"].items() if v},
+             launches_per_step=debug_step["conv3x3_narrow"],
+             max_abs_err=max([errs[("conv3x3_narrow", bf)]]
                              + [c["max_abs_err"]
-                                for c in sync_cases.values()]),
-             timed_case=SYNC_CASES[0][0], cases=sync_cases,
-             **{k: v for k, v in sync_cases[SYNC_CASES[0][0]].items()
+                                for c in narrow_cases.values()]),
+             timed_case=SYNC_CASES[0][0], cases=narrow_cases,
+             **{k: v for k, v in narrow_cases[SYNC_CASES[0][0]].items()
                 if k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                         "library_ms")}),
+                         "library_ms", "device_ms", "library_device_ms")}),
         dict(name="dcn_bwd", route="cuda",
              source="realvsr_tpu_torch/csrc/dcn_bwd.cu",
              replaces="realvsr_tpu/ops/pallas/dcn_frame_kernel.py:501",

@@ -140,19 +140,4 @@ __device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const T* a_lo,
   }
 }
 
-// Stage the (ROWS x C) weight slice of one tap into shared memory
-// [ROWS][ld].  weight is (ROWS or more, 9, C), K-contiguous.
-template <typename T, int ROWS>
-__device__ __forceinline__ void stage_weight_tap(T* sB, const T* weight,
-                                                 int tap, int C, int ld) {
-  constexpr int V = Traits<T>::kVec;
-  const int nv = C / V;
-  for (int it = threadIdx.x; it < ROWS * nv; it += blockDim.x) {
-    const int n = it / nv, kv = it - n * nv;
-    float v[V];
-    load_vec<T>(weight + ((size_t)n * 9 + tap) * C + kv * V, v);
-    store_vec_mma<T>(sB + n * ld + kv * V, v);
-  }
-}
-
 }  // namespace rvsr

@@ -40,15 +40,15 @@
 //    from L2 for each tile.  pack_weight_kernel, launched before each
 //    conv, lays the weight out as the image shared memory needs:
 //    [chunk][tap][N][128 bytes], swizzled, zero rows past cout,
-//    TF32-rounded for f32.
+//    TF32-rounded for f32 (narrow inputs: 6).
 // 3. The halo is loaded by TMA, one 128-byte channel chunk (64 bf16 / 32
-//    f32 channels) of the (8+2) x (16+2) window per stage, at signed
-//    coordinates (x0 - 1, y0 - 1): TMA fills what lies outside the image
-//    with zeros, which is the SAME padding.  x2 is a second tensor map
-//    whose chunks follow x1's.  A ring of 2-4 stages (as shared memory
-//    allows) lets the producer run ahead by whole chunks, so the next
-//    tile's loads overlap this tile's products.  The producer polls the
-//    halo and weight rings together, so neither waits behind the other.
+//    f32 channels; narrow inputs: 6) of the (8+2) x (16+2) window per
+//    stage, at signed coordinates (x0 - 1, y0 - 1): TMA fills what lies
+//    outside the image with zeros, which is the SAME padding.  x2 is a
+//    second tensor map whose chunks follow x1's.  A ring of 2-4 stages (as
+//    shared memory allows) lets the producer run ahead by whole chunks, so
+//    the next tile's loads overlap this tile's products.  The producer polls
+//    the halo and weight rings together, so neither waits behind the other.
 // 4. The epilogue keeps bias, act and cast in registers, stages each warp's
 //    16 pixels x 128 bytes of outputs in shared memory, and stores them
 //    (and reads the residual) in 16-byte vectors; element by element only
@@ -71,9 +71,23 @@
 //    shared memory as at 256), and the blocks of one tile land on
 //    neighbouring SMs at about the same time, so the second halo read is
 //    an L2 hit (23 KB a chunk against 295 KB of weight a block and tile).
-// 6. Input widths that are not whole chunks (16 and 48, the nf 16 debug
-//    configs' convs) run the mma.sync kernel of conv3x3_sync.cu (chosen by
-//    the wrapper up front); no conv of the nf 64 / 128 model paths does.
+// 6. Narrow inputs: widths that are multiples of 16 but not whole 128-byte
+//    chunks (the nf 16 debug configs' 16- and 32-wide inputs, 48) run the
+//    same kernel on 32-byte chunks (CB = 32: 16 bf16 / 8 f32 channels, one
+//    wgmma k-step), so every conv of the repo is on this design.  The halo's
+//    tensor map, the ldmatrix rows of A (unit j of pixel row r at j ^ ((r
+//    >> 2) & 1)) and the B descriptors (layout type 3, 8-row groups 256
+//    bytes apart) take the 32-byte swizzle; x2's chunks follow x1's.  A
+//    halo stage is then 5.6 KB and the weight small (16 -> 108: 36 KB
+//    bf16), so where it is resident the blocks lay it out themselves from
+//    the OIHW tensor (16-byte loads, each element to its swizzled slot,
+//    TF32-rounded for f32) before the warp roles split: a call is one
+//    launch, with no pack_weight_kernel and no copy of the weight.  At
+//    these sizes (~0.05 GFLOP a call) the time is the launch and the first
+//    tile's latency, not the products.  Where the weight outgrows shared
+//    memory (48 -> 128 f32, past 256 outputs) it is packed and streamed as
+//    in 2, on 32-byte chunks.  One template: CB = 128 compiles to the code
+//    it had before the narrow form was added.
 #include "common.cuh"
 #include "sm90.cuh"
 #include "wgmma.cuh"
@@ -83,38 +97,46 @@ namespace wg {
 
 constexpr int kTH = 8, kTW = 16;                    // output tile
 constexpr int kHaloH = kTH + 2, kHaloW = kTW + 2;   // its input window
-constexpr int kPlaneBytes = kHaloH * kHaloW * kLine;            // 23040
-constexpr int kStageBytes = (kPlaneBytes + 1023) / 1024 * 1024;  // 23552
 constexpr int kConsumers = 256, kThreads = kConsumers + 128;
 constexpr int kEpiRows = 16, kEpiPad = 8;  // per warp: 16 pixels x 128 B
 
+// The halo of one input chunk of CB bytes (128, or 32 for narrow inputs):
+// (8+2) x (16+2) pixel rows of CB bytes, a stage rounded up to 1024 bytes.
+template <int CB>
+struct Halo {
+  static constexpr int kPlane = kHaloH * kHaloW * CB;       // 23040 / 5760
+  static constexpr int kStage = (kPlane + 1023) / 1024 * 1024;
+};
+
 struct Params {
   const unsigned char* weight;  // packed, see the note above
+  const void* oihw;  // narrow inputs, resident: the weight as given (6)
   const void* bias;
   const void* residual;
   void* out;
   int B, H, W, cout, act;
-  int nchunk, n1;  // 128-byte chunks in all, of which x1's
+  int nchunk, n1;  // CB-byte chunks in all, of which x1's
   int resident, sh, sw;
   int tiles_x, tiles_y, ntiles;
   int ncb, nitems;  // (cout > 256) column blocks, (tile, block) items
   int halo_off, epi_off, bar_off;  // shared-memory offsets (bytes)
 };
 
-// A fragments of one tap for this warp's 16 pixels: 4 k-steps of 32 bytes
-// (16 bf16 / 8 TF32 channels) of a 128-byte chunk.  Lane i addresses pixel
-// (i & 7) + 8 * ((i >> 3) & 1) of the warp's row at 16-byte column
-// 2 * ks + (i >> 4), through the TMA's swizzle (column ^ line & 7).
-template <typename T>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], uint32_t plane,
-                                       int hp_base, int tap, int lane) {
+// A fragments of one tap for this warp's 16 pixels: CB / 32 k-steps of 32
+// bytes (16 bf16 / 8 TF32 channels) of a CB-byte chunk.  Lane i addresses
+// pixel (i & 7) + 8 * ((i >> 3) & 1) of the warp's row at 16-byte column
+// 2 * ks + (i >> 4), through the TMA's swizzle (column ^ swizzle_of(row)).
+template <typename T, int CB>
+__device__ __forceinline__ void load_a(uint32_t (&a)[CB / 32][4],
+                                       uint32_t plane, int hp_base, int tap,
+                                       int lane) {
   const int dy = tap / 3, dx = tap % 3;
   const int hp = hp_base + dy * kHaloW + dx;
-  const uint32_t row = plane + hp * kLine;
+  const uint32_t row = plane + hp * CB;
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
+  for (int ks = 0; ks < CB / 32; ++ks) {
     const int col = 2 * ks + (lane >> 4);
-    ldmatrix_x4(a[ks], row + ((col ^ (hp & 7)) << 4));
+    ldmatrix_x4(a[ks], row + ((col ^ swizzle_of<CB>(hp)) << 4));
     if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
@@ -123,6 +145,38 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4][4], uint32_t plane,
             : "f"(__uint_as_float(a[ks][j])));
     }
   }
+}
+
+// Narrow inputs, resident weight (6): every thread of the block lays the
+// OIHW weight (cout, cin, 3, 3) out as pack_weight_kernel<T, 32> would,
+// [chunk][tap][n][32 bytes] swizzled, zero rows from cout to n, each value
+// rounded as the tensor cores take it; then fences it for wgmma's reads.
+template <typename T>
+__device__ __forceinline__ void lay_out_weight(unsigned char* sw,
+                                               const T* __restrict__ w,
+                                               int cout, int cin, int n) {
+  constexpr int ch = 32 / sizeof(T), u = 16 / sizeof(T);
+  const int slices = cin / ch * 9;
+  for (int i = threadIdx.x; i < slices * (n - cout) * 2; i += kThreads) {
+    const int sl = i / ((n - cout) * 2), r = i % ((n - cout) * 2);
+    *reinterpret_cast<uint4*>(sw + (sl * n + cout + r / 2) * 32 +
+                              (r & 1) * 16) = make_uint4(0, 0, 0, 0);
+  }
+  const int vecs = cout * cin * 9 / u;  // cin * 9 is a multiple of 16
+  for (int v = threadIdx.x; v < vecs; v += kThreads) {
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(w) + v);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int j = 0; j < u; ++j) {
+      const int el = v * u + j, tap = el % 9, oi = el / 9;
+      const int i = oi % cin, o = oi / cin, k = i % ch;
+      T* dst = reinterpret_cast<T*>(
+          sw + ((i / ch * 9 + tap) * n + o) * 32 +
+          (((k / u) ^ swizzle_of<32>(o)) << 4));
+      dst[k % u] = Traits<T>::to_mma(Traits<T>::to_f(e[j]));
+    }
+  }
+  fence_proxy_async();
 }
 
 // The epilogue of one warp: its 16 pixels (row gy, columns gx0 ... gx0+15)
@@ -211,15 +265,20 @@ __device__ __forceinline__ void epilogue(const float* acc, const Params& p,
 
 // N: the wgmma width.  NL = 0: one column block of N (cout <= 256).  NL >
 // 0: cout > 256 in p.ncb column blocks of N = 256, the last of NL; a work
-// item is (tile, column block), item = tile * ncb + block.
-template <typename T, int N, int NL>
+// item is (tile, column block), item = tile * ncb + block.  CB: the bytes
+// of an input chunk, 128, or 32 for narrow inputs (6).
+template <typename T, int N, int NL, int CB>
 __global__ void __launch_bounds__(kThreads, 1)
     conv3x3_wgmma(const __grid_constant__ CUtensorMap map1,
                   const __grid_constant__ CUtensorMap map2, const Params p) {
   extern __shared__ __align__(1024) unsigned char smem[];
   constexpr bool kWide = NL > 0;
   constexpr int kNL = kWide ? NL : N;
-  constexpr uint32_t kSlice = N * kLine;  // one tap of one chunk
+  constexpr uint32_t kSlice = N * CB;  // one tap of one chunk
+  constexpr int kStage = Halo<CB>::kStage;
+  // narrow inputs with the weight resident lay it out here, not by copy
+  constexpr bool kNarrow = CB != kLine;
+  const bool copy_w = p.resident && !kNarrow;
   const uint32_t base = smem_u32(smem);
   if (base & 1023) __trap();  // the swizzle needs 1024-byte alignment
   const uint32_t sW = base, sHalo = base + p.halo_off;
@@ -245,6 +304,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_init(wres, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  if constexpr (kNarrow) {
+    if (p.resident)
+      lay_out_weight<T>(smem, static_cast<const T*>(p.oihw), p.cout,
+                        p.nchunk * (CB / (int)sizeof(T)), N);
+  }
   __syncthreads();
 
   const int nchunk = p.nchunk;
@@ -258,7 +322,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x >= kConsumers) {  // ---------------- producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     if (threadIdx.x != kConsumers) return;
-    if (p.resident) {
+    if (copy_w) {
       mbar_expect_tx(wres, nchunk * 9 * kSlice);
       for (int i = 0; i < nchunk * 9; ++i)
         bulk_load(sW + i * kSlice, p.weight + (size_t)i * kSlice, kSlice,
@@ -278,10 +342,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int ty = (tile / p.tiles_x) % p.tiles_y;
         const int b = tile / (p.tiles_x * p.tiles_y);
         const int s = hu % sh;
-        mbar_expect_tx(full_h(s), kPlaneBytes);
+        mbar_expect_tx(full_h(s), Halo<CB>::kPlane);
         const bool first = ci < p.n1;
-        tma_load_4d(sHalo + s * kStageBytes, first ? &map1 : &map2,
-                    (first ? ci : ci - p.n1) * (kLine / (int)sizeof(T)),
+        tma_load_4d(sHalo + s * kStage, first ? &map1 : &map2,
+                    (first ? ci : ci - p.n1) * (CB / (int)sizeof(T)),
                     tx * kTW - 1, ty * kTH - 1, b, full_h(s));
         ++hu;
         t0 = clock64();
@@ -294,7 +358,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int cb =
               (blockIdx.x + (wq / 9 / nchunk) * gridDim.x) % p.ncb;
           slice += cb * nchunk * 9;
-          if (cb == p.ncb - 1) bytes = kNL * kLine;
+          if (cb == p.ncb - 1) bytes = kNL * CB;
         }
         mbar_expect_tx(full_w(s), bytes);
         bulk_load(sW + s * kSlice, p.weight + (size_t)slice * kSlice, bytes,
@@ -317,7 +381,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float acc[N / 2];
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
-  if (p.resident) mbar_wait(wres, 0);
+  if (copy_w) mbar_wait(wres, 0);
   int wq = 0;
   for (int u = 0; u < units; ++u) {
     const int ci = u % nchunk, s = u % sh;
@@ -325,13 +389,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     // the last column block runs the narrower wgmma (on acc's first kNL / 2)
     const bool last = kWide && item % p.ncb == p.ncb - 1;
     mbar_wait(full_h(s), (u / sh) & 1);
-    const uint32_t plane = sHalo + s * kStageBytes;
+    const uint32_t plane = sHalo + s * kStage;
     // A register sets: two (tap t + 1 loads while tap t runs), or for
     // N <= 16, whose taps are too short to hide a wait, one per tap (no
     // wait inside a resident unit)
     constexpr int KA = N <= 16 ? 9 : 2;
-    uint32_t a[KA][4][4];
-    load_a<T>(a[0], plane, hp_base, 0, lane);
+    constexpr int KS = CB / 32;  // k-steps of a chunk
+    uint32_t a[KA][KS][4];
+    load_a<T, CB>(a[0], plane, hp_base, 0, lane);
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
       uint32_t slice;
@@ -341,10 +406,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_wait(full_w(wq % sw), (wq / sw) & 1);
         slice = sW + (wq % sw) * kSlice;
       }
-      const uint64_t desc = desc_sw128(slice);
+      const uint64_t desc = kNarrow ? desc_sw32(slice) : desc_sw128(slice);
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
+      for (int ks = 0; ks < KS; ++ks) {
         const int scale = (ci > 0 || tap > 0 || ks > 0) ? 1 : 0;
         if (last)
           Wgmma<T, kNL>::run(acc, a[tap % KA][ks], desc + 2 * ks, scale);
@@ -357,7 +422,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           wgmma_wait<1>();  // tap - 1 done: its weights and A set are free
           if (!p.resident && tap > 0) mbar_arrive(empty_w((wq - 1) % sw));
         }
-        load_a<T>(a[(tap + 1) % KA], plane, hp_base, tap + 1, lane);
+        load_a<T, CB>(a[(tap + 1) % KA], plane, hp_base, tap + 1, lane);
       }
       if (!p.resident) ++wq;
     }
@@ -386,24 +451,44 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // Error codes of the host side, beside cudaGetLastError()'s and
 // encode_nhwc's (9001, 9002).
-constexpr int kErrSmem = 9003, kErrWidth = 9004;
+constexpr int kErrSmem = 9003, kErrWidth = 9004, kErrScratch = 9005;
 
-// Tensor map of an NHWC tensor (B, H, W, C) with a box of one 128-byte
-// channel chunk by the halo window, 128-byte swizzle, zeros outside.
-template <typename T>
-int encode_halo(CUtensorMap* map, const void* x, int B, int H, int W, int C) {
-  return encode_nhwc<T>(map, x, B, H, W, C, kHaloW, kHaloH);
+// Shared memory of a launch (bytes), and where the weight lives: resident
+// (the whole image, 9 taps of every chunk) or streamed (a ring of 3 taps).
+// ops/kernels/conv3x3.py::weight_resident mirrors the choice.
+template <typename T, int N, int NL, int CB>
+int plan(Params& p) {
+  constexpr int kSmemMax = 232448;
+  constexpr int kStage = Halo<CB>::kStage;
+  const int slice = N * CB;
+  const int epi = 8 * kEpiRows * (kLine / (int)sizeof(T) + kEpiPad) *
+                  (int)sizeof(T);
+  const int bar_bytes = 8 * (2 * 4 + 2 * 3 + 1);
+  const int all_w = p.nchunk * 9 * slice;
+  p.resident = NL == 0 && all_w + 2 * kStage + epi + bar_bytes <= kSmemMax;
+  p.sw = p.resident ? 0 : 3;
+  const int w_bytes = p.resident ? all_w : p.sw * slice;
+  p.halo_off = (w_bytes + 1023) / 1024 * 1024;  // the swizzle's alignment
+  p.sh = (kSmemMax - p.halo_off - epi - bar_bytes) / kStage;
+  if (p.sh > 4) p.sh = 4;
+  if (p.sh < 2) return -1;
+  p.epi_off = p.halo_off + p.sh * kStage;
+  p.bar_off = p.epi_off + epi;
+  return p.bar_off + bar_bytes;
 }
 
-template <typename T, int N, int NL>
+// weight: OIHW; packed: scratch for its image (unused by narrow inputs
+// whose weight is resident, 6).
+template <typename T, int N, int NL, int CB>
 int launch_n(const void* x1, int c1, const void* x2, int c2,
-             const void* weight, const void* bias, const void* residual,
-             void* out, int B, int H, int W, int cout, int act,
-             void* stream) {
-  constexpr int kCh = kLine / sizeof(T);
+             const void* weight, void* packed, const void* bias,
+             const void* residual, void* out, int B, int H, int W, int cout,
+             int act, void* stream) {
+  constexpr int kCh = CB / sizeof(T);
   constexpr int kSmemMax = 232448;
   Params p;
-  p.weight = static_cast<const unsigned char*>(weight);
+  p.weight = static_cast<const unsigned char*>(packed);
+  p.oihw = weight;
   p.bias = bias;
   p.residual = residual;
   p.out = out;
@@ -415,55 +500,52 @@ int launch_n(const void* x1, int c1, const void* x2, int c2,
   p.ntiles = B * p.tiles_x * p.tiles_y;
   p.ncb = NL > 0 ? (cout + N - 1) / N : 1;
   p.nitems = p.ntiles * p.ncb;
-  const int slice = N * kLine;
-  const int epi = 8 * kEpiRows * (kCh + kEpiPad) * (int)sizeof(T);
-  const int bar_bytes = 8 * (2 * 4 + 2 * 3 + 1);
-  const int all_w = p.nchunk * 9 * slice;
-  p.resident =
-      NL == 0 && all_w + 2 * kStageBytes + epi + bar_bytes <= kSmemMax;
-  p.sw = p.resident ? 0 : 3;
-  const int w_bytes = p.resident ? all_w : p.sw * slice;
-  p.sh = (kSmemMax - w_bytes - epi - bar_bytes) / kStageBytes;
-  if (p.sh > 4) p.sh = 4;
-  if (p.sh < 2) return kErrSmem;
-  p.halo_off = w_bytes;
-  p.epi_off = p.halo_off + p.sh * kStageBytes;
-  p.bar_off = p.epi_off + epi;
-  const int smem = p.bar_off + bar_bytes;
+  const int smem = plan<T, N, NL, CB>(p);
+  if (smem < 0) return kErrSmem;
+  if (CB == kLine || !p.resident) {
+    if (packed == nullptr) return kErrScratch;
+    const int err = pack_weight<T, CB>(weight, packed, cout, c1 + c2, N,
+                                       stream);
+    if (err != 0) return err;
+  }
 
   CUtensorMap m1, m2;
-  int err = encode_halo<T>(&m1, x1, B, H, W, c1);
-  if (err == 0) err = x2 != nullptr ? encode_halo<T>(&m2, x2, B, H, W, c2)
-                                    : encode_halo<T>(&m2, x1, B, H, W, c1);
+  int err = encode_nhwc<T, CB>(&m1, x1, B, H, W, c1, kHaloW, kHaloH);
+  if (err == 0)
+    err = x2 != nullptr ? encode_nhwc<T, CB>(&m2, x2, B, H, W, c2, kHaloW,
+                                             kHaloH)
+                        : encode_nhwc<T, CB>(&m2, x1, B, H, W, c1, kHaloW,
+                                             kHaloH);
   if (err != 0) return err;
   static bool attribute_set = false;  // once: launches ask for less or equal
   if (!attribute_set) {
-    cudaFuncSetAttribute(conv3x3_wgmma<T, N, NL>,
+    cudaFuncSetAttribute(conv3x3_wgmma<T, N, NL, CB>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          kSmemMax);
     attribute_set = true;
   }
   const int grid = p.nitems < sm_count() ? p.nitems : sm_count();
   if (grid > 0)
-    conv3x3_wgmma<T, N, NL><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        m1, m2, p);
+    conv3x3_wgmma<T, N, NL, CB>
+        <<<grid, kThreads, smem, (cudaStream_t)stream>>>(m1, m2, p);
   return (int)cudaGetLastError();
 }
 
 // n: the wgmma width of the last (at cout <= 256 the only) column block.
-template <typename T>
+template <typename T, int CB>
 int launch(const void* x1, int c1, const void* x2, int c2, const void* weight,
-           const void* bias, const void* residual, void* out, int B, int H,
-           int W, int cout, int n, int act, void* stream) {
+           void* packed, const void* bias, const void* residual, void* out,
+           int B, int H, int W, int cout, int n, int act, void* stream) {
   constexpr int kN = 256;  // a column block past 256 outputs
-#define RVSR_N(NN)                                                           \
-  case NN:                                                                   \
-    return cout > kN ? launch_n<T, kN, NN>(x1, c1, x2, c2, weight, bias,     \
-                                           residual, out, B, H, W, cout, act, \
-                                           stream)                           \
-                     : launch_n<T, NN, 0>(x1, c1, x2, c2, weight, bias,      \
-                                          residual, out, B, H, W, cout, act,  \
-                                          stream);
+#define RVSR_N(NN)                                                            \
+  case NN:                                                                    \
+    return cout > kN                                                          \
+               ? launch_n<T, kN, NN, CB>(x1, c1, x2, c2, weight, packed,      \
+                                         bias, residual, out, B, H, W, cout,  \
+                                         act, stream)                         \
+               : launch_n<T, NN, 0, CB>(x1, c1, x2, c2, weight, packed,       \
+                                        bias, residual, out, B, H, W, cout,   \
+                                        act, stream);
   switch (n) {
     RVSR_N(8)
     RVSR_N(16)
@@ -478,54 +560,74 @@ int launch(const void* x1, int c1, const void* x2, int c2, const void* weight,
 #undef RVSR_N
 }
 
+// Inputs of whole 128-byte chunks take CB = 128, every other multiple of
+// 16 channels CB = 32 (6).
+template <typename T>
+int entry(const void* x1, int c1, const void* x2, int c2, const void* weight,
+          void* packed, const void* bias, const void* residual, void* out,
+          int B, int H, int W, int cout, int n, int act, void* stream) {
+  constexpr int kCh = kLine / sizeof(T);
+  if (c1 % kCh == 0 && c2 % kCh == 0)
+    return launch<T, kLine>(x1, c1, x2, c2, weight, packed, bias, residual,
+                            out, B, H, W, cout, n, act, stream);
+  return launch<T, 32>(x1, c1, x2, c2, weight, packed, bias, residual, out, B,
+                       H, W, cout, n, act, stream);
+}
+
 }  // namespace wg
 }  // namespace rvsr
 
 // weight (cout, cin, 3, 3) OIHW -> packed (ceil(cout / n) * cin * 9 * n
-// elements: column blocks of n outputs), the image conv3x3_bf16 /
-// conv3x3_f32 take.  Returns cudaGetLastError().
+// elements: column blocks of n outputs) in 128-byte chunks (chunk_bytes
+// 128) or 32-byte ones (32), the image the conv's streamed weights take.
+// Returns cudaGetLastError().
 extern "C" int conv3x3_pack_bf16(const void* weight, void* packed, int cout,
-                                 int cin, int n, void* stream) {
-  return rvsr::pack_weight<__nv_bfloat16>(weight, packed, cout, cin, n, stream);
+                                 int cin, int n, int chunk_bytes,
+                                 void* stream) {
+  return chunk_bytes == 32
+             ? rvsr::pack_weight<__nv_bfloat16, 32>(weight, packed, cout,
+                                                    cin, n, stream)
+             : rvsr::pack_weight<__nv_bfloat16>(weight, packed, cout, cin, n,
+                                                stream);
 }
 
 extern "C" int conv3x3_pack_f32(const void* weight, void* packed, int cout,
-                                int cin, int n, void* stream) {
-  return rvsr::pack_weight<float>(weight, packed, cout, cin, n, stream);
+                                int cin, int n, int chunk_bytes,
+                                void* stream) {
+  return chunk_bytes == 32
+             ? rvsr::pack_weight<float, 32>(weight, packed, cout, cin, n,
+                                            stream)
+             : rvsr::pack_weight<float>(weight, packed, cout, cin, n, stream);
 }
 
 // x1 (B,H,W,c1) and optional x2 (B,H,W,c2): the input is their channel
-// concat, c1 and c2 whole 128-byte chunks (multiples of 64 bf16 / 32 f32);
-// weight (cout, c1 + c2, 3, 3) OIHW, laid out by pack_weight_kernel into
-// packed first: for cout <= 256 one block of n output columns (n one of
-// gen_wgmma.py's WIDTHS, >= cout; scratch of (c1 + c2) * 9 * n elements);
-// past 256, ceil(cout / 256) column blocks of 256 (scratch of that many
-// times (c1 + c2) * 9 * 256), of which the last runs n (one of WIDTHS,
-// >= its columns); bias (cout) or null; residual (B,H,W,cout) or null; out
+// concat, c1 and c2 multiples of 16 (whole 128-byte chunks, or 32-byte ones
+// for narrow inputs); weight (cout, c1 + c2, 3, 3) OIHW, laid out by
+// pack_weight_kernel into packed first (narrow inputs whose weight fits
+// shared memory: laid out by the conv's own blocks, packed unused): for
+// cout <= 256 one block of n output columns (n one of gen_wgmma.py's
+// WIDTHS, >= cout; scratch of (c1 + c2) * 9 * n elements); past 256,
+// ceil(cout / 256) column blocks of 256 (scratch of that many times (c1 +
+// c2) * 9 * 256), of which the last runs n (one of WIDTHS, >= its
+// columns); bias (cout) or null; residual (B,H,W,cout) or null; out
 // (B,H,W,cout).  act: 0 none, 1 relu, 2 lrelu(0.1).  Returns
 // cudaGetLastError(), or 9001 (no cuTensorMapEncodeTiled in the driver),
 // 9002 (a tensor map refused), 9003 (shared memory), 9004 (n not
-// instantiated).
+// instantiated), 9005 (no scratch where the weight must be packed).
 extern "C" int conv3x3_bf16(const void* x1, int c1, const void* x2, int c2,
                             const void* weight, void* packed,
                             const void* bias, const void* residual, void* out,
                             int B, int H, int W, int cout, int n, int act,
                             void* stream) {
-  int err = rvsr::pack_weight<__nv_bfloat16>(
-      weight, packed, cout, c1 + c2, cout > 256 ? 256 : n, stream);
-  if (err != 0) return err;
-  return rvsr::wg::launch<__nv_bfloat16>(x1, c1, x2, c2, packed, bias,
-                                         residual, out, B, H, W, cout, n, act,
-                                         stream);
+  return rvsr::wg::entry<__nv_bfloat16>(x1, c1, x2, c2, weight, packed, bias,
+                                        residual, out, B, H, W, cout, n, act,
+                                        stream);
 }
 
 extern "C" int conv3x3_f32(const void* x1, int c1, const void* x2, int c2,
                            const void* weight, void* packed, const void* bias,
                            const void* residual, void* out, int B, int H,
                            int W, int cout, int n, int act, void* stream) {
-  int err = rvsr::pack_weight<float>(weight, packed, cout, c1 + c2,
-                                     cout > 256 ? 256 : n, stream);
-  if (err != 0) return err;
-  return rvsr::wg::launch<float>(x1, c1, x2, c2, packed, bias, residual, out,
-                                 B, H, W, cout, n, act, stream);
+  return rvsr::wg::entry<float>(x1, c1, x2, c2, weight, packed, bias,
+                                residual, out, B, H, W, cout, n, act, stream);
 }

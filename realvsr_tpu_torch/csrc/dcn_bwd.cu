@@ -631,33 +631,6 @@ __global__ void prep_weight_kernel(const T* __restrict__ w,
   }
 }
 
-// mbar_wait with mbarrier.try_wait, which suspends the thread for a while
-// before it returns false: the waiting warps then leave the issue slots to
-// the working ones (8.31 against 8.44 ms bf16, 16.19 against 16.42 f32,
-// with mbar_wait's spin at EDVR-L's L1 training shape; the wgmma conv's
-// consumers, with no other warps to yield to, run 1-2% faster spinning;
-// chip run, the H100 at 700 W).
-__device__ __forceinline__ void mbar_sleep_wait(uint32_t bar,
-                                                uint32_t parity) {
-  const long long t0 = clock64();
-  for (;;) {
-    uint32_t ok;
-    asm volatile(
-        "{\n.reg .pred P1;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, P1;\n}\n"
-        : "=r"(ok)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (ok) return;
-    if (clock64() - t0 > kWatchdog) __trap();
-  }
-}
-
-__device__ __forceinline__ void named_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
-}
-
 // 8 values of T (16 or 32 bytes) as f32.
 template <typename T>
 __device__ __forceinline__ void load8(const T* src, float (&v)[8]) {

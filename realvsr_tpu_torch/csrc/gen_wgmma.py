@@ -19,8 +19,8 @@ from pathlib import Path
 # the kernel's output widths (N of m64nN); the wrapper pads cout up to one
 WIDTHS = (8, 16, 32, 64, 128, 216, 256)
 # the widths with A read from shared memory too (dcn_fwd.cu at 128
-# channels: 64; dcn_bwd.cu's dS at 128: 16)
-SS_WIDTHS = (16, 64)
+# channels: 128; dcn_bwd.cu's dS at 128: 16)
+SS_WIDTHS = (16, 128)
 # (C++ type, PTX K of one instruction, PTX type, trailing immediates with A
 # from registers, with A from shared memory): B K-major from shared memory
 # through a descriptor; A from shared memory K-major too (TF32 takes no

@@ -1,9 +1,9 @@
 // Hopper pieces shared by the hand-written kernels (conv3x3.cu, dcn_fwd.cu,
-// dcn_bwd.cu): the wgmma fences and waits, the descriptor of a K-major
-// operand with the 128-byte swizzle, ldmatrix, mbarriers with a watchdog,
-// TMA and bulk copies, the tensor map of an NHWC tile, and the packer that
-// lays an OIHW weight out as the image of shared memory the wgmma kernels
-// copy.
+// dcn_bwd.cu): the wgmma fences and waits, the descriptors of a K-major
+// operand with the 128- and 32-byte swizzles, ldmatrix, mbarriers with a
+// watchdog, TMA and bulk copies, the tensor map of an NHWC tile, and the
+// packer that lays an OIHW weight out as the image of shared memory the
+// wgmma kernels copy.
 #pragma once
 
 #include <cuda.h>
@@ -101,6 +101,35 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     if (clock64() - t0 > kWatchdog) __trap();
 }
 
+// mbar_wait with mbarrier.try_wait, which suspends the thread for a while
+// before it returns false: the waiting warps then leave the issue slots to
+// the working ones (dcn_bwd_kernel128: 8.31 against 8.44 ms bf16, 16.19
+// against 16.42 f32, with mbar_wait's spin at EDVR-L's L1 training shape;
+// the wgmma conv's consumers, with no other warps to yield to, run 1-2%
+// faster spinning; chip run, the H100 at 700 W).
+__device__ __forceinline__ void mbar_sleep_wait(uint32_t bar,
+                                                uint32_t parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t ok;
+    asm volatile(
+        "{\n.reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P1;\n}\n"
+        : "=r"(ok)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (ok) return;
+    if (clock64() - t0 > kWatchdog) __trap();
+  }
+}
+
+// bar.sync on named barrier `id` (1-15; 0 is __syncthreads) among `count`
+// threads, whole warps.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(uint32_t dst,
                                             const CUtensorMap* map, int c0,
                                             int c1, int c2, int c3,
@@ -129,18 +158,34 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
+// The same with the 32-byte swizzle (layout type 3): rows of 32 bytes (one
+// k-step), 8-row groups 256 bytes apart.
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(256 >> 4) << 32) | ((uint64_t)3 << 62);
+}
+
+// The 16-byte unit a swizzle of CB-byte rows (128 or 32) XORs into unit j
+// of row r: r & 7 for 128 bytes, (r >> 2) & 1 for 32 (the address's bits
+// 7-9 or 7 into bits 4-6 or 4, for rows from a 1024- / 256-byte boundary).
+template <int CB>
+__host__ __device__ __forceinline__ int swizzle_of(int r) {
+  static_assert(CB == 128 || CB == 32, "128- or 32-byte rows");
+  return CB == 128 ? (r & 7) : ((r >> 2) & 1);
+}
+
 // The shared-memory image of an OIHW weight (cout, cin, 3, 3) that the
 // wgmma kernels copy: [cout / n][cin / ch][tap][n][ch] (a column block of n
-// output rows at a time, one block where cout <= n), the 16-byte units of
-// each 128-byte row swizzled (unit j of row o at j ^ (o & 7)), zero rows
-// from cout up to whole blocks, each value rounded as the tensor cores take
-// it (TF32 for f32).  ops/kernels/conv3x3.py::pack_weight is its plain
-// version.
-template <typename T>
+// output rows at a time, one block where cout <= n; ch the channels of a
+// CB-byte chunk), the 16-byte units of each CB-byte row swizzled (unit j of
+// row o at j ^ swizzle_of<CB>(o)), zero rows from cout up to whole blocks,
+// each value rounded as the tensor cores take it (TF32 for f32).
+// ops/kernels/conv3x3.py::pack_weight is its plain version.
+template <typename T, int CB>
 __global__ void pack_weight_kernel(const T* __restrict__ w,
                                    T* __restrict__ packed, int cout, int cin,
                                    int n, long long total) {
-  constexpr int ch = kLine / sizeof(T), u = ch / 8;
+  constexpr int ch = CB / sizeof(T), u = 16 / sizeof(T);
   for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        e < total; e += (long long)gridDim.x * blockDim.x) {
     const int kl = (int)(e % ch);
@@ -150,7 +195,7 @@ __global__ void pack_weight_kernel(const T* __restrict__ w,
     const int tap = (int)(r % 9);
     r /= 9;
     const int c = (int)(r % (cin / ch)), row = (int)(r / (cin / ch)) * n + o;
-    const int i = c * ch + ((kl / u) ^ (o & 7)) * u + kl % u;
+    const int i = c * ch + ((kl / u) ^ swizzle_of<CB>(o)) * u + kl % u;
     float v = 0.f;
     if (row < cout)
       v = Traits<T>::to_f(w[((long long)row * cin + i) * 9 + tap]);
@@ -158,13 +203,13 @@ __global__ void pack_weight_kernel(const T* __restrict__ w,
   }
 }
 
-template <typename T>
+template <typename T, int CB = kLine>
 int pack_weight(const void* weight, void* packed, int cout, int cin, int n,
                 void* stream) {
   const long long total = (long long)((cout + n - 1) / n) * cin * 9 * n;
   const int blocks = (int)((total + 255) / 256 < 1024 ? (total + 255) / 256
                                                       : 1024);
-  pack_weight_kernel<T><<<blocks, 256, 0, (cudaStream_t)stream>>>(
+  pack_weight_kernel<T, CB><<<blocks, 256, 0, (cudaStream_t)stream>>>(
       (const T*)weight, (T*)packed, cout, cin, n, total);
   return (int)cudaGetLastError();
 }
@@ -209,9 +254,10 @@ inline EncodeTiled encode_tiled() {
 // Error codes of encode_nhwc, beside cudaGetLastError()'s.
 constexpr int kErrNoEncode = 9001, kErrEncode = 9002;
 
-// Tensor map of an NHWC tensor (B, H, W, C) with a box of one 128-byte
-// channel chunk by box_h x box_w pixels, 128-byte swizzle, zeros outside.
-template <typename T>
+// Tensor map of an NHWC tensor (B, H, W, C) with a box of one CB-byte
+// channel chunk (128 or 32) by box_h x box_w pixels, the CB-byte swizzle,
+// zeros outside.
+template <typename T, int CB = kLine>
 int encode_nhwc(CUtensorMap* map, const void* x, int B, int H, int W, int C,
                 int box_w, int box_h) {
   EncodeTiled fn = encode_tiled();
@@ -221,7 +267,7 @@ int encode_nhwc(CUtensorMap* map, const void* x, int B, int H, int W, int C,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {C * es, (cuuint64_t)W * C * es,
                                  (cuuint64_t)H * W * C * es};
-  const cuuint32_t box[4] = {(cuuint32_t)(kLine / es), (cuuint32_t)box_w,
+  const cuuint32_t box[4] = {(cuuint32_t)(CB / es), (cuuint32_t)box_w,
                              (cuuint32_t)box_h, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r =
@@ -229,7 +275,8 @@ int encode_nhwc(CUtensorMap* map, const void* x, int B, int H, int W, int C,
          std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
          4, const_cast<void*>(x), dims, strides, box, elem,
-         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CB == kLine ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncode;
 }

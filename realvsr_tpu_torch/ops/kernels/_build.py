@@ -33,10 +33,13 @@ BUILD_DIR = PKG / "build"
 SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 ACTS = {None: 0, "relu": 1, "lrelu": 2}
 # --split-compile=0: optimise a source's kernels on all cores at once
-# (halves the build of conv3x3.cu's 16 instantiations)
+# (halves the build of conv3x3.cu's instantiations); -fno-gnu-unique: a
+# template's function-local statics (the launchers' "attribute set" flags)
+# stay each library's own, so two builds of a source loaded side by side
+# (chip_smoke.py --ab) do not share them
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              "--split-compile=0")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xcompiler",
+              "-fno-gnu-unique", "-Xptxas", "-v", "--split-compile=0")
 
 
 def _nvcc() -> str:
@@ -105,6 +108,14 @@ def load(name: str, functions: tuple) -> ctypes.PyDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def raw_stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device`` as the pointer the C entry
+    points take: torch's raw-stream query, a fraction of the host time of
+    building a ``torch.cuda.Stream`` (``current_stream(...).cuda_stream``),
+    which counts where a call's device work is a few microseconds."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(code: int, what: str) -> None:

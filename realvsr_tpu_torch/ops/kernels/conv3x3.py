@@ -16,23 +16,23 @@ No pair packing: the TPU's 128-lane layout is not carried over.
 The weight goes to the kernel as the image of its shared memory, which a
 small kernel of the same source lays out before each launch
 (:func:`pack_weight_cuda`; :func:`pack_weight` is its plain version): per
-column block (one up to 256 outputs), 128-byte chunk of input channels (64
-bf16 or 32 f32) and tap, N rows of that chunk, with the 128-byte swizzle
-of the ``wgmma`` descriptors, in TF32 for f32 (:func:`round_tf32`).
+column block (one up to 256 outputs), chunk of input channels and tap, N
+rows of that chunk, with the swizzle of the ``wgmma`` descriptors, in TF32
+for f32 (:func:`round_tf32`).  A chunk is 128 bytes (64 bf16 or 32 f32
+channels) where both inputs are whole chunks, else 32 bytes (16 / 8: the
+narrow inputs of the nf 16 debug configs, 16, 32 and 48 wide;
+:func:`chunk_bytes`).  Narrow inputs whose weight fits shared memory
+(:func:`weight_resident`: every debug conv) skip the packer: the conv's
+blocks lay the OIHW weight out themselves, so a call is one launch.
 :func:`conv3x3_from_packed` computes the conv from that image tap by tap
 in the kernel's order; the CPU tests hold it against the plain conv and
 the JAX kernel.
 
-Inputs whose widths are not whole chunks (c1 or c2 of 16 or 48) run the
-``mma.sync`` kernel of ``csrc/conv3x3_sync.cu`` instead, chosen here by
-shape (:func:`uses_wgmma`): the nf 16 debug configs' convs (23 of their 24
-a step); no conv of the nf 64 or 128 models.
-
-:func:`conv3x3` launches a kernel for a CUDA tensor; a launch with 64
+:func:`conv3x3` launches the kernel for a CUDA tensor; a launch with 64
 output channels counts in ``conv3x3.launches``, one with any other width in
 ``conv3x3_fused.launches``, so the two rows of the TPU table keep their own
-counts, whichever kernel runs; of these, the launches of the ``mma.sync``
-kernel count in ``conv3x3_sync.launches`` too.  For a CPU tensor it runs
+counts; of these, the launches on 32-byte chunks (narrow inputs) count in
+``conv3x3_narrow.launches`` too.  For a CPU tensor it runs
 :func:`conv3x3_plain`.
 :func:`conv3x3_fused` is the JAX-named entry (one input, no ``x2``).
 :func:`conv3x3_autograd` is the differentiable op (the counterpart of the
@@ -48,6 +48,7 @@ pre-activations near 0.
 from __future__ import annotations
 
 import ctypes
+import functools
 from types import SimpleNamespace
 
 import torch
@@ -58,16 +59,22 @@ from realvsr_tpu_torch.ops.deform_conv import act_grad, apply_act
 from realvsr_tpu_torch.ops.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
-_FUNCS = tuple((f"conv3x3_{s}", _ARGS[:5] + (_P,) + _ARGS[5:])
+# x1, c1, x2, c2, weight, packed, bias, residual, out, B, H, W, cout, n,
+# act, stream; the packer's weight, packed, cout, cin, n, chunk bytes,
+# stream
+_FUNCS = tuple((f"conv3x3_{s}", (_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _I, _I, _I, _P))
                for s in _build.SUFFIX.values()) \
-    + tuple((f"conv3x3_pack_{s}", (_P, _P, _I, _I, _I, _P))
+    + tuple((f"conv3x3_pack_{s}", (_P, _P, _I, _I, _I, _I, _P))
             for s in _build.SUFFIX.values())
-_SYNC_FUNCS = tuple((f"conv3x3_sync_{s}", _ARGS)
-                    for s in _build.SUFFIX.values())
-_HALO, _COUT, _SMEM_MAX = (4 + 2) * (32 + 2), 64, 232448  # mma.sync kernel
+_COUT = 64         # the outputs counted in conv3x3.launches
 LRELU_SLOPE = 0.1  # the kernel's only LeakyReLU slope, the repo's only one
 LINE = 128         # bytes of one channel chunk: a row of the swizzle
+NARROW_LINE = 32   # the chunk of narrow inputs: one wgmma k-step
+# conv3x3.cu's shared memory: a block's most, the halo window, a warp's
+# epilogue rows and padding, the mbarriers (plan())
+_SMEM_MAX, _HALO_PIXELS, _EPI_ROWS, _EPI_PAD, _BARS = (232448, 10 * 18, 16,
+                                                       8, 8 * 15)
 
 
 def conv3x3_plain(x, weight, bias=None, act=None, residual=None, x2=None):
@@ -84,9 +91,19 @@ def conv3x3_plain(x, weight, bias=None, act=None, residual=None, x2=None):
     return y.contiguous()
 
 
-def chunk(dtype: torch.dtype) -> int:
-    """Input channels in one 128-byte chunk: 64 bf16, 32 f32."""
-    return LINE // dtype.itemsize
+def chunk(dtype: torch.dtype, line: int = LINE) -> int:
+    """Input channels in one chunk of ``line`` bytes: 64 bf16 / 32 f32 in
+    128 bytes, 16 / 8 in 32."""
+    return line // dtype.itemsize
+
+
+def chunk_bytes(c1: int, c2: int, dtype: torch.dtype) -> int:
+    """The kernel's input chunk for these widths: 128 bytes where both are
+    whole 128-byte chunks (every conv of the nf 64 / 128 models), else 32
+    (:data:`NARROW_LINE`: the nf 16 debug configs' 16- and 32-wide inputs,
+    48); c1 and c2 are multiples of 16."""
+    ch = chunk(dtype)
+    return LINE if c1 % ch == 0 and c2 % ch == 0 else NARROW_LINE
 
 
 def kernel_width(cout: int) -> int:
@@ -109,44 +126,62 @@ def column_blocks(cout: int) -> list[tuple[int, int]]:
             for c0 in range(0, cout, full)]
 
 
-def uses_wgmma(c1: int, c2: int, cout: int, dtype: torch.dtype) -> bool:
-    """Whether the wgmma kernel takes these widths (else the mma.sync one):
-    whole 128-byte input chunks, at any number of outputs."""
-    ch = chunk(dtype)
-    return c1 % ch == 0 and c2 % ch == 0
+def weight_resident(c1: int, c2: int, cout: int, dtype: torch.dtype) -> bool:
+    """Whether the kernel keeps the whole weight in shared memory beside two
+    halo stages and the epilogue's rows (``conv3x3.cu::plan``), or streams
+    it tap by tap.  Narrow inputs with a resident weight run one launch:
+    their blocks lay it out, and no packer runs."""
+    blocks = column_blocks(cout)
+    if len(blocks) > 1:
+        return False
+    es = dtype.itemsize
+    halo = -(-_HALO_PIXELS * chunk_bytes(c1, c2, dtype) // 1024) * 1024
+    epi = 8 * _EPI_ROWS * (LINE // es + _EPI_PAD) * es
+    return ((c1 + c2) * es * 9 * blocks[0][1] + 2 * halo + epi + _BARS
+            <= _SMEM_MAX)
+
+
+def _units(ch: int) -> int:
+    """16-byte units in a chunk row of ``ch`` channels: 8 in the 128-byte
+    chunks (64 bf16 / 32 f32), 2 in the 32-byte ones (16 / 8)."""
+    return 8 if ch >= 32 else 2
 
 
 def _swizzle(t: torch.Tensor) -> torch.Tensor:
-    """The 128-byte swizzle on (..., rows, 8 units of 16 bytes, e): unit j
-    of row r moves to unit j ^ (r % 8).  Its own inverse."""
-    r = torch.arange(8).view(8, 1)
+    """The swizzle on (..., rows, units, e) with 8 or 2 units of 16 bytes a
+    row (128- or 32-byte rows): unit j of row r moves to j ^ (r % 8), or to
+    j ^ ((r // 4) % 2).  Its own inverse."""
+    units = t.shape[-2]
+    r = torch.arange(8).view(8, 1)   # the pattern repeats every 8 rows
+    shift = r if units == 8 else r // 4
     lead = t.shape[:-3]
-    t = t.reshape(*lead, t.shape[-3] // 8, 8, 8, t.shape[-1])
-    return t[..., r, r ^ torch.arange(8), :].reshape(*lead, -1, 8,
-                                                     t.shape[-1])
+    t = t.reshape(*lead, t.shape[-3] // 8, 8, units, t.shape[-1])
+    return t[..., r, shift ^ torch.arange(units), :].reshape(
+        *lead, -1, units, t.shape[-1])
 
 
 def pack_weight(weight: torch.Tensor, n: int, ch: int) -> torch.Tensor:
     """The kernel's shared-memory image of an OIHW weight (cout, cin, 3, 3):
     (ceil(cout / n), cin / ch, 9, n, ch) — column block of ``n`` outputs
-    (one where cout <= n), chunk of ``ch`` input channels, tap (dy * 3 +
-    dx), output row of the block (zeros past cout), channel — with each
-    8-row group of 128-byte rows swizzled (:func:`_swizzle`), flattened.
-    Any dtype (the tests pack indices with it)."""
+    (one where cout <= n), chunk of ``ch`` input channels (64 / 32 in a
+    128-byte chunk, 16 / 8 in a 32-byte one), tap (dy * 3 + dx), output row
+    of the block (zeros past cout), channel — with the 16-byte units of each
+    row swizzled (:func:`_swizzle`), flattened.  Any dtype (the tests pack
+    indices with it)."""
     cout, cin = weight.shape[:2]
-    ncb = -(-cout // n)
+    ncb, u = -(-cout // n), _units(ch)
     w = weight.permute(2, 3, 0, 1).reshape(9, cout, cin // ch, ch)
     w = torch.cat([w, w.new_zeros(9, ncb * n - cout, cin // ch, ch)], 1)
     w = w.reshape(9, ncb, n, cin // ch, ch).permute(1, 3, 0, 2, 4)
-    return _swizzle(w.reshape(ncb, cin // ch, 9, n, 8, ch // 8)).reshape(-1)
+    return _swizzle(w.reshape(ncb, cin // ch, 9, n, u, ch // u)).reshape(-1)
 
 
 def unpack_weight(packed: torch.Tensor, cout: int, cin: int, n: int,
                   ch: int) -> torch.Tensor:
     """(cin / ch, 9, cout, ch) from :func:`pack_weight`'s image with
     column blocks of ``n``."""
-    ncb = packed.numel() // (cin * 9 * n)
-    w = _swizzle(packed.reshape(ncb, cin // ch, 9, n, 8, ch // 8))
+    ncb, u = packed.numel() // (cin * 9 * n), _units(ch)
+    w = _swizzle(packed.reshape(ncb, cin // ch, 9, n, u, ch // u))
     w = w.reshape(ncb, cin // ch, 9, n, ch).permute(1, 2, 0, 3, 4)
     return w.reshape(cin // ch, 9, ncb * n, ch)[:, :, :cout]
 
@@ -154,13 +189,15 @@ def unpack_weight(packed: torch.Tensor, cout: int, cin: int, n: int,
 def conv3x3_from_packed(x, packed, cout, bias=None, act=None, residual=None,
                         x2=None, ch=None):
     """:func:`conv3x3_plain` from the packed weight (packed with ``ch``
-    channels a chunk, by default the kernel's for x's dtype, and column
-    blocks of 256 past 256 outputs), in the kernel's order: per column
-    block, per input chunk, per tap, the shifted input times that tap's
-    weight, summed in f32; then bias, act, cast, residual."""
+    channels a chunk, by default the kernel's for these input widths and
+    x's dtype, and column blocks of 256 past 256 outputs), in the kernel's
+    order: per column block, per input chunk, per tap, the shifted input
+    times that tap's weight, summed in f32; then bias, act, cast,
+    residual."""
     xin = x if x2 is None else torch.cat([x, x2], dim=-1)
     b, h, w, cin = xin.shape
-    ch = ch or chunk(x.dtype)
+    ch = ch or chunk(x.dtype, chunk_bytes(x.shape[-1], cin - x.shape[-1],
+                                          x.dtype))
     n = min(packed.numel() // (9 * cin), WIDTHS[-1])
     wk = unpack_weight(packed, cout, cin, n, ch).float()
     xp = F.pad(xin.float(), (0, 0, 1, 1, 1, 1))
@@ -186,26 +223,21 @@ def round_tf32(t: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def pack_weight_cuda(weight: torch.Tensor, n: int) -> torch.Tensor:
-    """:func:`pack_weight` of a CUDA weight by the kernel's own packer,
-    with f32 rounded to TF32 (:func:`round_tf32`)."""
+def pack_weight_cuda(weight: torch.Tensor, n: int,
+                     line: int = LINE) -> torch.Tensor:
+    """:func:`pack_weight` of a CUDA weight by the kernel's own packer, in
+    chunks of ``line`` bytes (128 or 32), with f32 rounded to TF32
+    (:func:`round_tf32`)."""
     cout, cin = weight.shape[:2]
     packed = torch.empty(-(-cout // n) * cin * 9 * n, device=weight.device,
                          dtype=weight.dtype)
     lib = _build.load("conv3x3", _FUNCS)
     with torch.cuda.device(weight.device):
         code = getattr(lib, f"conv3x3_pack_{_build.SUFFIX[weight.dtype]}")(
-            weight.data_ptr(), packed.data_ptr(), cout, cin, n,
+            weight.data_ptr(), packed.data_ptr(), cout, cin, n, line,
             torch.cuda.current_stream(weight.device).cuda_stream)
     _build.check(code, "conv3x3_pack")
     return packed
-
-
-def _tile_cols(cout: int) -> int:
-    """Output columns of the mma.sync kernel's channel tile: 64 (8 mma
-    n-tiles) from cout = 33 up, else the fewest of 8, 16 or 32 that cover
-    cout."""
-    return 64 if cout > 32 else 32 if cout > 16 else 16 if cout > 8 else 8
 
 
 def conv3x3(x: torch.Tensor, weight: torch.Tensor,
@@ -218,8 +250,8 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor,
 
     x: (B, H, W, c1); x2: (B, H, W, c2) or None; weight (cout, c1 + c2, 3,
     3), any cout >= 1; bias (cout,) or None; residual (B, H, W, cout) or
-    None.  All contiguous, of one dtype, bf16 or f32 (f32 runs the tensor
-    cores in TF32); c1 and c2 multiples of 16.
+    None.  All contiguous and 16-byte aligned, of one dtype, bf16 or f32
+    (f32 runs the tensor cores in TF32); c1 and c2 multiples of 16.
     """
     if x.device.type == "cpu":
         return conv3x3_plain(x, weight, bias, act, residual, x2)
@@ -240,12 +272,9 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor,
     if cout < 1:
         raise ValueError("conv3x3: no output channels")
     dt, dev = x.dtype, x.device
-    wgmma = uses_wgmma(c1, c2, cout, dt)
-    if not wgmma:
-        pad, tile = 16 // x.element_size(), _tile_cols(cout)
-        if (_HALO + tile) * (c1 + c2 + pad) * x.element_size() > _SMEM_MAX:
-            raise ValueError(f"conv3x3: {c1 + c2} input channels exceed "
-                             "shared memory")
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return conv3x3(x, weight, bias, act, residual, x2)
     _build.check_tensor(x, "x", (b, h, w, c1), dt, dev)
     if x2 is not None:
         _build.check_tensor(x2, "x2", (b, h, w, c2), dt, dev)
@@ -254,45 +283,47 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor,
         _build.check_tensor(bias, "bias", (cout,), dt, dev)
     if residual is not None:
         _build.check_tensor(residual, "residual", (b, h, w, cout), dt, dev)
-    if wgmma:  # the weight and the scratch its packer lays it out in;
-        # n: the last (or only) column block's width
-        blocks = column_blocks(cout)
-        n = blocks[-1][1]
-        image = len(blocks) * (c1 + c2) * 9 * blocks[0][1]
-        wk = (weight, torch.empty(image, device=dev, dtype=dt))
-        lib, name = _build.load("conv3x3", _FUNCS), "conv3x3"
-    else:   # (cout, tap, cin), zero rows up to whole channel tiles
-        n = _tile_cols(cout)
-        wt = weight.permute(0, 2, 3, 1)
-        if cout % n:
-            wt = torch.cat([wt, wt.new_zeros(n - cout % n, 3, 3, c1 + c2)])
-        wk = (wt.contiguous(),)
-        lib, name = _build.load("conv3x3_sync", _SYNC_FUNCS), "conv3x3_sync"
+    fn, n, narrow, scratch = _plan(c1, c2, cout, dt)
+    packed = None if scratch == 0 else torch.empty(scratch, device=dev,
+                                                   dtype=dt)
     out = torch.empty(b, h, w, cout, device=dev, dtype=dt)
-    with torch.cuda.device(dev):
-        code = getattr(lib, f"{name}_{_build.SUFFIX[dt]}")(
-            x.data_ptr(), c1, None if x2 is None else x2.data_ptr(), c2,
-            *(t.data_ptr() for t in wk),
-            None if bias is None else bias.data_ptr(),
-            None if residual is None else residual.data_ptr(), out.data_ptr(),
-            b, h, w, cout, n, _build.ACTS[act],
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(code, name)
+    code = fn(x.data_ptr(), c1, None if x2 is None else x2.data_ptr(), c2,
+              weight.data_ptr(), None if packed is None else packed.data_ptr(),
+              None if bias is None else bias.data_ptr(),
+              None if residual is None else residual.data_ptr(),
+              out.data_ptr(), b, h, w, cout, n, _build.ACTS[act],
+              _build.raw_stream(dev))
+    _build.check(code, "conv3x3")
     if cout == _COUT:
         conv3x3.launches += 1
     else:
         conv3x3_fused.launches += 1
-    if not wgmma:
-        conv3x3_sync.launches += 1
+    if narrow:
+        conv3x3_narrow.launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(c1: int, c2: int, cout: int, dtype: torch.dtype):
+    """(the C entry, n: the last (or only) column block's width, narrow
+    inputs, elements of scratch the packer lays the weight out in: none
+    where narrow inputs' blocks do it), once a width and dtype: at the nf
+    16 debug configs' sizes a call's host time is its cost."""
+    blocks = column_blocks(cout)
+    narrow = chunk_bytes(c1, c2, dtype) == NARROW_LINE
+    scratch = 0 if narrow and weight_resident(c1, c2, cout, dtype) else \
+        len(blocks) * (c1 + c2) * 9 * blocks[0][1]
+    fn = getattr(_build.load("conv3x3", _FUNCS),
+                 f"conv3x3_{_build.SUFFIX[dtype]}")
+    return fn, blocks[-1][1], narrow, scratch
 
 
 conv3x3.launches = 0
 
 
-# the count of conv3x3's launches of the mma.sync kernel (each counts in
-# conv3x3 or conv3x3_fused as well)
-conv3x3_sync = SimpleNamespace(launches=0)
+# the count of conv3x3's launches on 32-byte chunks, the narrow inputs
+# (each counts in conv3x3 or conv3x3_fused as well)
+conv3x3_narrow = SimpleNamespace(launches=0)
 
 
 def conv3x3_fused(x: torch.Tensor, weight: torch.Tensor,

@@ -13,9 +13,11 @@ both are bound on the H100 by memory: the forward moves ~1.1 GB (x,
 offsets, mask, out) for 116 GFLOP at the L1 shape (3, 512, 1024, 64); the
 backward ~1.25 KB per pixel for 4 * 576 * 64 flop; at 128 the tap products
 weigh as much as the bytes.  The forward overlaps the gathers of tap t + 1
-with wgmma on tap t (the weight resident at 64 channels, streamed tap by
-tap at 128); the backward takes one deformable group per block, sums dx in
-a shared-memory footprint and folds dW into the same pass; see the sources.
+with wgmma on tap t (at 64 channels, the weight resident; at 128, sampling
+warps and an MMA warpgroup on mbarrier rings, the weight by bulk copies);
+the backward takes one deformable group per block, sums dx in a
+shared-memory footprint and folds dW into the same pass; see the
+sources.
 Positions are exact f32: the TPU kernels' int16 fixed-point positions and
 lane panels are not carried over.
 
@@ -104,8 +106,12 @@ _SMEM_MAX, _SMEM_SM, _LINE = 232448, 228 * 1024, 128
 # dcn_bwd.cu: Layout::TH), of 16 pixels (forward) or 32 (backward); each
 # runs one block per SM, of 32 threads a row (:func:`tile_rows` at 128)
 TILE_ROWS = {torch.bfloat16: 16, torch.float32: 8}
+FWD_TW = 16                   # dcn_fwd.cu: kTW
 BWD_TW = 32                   # dcn_bwd.cu: kTW
 RF_MAX = 8                    # dcn_bwd.cu: kRfMax
+# dcn_fwd.cu's Fwd128 (the 128-channel forward): tile rows (either dtype),
+# sampling warps, A stages, weight slots
+FWD128_ROWS, FWD128_WARPS, FWD128_STAGES, FWD128_WS = 8, 16, 4, 3
 # dcn_bwd.cu's Bwd128 (the 128-channel backward): tile rows, weight taps
 # in flight
 BWD128_ROWS = {torch.bfloat16: 6, torch.float32: 4}
@@ -183,10 +189,11 @@ def narrow_bwd_plan(cin: int, cout: int, dg: int) -> tuple[int, int, bool]:
 
 def tile_rows(dtype: torch.dtype, c: int = C, bwd: bool = False) -> int:
     """Tile rows of the wgmma pair at C channels (64 or 128): of the
-    forward (``dcn_fwd.cu``: Shape::TH), or of the backward (``dcn_bwd.cu``:
-    Layout::TH; at 128 Bwd128::TH, 6 bf16 / 4 f32)."""
+    forward (``dcn_fwd.cu``: Shape::TH; at 128 Fwd128::TH, 8), or of the
+    backward (``dcn_bwd.cu``: Layout::TH; at 128 Bwd128::TH, 6 bf16 / 4
+    f32)."""
     if c == 128:
-        return BWD128_ROWS[dtype] if bwd else TILE_ROWS[dtype] // 2
+        return BWD128_ROWS[dtype] if bwd else FWD128_ROWS
     return TILE_ROWS[dtype]
 
 
@@ -196,18 +203,49 @@ def _es(dtype):
 
 def fwd_smem_bytes(dtype: torch.dtype, c: int = C, dg: int = GROUPS,
                    cout: int | None = None, has_mask: bool = True) -> int:
-    """Shared memory of a forward block: ``dcn_fwd.cu::Shape::kSmem`` (the
-    packed weight, resident at 64 channels and a ring of two taps at 128,
-    and two A stages of a tile's pixels); on ``dcn_narrow.cu`` the f32
-    weight of the block's output tile (its resident taps,
-    :func:`narrow_fwd_plan`) and its bias."""
+    """Shared memory of a forward block: at 64 channels
+    ``dcn_fwd.cu::Shape::kSmem`` (the packed weight, resident, and two A
+    stages of a tile's pixels); at 128 ``Fwd128::kSmem`` (a ring of A
+    stages, one 128-byte chunk of a tile's pixels each, a ring of weight
+    slots, one chunk of a tap for the 128 outputs each, the MMA warps'
+    epilogue rows of 16 pixels x (128 + 16) bytes, and the mbarriers); on
+    ``dcn_narrow.cu`` the f32 weight of the block's output tile (its
+    resident taps, :func:`narrow_fwd_plan`) and its bias."""
     cout = c if cout is None else cout
     if route(c, cout, dg, has_mask) == "narrow":
         cot, ntap = narrow_fwd_plan(c, cout)
         return (ntap * c * cot + cot) * 4
+    px = tile_rows(dtype, c) * FWD_TW
+    if c == 128:
+        return (FWD128_STAGES * px * _LINE + FWD128_WS * c * _LINE
+                + 4 * 16 * (_LINE + 16) + 8 * (2 * FWD128_STAGES + FWD128_WS))
     chunks = c * _es(dtype) // _LINE
-    weight = (9 if c == 64 else 2) * chunks * c * _LINE
-    return weight + 2 * chunks * tile_rows(dtype, c) * 16 * _LINE
+    return 9 * chunks * c * _LINE + 2 * chunks * px * _LINE
+
+
+def fwd128_items(dtype: torch.dtype, chunk: int, warp: int,
+                 lane: int) -> list[tuple[int, int, int, int]]:
+    """``dcn_fwd_kernel128``'s sampling assignment: for each of a sampling
+    lane's items at a step on 128-byte input ``chunk``, its (A stage row,
+    i.e. the tile's pixel, 16-byte unit of the row, first channel,
+    deformable group): lane l of warp w takes unit l % 8 of pixels 4 n w +
+    4 j + l // 8, j < n, with n = 2 items a lane (:data:`FWD128_WARPS`
+    warps over a tile of :data:`FWD128_ROWS` x :data:`FWD_TW` pixels)."""
+    es = _es(dtype)
+    n = FWD128_ROWS * FWD_TW * (_LINE // 16) // (32 * FWD128_WARPS)
+    u, q0 = lane % 8, lane // 8
+    ch0 = chunk * (_LINE // es) + u * (16 // es)
+    return [(4 * n * warp + 4 * j + q0, u, ch0,
+             (chunk * _LINE + u * 16) // (16 * es)) for j in range(n)]
+
+
+def fwd128_grid(b: int, h: int, w: int, sms: int) -> list[list[int]]:
+    """``dcn_fwd_kernel128``'s walk: block i of min(ntiles, sms) takes
+    tiles i, i + grid, ...; a tile is ``(b * tiles_y + ty) * tiles_x + tx``
+    of :data:`FWD128_ROWS` x :data:`FWD_TW` pixels."""
+    ntiles = b * -(-h // FWD128_ROWS) * -(-w // FWD_TW)
+    grid = min(ntiles, sms)
+    return [list(range(i, ntiles, grid)) for i in range(grid)]
 
 
 def footprint_radius(max_offset: float | None) -> int:

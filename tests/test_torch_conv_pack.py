@@ -2,7 +2,9 @@
 
 The kernel (``realvsr_tpu_torch/csrc/conv3x3.cu``) reads the weight as the
 image of its shared memory that ``ops/kernels/conv3x3.py::pack_weight``
-makes; the kernel itself, its packer and its walk over the output tiles
+makes, in 128-byte input chunks or, for narrow inputs (16, 32 or 48 wide:
+the nf 16 debug configs), 32-byte ones; the kernel itself, its packer, its
+in-kernel layout of a narrow weight and its walk over the output tiles
 (ragged, across images) run only on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).
 Here, with inputs from numpy seeds in f32:
@@ -12,13 +14,14 @@ Here, with inputs from numpy seeds in f32:
   against ``conv3x3_plain`` and against the JAX ``conv3x3_fused`` in
   interpret mode, at cout 3, 64, 216, 256 and, in column blocks of 256,
   300 (256 + 64) and 512 (256 + 256), one input of 64 and two of 64 + 64,
-  ragged H x W; tolerance 5e-5: the same f32 products summed in another
-  order;
+  ragged H x W; on 32-byte chunks at 16 and 48 inputs and 16 + 16;
+  tolerance 5e-5: the same f32 products summed in another order;
 * the packed image element by element against the layout stated in the
-  kernel's source, 512 outputs in two column blocks among the cases (the
-  kernel's own packer is held to it on the card);
-* which kernel the wrapper chooses for which widths, the TF32 rounding of
-  the f32 weight, and that the written-out wgmma header is up to date.
+  kernel's source, 512 outputs in two column blocks and 32-byte chunks
+  among the cases (the kernel's own packer is held to it on the card);
+* which chunk the wrapper chooses for which widths, where the weight is
+  resident, the TF32 rounding of the f32 weight, and that the written-out
+  wgmma header is up to date.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -29,8 +32,9 @@ from realvsr_tpu.ops.pallas.conv3x3_kernel import (
     conv3x3_fused as jax_conv3x3_fused)
 from realvsr_tpu_torch.csrc import gen_wgmma
 from realvsr_tpu_torch.ops.kernels.conv3x3 import (
-    WIDTHS, chunk, column_blocks, conv3x3_from_packed, conv3x3_plain,
-    kernel_width, pack_weight, round_tf32, unpack_weight, uses_wgmma)
+    LINE, NARROW_LINE, WIDTHS, chunk, chunk_bytes, column_blocks,
+    conv3x3_from_packed, conv3x3_plain, kernel_width, pack_weight,
+    round_tf32, unpack_weight, weight_resident)
 
 TOL = 5e-5
 COUTS = [3, 64, 216, 256, 300, 512]
@@ -54,14 +58,30 @@ def _inputs(seed, cout, b=2, h=5, w=7, c1=64, c2=0):
     return t, (x, x2, wgt, bias, res)
 
 
-@pytest.mark.parametrize("ch", [64, 32], ids=["bf16_layout", "f32_layout"])
-@pytest.mark.parametrize("cout,c2,act,residual", [
-    (3, 0, None, False), (64, 0, "relu", True), (216, 0, "lrelu", False),
-    (256, 0, None, True), (64, 64, "lrelu", False), (3, 64, None, False),
-    (300, 0, None, True), (512, 0, "lrelu", False), (512, 64, None, True)])
-def test_packed_conv_matches_plain(ch, cout, c2, act, residual):
-    (x, x2, wgt, bias, res), _ = _inputs(cout + c2, cout, c2=c2)
+# the 128-byte-chunk cases (c1 64), then 32-byte chunks: 16 and 48 inputs
+# and the (16 + 16) concat
+PACK_CASES = [pytest.param(64, *case, id="-".join(map(str, case)))
+              for case in ((3, 0, None, False), (64, 0, "relu", True),
+                           (216, 0, "lrelu", False), (256, 0, None, True),
+                           (64, 64, "lrelu", False), (3, 64, None, False),
+                           (300, 0, None, True), (512, 0, "lrelu", False),
+                           (512, 64, None, True))] + [
+    pytest.param(16, 16, 0, "relu", False, id="narrow16-16"),
+    pytest.param(16, 108, 0, "lrelu", False, id="narrow16-108"),
+    pytest.param(48, 64, 0, None, True, id="narrow48-64"),
+    pytest.param(16, 16, 16, "lrelu", False, id="narrow16+16-16"),
+    pytest.param(16, 300, 16, None, True, id="narrow16+16-300")]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16_layout", "f32_layout"])
+@pytest.mark.parametrize("c1,cout,c2,act,residual", PACK_CASES)
+def test_packed_conv_matches_plain(dtype, c1, cout, c2, act, residual):
+    """In the chunk the kernel takes for these widths and dtype (the layout
+    only: the arithmetic is f32)."""
+    (x, x2, wgt, bias, res), _ = _inputs(cout + c2, cout, c1=c1, c2=c2)
     res = res if residual else None
+    ch = chunk(dtype, chunk_bytes(c1, c2, dtype))
     packed = pack_weight(wgt, _n(cout), ch)
     out = conv3x3_from_packed(x, packed, cout, bias, act, res, x2, ch=ch)
     ref = conv3x3_plain(x, wgt, bias, act, res, x2)
@@ -101,27 +121,52 @@ def test_packed_conv_two_inputs_matches_jax_interpret():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL)
 
 
+@pytest.mark.parametrize("c1,c2", [(16, 0), (16, 16)],
+                         ids=["16", "16+16"])
+def test_packed_narrow_conv_matches_jax_interpret(c1, c2):
+    """The 32-byte-chunk layout (16 bf16 channels a chunk; x2's chunks after
+    x1's) against the JAX kernel on the concatenated input, 6 x 16 (the
+    JAX kernel's limits: even H, W % 8 == 0), 16 outputs."""
+    (x, x2, wgt, bias, _), (xn, x2n, wn, bn, _) = _inputs(
+        7 + c2, 16, h=6, w=16, c1=c1, c2=c2)
+    xin = xn if x2n is None else np.concatenate([xn, x2n], -1)
+    ref = jax_conv3x3_fused(jnp.asarray(xin),
+                            jnp.asarray(wn.transpose(2, 3, 1, 0)),
+                            jnp.asarray(bn), act="lrelu", mrows=4,
+                            interpret=True)
+    ch = chunk(torch.bfloat16, NARROW_LINE)
+    packed = pack_weight(wgt, 16, ch)
+    out = conv3x3_from_packed(x, packed, 16, bias, "lrelu", x2=x2, ch=ch)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL)
+
+
 @pytest.mark.parametrize("cout,cin,ch", [(3, 64, 64), (216, 128, 32),
                                          (64, 128, 64), (512, 128, 64),
-                                         (300, 64, 32)])
+                                         (300, 64, 32), (16, 16, 16),
+                                         (108, 48, 16), (64, 16, 8),
+                                         (300, 32, 8)])
 def test_pack_layout_is_the_kernels(cout, cin, ch):
     """Element (o, i, dy, dx) sits at (((b * chunks + chunk) * 9 + tap) * n
-    + o % n) * ch + ((k // u) ^ (o % 8)) * u + k % u, with b = o // n its
+    + o % n) * ch + ((k // u) ^ s(o)) * u + k % u, with b = o // n its
     column block of n outputs (one up to 256 outputs), chunk, k = divmod(i,
-    ch), tap = 3 dy + dx and u = ch / 8 elements in 16 bytes; rows past
-    cout are 0."""
+    ch), tap = 3 dy + dx and u the elements in 16 bytes: in a 128-byte
+    chunk (64 bf16 / 32 f32 channels) u = ch / 8 and s(o) = o % 8, in a
+    32-byte one (16 / 8) u = ch / 2 and s(o) = (o // 4) % 2 (the 32-byte
+    swizzle: ``sm90.cuh::swizzle_of``); rows past cout are 0."""
     n = _n(cout)
     w = torch.arange(1, cout * cin * 9 + 1, dtype=torch.int64) \
         .view(cout, cin, 3, 3)
     packed = pack_weight(w, n, ch)
     assert packed.numel() == -(-cout // n) * cin // ch * 9 * n * ch
-    u = ch // 8
+    wide = ch >= 32
+    u = ch // 8 if wide else ch // 2
     want = torch.zeros_like(packed)
     o, i, dy, dx = np.meshgrid(np.arange(cout), np.arange(cin),
                                np.arange(3), np.arange(3), indexing="ij")
     c, k = np.divmod(i, ch)
+    swz = o % 8 if wide else (o // 4) % 2
     at = ((((o // n) * (cin // ch) + c) * 9 + 3 * dy + dx) * n + o % n) \
-        * ch + ((k // u) ^ (o % 8)) * u + k % u
+        * ch + ((k // u) ^ swz) * u + k % u
     want[torch.from_numpy(at.reshape(-1))] = w.reshape(-1)
     assert torch.equal(packed, want)
     back = unpack_weight(packed, cout, cin, n, ch)
@@ -130,19 +175,33 @@ def test_pack_layout_is_the_kernels(cout, cin, ch):
 
 
 def test_routing_by_width():
-    """Every conv of the nf 64 and 128 model paths takes the wgmma kernel,
-    EDVR-L's upconv1 (128 -> 512) and any cout past 256 in column blocks;
-    input widths that are not whole 128-byte chunks (the nf 16 debug
-    configs' 16, and 48) the mma.sync one, at any cout."""
+    """Every conv runs the one wgmma kernel: whole 128-byte input chunks
+    (every conv of the nf 64 and 128 model paths, EDVR-L's upconv1 (128 ->
+    512) and any cout past 256 in column blocks), and 32-byte ones for the
+    narrow inputs (the nf 16 debug configs' 16 and 16 + 16, and 48), at any
+    cout.  The debug configs' weights are resident (one launch a call: the
+    blocks lay them out); past 256 outputs or 48 -> 128 in f32 the weight
+    is packed and streamed."""
     for dt in (torch.bfloat16, torch.float32):
         for c1, c2, cout in ((64, 0, 64), (64, 64, 64), (64, 0, 3),
                              (64, 0, 216), (64, 0, 256), (64, 64, 3),
                              (64, 0, 300), (128, 0, 512), (128, 128, 512)):
-            assert uses_wgmma(c1, c2, cout, dt)
-        assert not uses_wgmma(16, 16, 64, dt)
-        assert not uses_wgmma(48, 0, 64, dt)
-        assert not uses_wgmma(16, 0, 512, dt)
-        assert not uses_wgmma(16, 16, 108, dt)
+            assert chunk_bytes(c1, c2, dt) == LINE
+        for c1, c2, cout in ((16, 16, 64), (48, 0, 64), (16, 0, 512),
+                             (16, 16, 108), (64, 16, 64)):
+            assert chunk_bytes(c1, c2, dt) == NARROW_LINE
+        # the nf 16 debug configs' convs: resident, one launch
+        for c1, c2, cout in ((16, 0, 16), (16, 16, 16), (16, 0, 108),
+                             (16, 0, 64), (48, 0, 64)):
+            assert weight_resident(c1, c2, cout, dt)
+        assert not weight_resident(16, 0, 300, dt)
+    # 32 channels: a whole 128-byte chunk in f32 only
+    assert chunk_bytes(32, 0, torch.bfloat16) == NARROW_LINE
+    assert chunk_bytes(32, 32, torch.float32) == LINE
+    assert chunk(torch.bfloat16, NARROW_LINE) == 16
+    assert chunk(torch.float32, NARROW_LINE) == 8
+    assert not weight_resident(48, 0, 128, torch.float32)
+    assert weight_resident(48, 0, 128, torch.bfloat16)
     assert column_blocks(512) == [(0, 256), (256, 256)]
     assert column_blocks(300) == [(0, 256), (256, 64)]
     assert column_blocks(257) == [(0, 256), (256, 8)]

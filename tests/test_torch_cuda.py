@@ -20,12 +20,12 @@ from realvsr_tpu_torch.ops.kernels.check import (conv3x3_plain_grads,
 from realvsr_tpu_torch.ops.deform_conv import modulated_deform_conv_plain
 from realvsr_tpu_torch.ops.deform_conv_block import (
     modulated_deform_conv_block)
-from realvsr_tpu_torch.ops.kernels.conv3x3 import (chunk, column_blocks,
-                                                   conv3x3,
+from realvsr_tpu_torch.ops.kernels.conv3x3 import (chunk, chunk_bytes,
+                                                   column_blocks, conv3x3,
                                                    conv3x3_autograd,
                                                    conv3x3_fused,
-                                                   conv3x3_plain,
-                                                   conv3x3_sync, pack_weight,
+                                                   conv3x3_narrow,
+                                                   conv3x3_plain, pack_weight,
                                                    pack_weight_cuda,
                                                    round_tf32)
 from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_bwd_om,
@@ -102,8 +102,8 @@ def test_dcn_kernel_matches_plain(cuda, dtype, shape, act, max_offset, om):
     ((3, 37, 45, 64), 0, "relu", True),    # tile walk across images
     ((3, 37, 45, 64), 64, "lrelu", False),  # ... with the concat input
     ((2, 96, 512, 64), 64, None, False),   # many tiles per block
-    ((2, 37, 45, 16), 16, "relu", True),  # narrow inputs: mma.sync kernel
-    ((1, 20, 24, 48), 0, None, True),     # 48 inputs: mma.sync kernel
+    ((2, 37, 45, 16), 16, "relu", True),  # narrow inputs: 32-byte chunks
+    ((1, 20, 24, 48), 0, None, True),     # 48 inputs: 32-byte chunks
 ])
 def test_conv3x3_kernel_matches_plain(cuda, dtype, shape, c2, act, residual):
     b, h, w, c1 = shape
@@ -115,27 +115,30 @@ def test_conv3x3_kernel_matches_plain(cuda, dtype, shape, c2, act, residual):
     bias = (torch.randn(64, generator=g) * 0.1).to(cuda, dtype)
     res = torch.randn(b, h, w, 64, generator=g).to(cuda, dtype) \
         if residual else None
-    n = (conv3x3.launches, conv3x3_sync.launches)
+    n = (conv3x3.launches, conv3x3_narrow.launches)
     out = conv3x3(x, wgt, bias, act, res, x2)
     torch.cuda.synchronize()
     assert conv3x3.launches == n[0] + 1
-    assert conv3x3_sync.launches == n[1] + (c1 % chunk(dtype) != 0)
+    assert conv3x3_narrow.launches == n[1] + (c1 % chunk(dtype) != 0)
     ref = conv3x3_plain(x, wgt, bias, act, res, x2)
     assert max_abs_err(out, ref) <= tolerance(ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("cout,cin", [(3, 64), (64, 128), (216, 64),
-                                      (256, 128), (512, 128), (300, 64)])
+                                      (256, 128), (512, 128), (300, 64),
+                                      (108, 16), (128, 48), (300, 16)])
 def test_conv3x3_weight_packer_matches_plain(cuda, dtype, cout, cin):
     """The kernel's packer lays the weight out exactly as pack_weight,
-    rounded to TF32 for f32; past 256 outputs in column blocks of 256."""
+    rounded to TF32 for f32; past 256 outputs in column blocks of 256; in
+    32-byte chunks for narrow inputs (their streamed form)."""
     w = torch.randn(cout, cin, 3, 3, generator=_gen(14)).to(cuda, dtype)
     n = column_blocks(cout)[0][1]
-    ref = pack_weight(w, n, chunk(dtype))
+    line = chunk_bytes(cin, 0, dtype)
+    ref = pack_weight(w, n, chunk(dtype, line))
     if dtype == torch.float32:
         ref = round_tf32(ref)
-    assert torch.equal(pack_weight_cuda(w, n), ref)
+    assert torch.equal(pack_weight_cuda(w, n, line), ref)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -174,11 +177,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     ((3, 37, 45, 64), 0, 256, None, True, True),     # across images
     ((2, 37, 45, 64), 64, 256, "lrelu", True, False),  # 2 chunks streamed
     ((2, 40, 48, 64), 0, 20, "relu", True, True),    # N = 32, ragged cout
-    ((2, 37, 45, 16), 0, 20, "lrelu", True, True),   # mma.sync: 4 n-tiles
+    ((2, 37, 45, 16), 0, 20, "lrelu", True, True),   # narrow: N = 32
     ((1, 20, 24, 64), 0, 300, None, True, False),    # 256 + 64 columns
     ((2, 37, 45, 64), 0, 300, "lrelu", True, True),  # ... ragged, +res
     ((2, 21, 37, 64), 64, 512, None, False, True),   # 256 + 256, two inputs
-    ((1, 20, 24, 16), 0, 300, None, True, True),     # mma.sync past 256
+    ((1, 20, 24, 16), 0, 300, None, True, True),     # narrow past 256
+    ((2, 21, 37, 48), 0, 128, "lrelu", True, False),  # 48: f32 streams
+    ((3, 37, 45, 16), 16, 108, "lrelu", True, False),  # 16+16 -> 108
 ])
 def test_conv3x3_any_width_matches_plain(cuda, dtype, shape, c2, cout, act,
                                          bias, residual):
@@ -225,12 +230,12 @@ def test_conv3x3_edvr_l_widths_match_plain(cuda, dtype, c1, c2, cout, act,
     b = (torch.randn(cout, generator=g) * 0.1).to(cuda, dtype)
     res = (torch.randn(*shape, cout, generator=g).to(cuda, dtype)
            if residual else None)
-    n = (conv3x3_fused.launches, conv3x3_sync.launches)
+    n = (conv3x3_fused.launches, conv3x3_narrow.launches)
     out = conv3x3(x, w, b, act, res, x2)
     ref = conv3x3_plain(x, w, b, act, res, x2)
     torch.cuda.synchronize()
-    assert (conv3x3_fused.launches, conv3x3_sync.launches) == (n[0] + 1,
-                                                               n[1])
+    assert (conv3x3_fused.launches, conv3x3_narrow.launches) == (n[0] + 1,
+                                                                 n[1])
     assert max_abs_err(out, ref) <= tolerance(ref)
 
 
@@ -711,6 +716,29 @@ def test_dcn_other_widths_match_plain(cuda, c, dg, max_offset, dtype, om):
         assert max_abs_err(o, r) <= grad_tolerance(r)
     if max_offset is not None:
         assert not doff[off.abs() > max_offset].any()
+
+
+@pytest.mark.parametrize("om", [False, True], ids=["separate", "om"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dcn_fwd_128_many_tiles_per_block(cuda, dtype, om):
+    """The 128-channel forward with ~3.5 tiles a block (456 tiles of 8 x 16
+    over 132 SMs; ragged in H and W): its A-stage and weight rings wrap
+    across tiles and the epilogue of one tile runs beside the next one's
+    sampling."""
+    x, off, mask, wgt, bias, _ = _width_inputs((3, 61, 300, 128), 8, dtype,
+                                               cuda, seed=17)
+    n = dcn_fwd.launches
+    if om:
+        t = _om(off, mask)
+        out = dcn_fwd_om(x, t, wgt, bias, 8, act="relu", max_offset=4)
+        ref = dcn_fwd_om_plain(x, t, wgt, bias, 8, "relu", 4)
+    else:
+        out = dcn_fwd(x, off, mask, wgt, bias, 8, act="relu", max_offset=4)
+        ref = dcn_fwd_plain(x, off, mask, wgt, bias, 8, "relu", 4)
+    torch.cuda.synchronize()
+    assert dcn_fwd.launches == n + 1
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert max_abs_err(out, ref) <= tolerance(ref)
 
 
 # the generalised dcn_narrow.cu over the TPU kernel's domain: (cin, cout,

@@ -12,8 +12,11 @@ The kernels run only on the card (``tests/test_torch_cuda.py``,
   beyond the clamp);
 * (b) the widths the wrappers route to each design and refuse;
 * (c) the shared memory of every width against the card's 232448 bytes a
-  block, with the sizes of ``dcn_fwd.cu``'s ``Shape`` and ``dcn_bwd.cu``'s
-  ``Layout`` and ``Bwd128`` worked out by hand; the 128-channel backward's
+  block, with the sizes of ``dcn_fwd.cu``'s ``Shape`` and ``Fwd128`` and
+  ``dcn_bwd.cu``'s ``Layout`` and ``Bwd128`` worked out by hand; the
+  128-channel forward's constants read from its source, its sampling
+  lanes (every (pixel, channel) of a tile once a tap, whole 16-byte units
+  of one group) and its walk over 132 SMs; the 128-channel backward's
   walk (runs of (group, tile) items, each once, tiles of 6 rows in bf16
   and 4 in f32, every SM busy and every (group, pixel) of the image
   visited once) and its dx, summed per tile's 16-channel footprint plus
@@ -190,21 +193,24 @@ def test_narrow_plans_cover_each_channel_once_and_fit(cin, cout, dg):
 
 
 def test_shared_memory_of_every_width_fits_a_block():
-    """Worked out from the sources' layouts: the 128-channel forward holds
-    a two-tap weight ring (2 x chunks x 128 rows x 128 B) and two A stages
-    of TH x 16 pixels; the backward (``Bwd128``) its g tile (chunks x TH x
-    32 pixels x 128 B), a ring of three weight taps (chunks x 16 rows x 128
-    B), two S slots of 16 x (pixels + pad), two dS slots of pixels x 16 in
-    the input dtype, two f32 a sampling warp, 10 mbarriers (rounded up to
-    16 bytes) and the footprint of 17 ints a pixel."""
+    """Worked out from the sources' layouts: the 128-channel forward
+    (``Fwd128``) holds a ring of 4 A stages (one 128-byte chunk of the 8 x
+    16 tile's pixels each), 3 weight slots (one chunk of a tap for the 128
+    outputs each), 4 MMA warps' epilogue rows (16 pixels x (128 + 16) B)
+    and 11 mbarriers, in either dtype; the backward (``Bwd128``) its g tile
+    (chunks x TH x 32 pixels x 128 B), a ring of three weight taps (chunks
+    x 16 rows x 128 B), two S slots of 16 x (pixels + pad), two dS slots of
+    pixels x 16 in the input dtype, two f32 a sampling warp, 10 mbarriers
+    (rounded up to 16 bytes) and the footprint of 17 ints a pixel."""
     bf, f32 = torch.bfloat16, torch.float32
-    assert (dcn.tile_rows(bf, 128), dcn.tile_rows(f32, 128)) == (8, 4)
+    assert (dcn.tile_rows(bf, 128), dcn.tile_rows(f32, 128)) == (8, 8)
     assert dcn.tile_rows(bf, 128, bwd=True) == 6
     assert dcn.tile_rows(f32, 128, bwd=True) == 4
-    assert dcn.fwd_smem_bytes(bf, 128, 8) == 2 * 2 * 128 * 128 + 2 * (
-        2 * 8 * 16 * 128)                                        # 128 KB
-    assert dcn.fwd_smem_bytes(f32, 128, 8) == 2 * 4 * 128 * 128 + 2 * (
-        4 * 4 * 16 * 128)                                        # 192 KB
+    for dt in (bf, f32):
+        assert dcn.fwd_smem_bytes(dt, 128, 8) == (
+            4 * 128 * 128 + 3 * 128 * 128 + 4 * 16 * 144 + 11 * 8)  # 121 KB
+        # one block an SM, with L1 above 100 KB for the gathers
+        assert dcn.fwd_smem_bytes(dt, 128, 8) <= 132 * 1024 - 1024
     fp6 = (6 + 19) * (32 + 19) * 17 * 4
     fp4 = (4 + 19) * (32 + 19) * 17 * 4
     assert dcn.bwd_smem_bytes(bf, 8, 128, 8) == (
@@ -254,6 +260,85 @@ def test_bwd_128_constants_are_the_kernel_source():
     assert int(re.search(r"int kWs = (\d+);", body)[1]) == dcn.BWD128_WS
     assert f"int kTW = {dcn.BWD_TW};" in src
     assert f"int kRfMax = {dcn.RF_MAX};" in src
+
+
+def test_fwd_128_constants_are_the_kernel_source():
+    """``dcn.py``'s mirror of the 128-channel forward (tile rows, A stages,
+    weight slots, the tile width) reads as ``dcn_fwd.cu``'s ``Fwd128``
+    states it, and its registers split as the launch allows."""
+    src = (Path(dcn.__file__).resolve().parents[2] / "csrc"
+           / "dcn_fwd.cu").read_text()
+    body = src[src.index("struct Fwd128 {"):src.index("};", src.index(
+        "struct Fwd128 {"))]
+    assert int(re.search(r"int TH = (\d+);", body)[1]) == dcn.FWD128_ROWS
+    assert int(re.search(r"int kSampWarps = (\d+);", body)[1]) == \
+        dcn.FWD128_WARPS
+    assert int(re.search(r"int kStages = (\d+);", body)[1]) == \
+        dcn.FWD128_STAGES
+    assert int(re.search(r"int kWs = (\d+);", body)[1]) == dcn.FWD128_WS
+    assert f"int kTW = {dcn.FWD_TW};" in src
+    regs = re.search(r"int kSampRegs = (\d+), kMmaRegs = (\d+);", body)
+    samp, mma = int(regs[1]), int(regs[2])
+    threads = dcn.FWD128_WARPS * 32 + 128
+    assert samp % 8 == mma % 8 == 0 and mma >= 128 + 32
+    assert dcn.FWD128_WARPS * 32 * samp + 128 * mma <= \
+        65536 // threads // 8 * 8 * threads
+
+
+def test_fwd_128_sampling_covers_each_channel_once():
+    """Over the steps of one tap (a 128-byte chunk each: 2 bf16, 4 f32),
+    the 16 sampling warps' lanes write every (pixel, channel) of the 8 x
+    16 tile's A stage exactly once, in whole 16-byte units of one
+    deformable group (16 channels), each warp within one tile row; a
+    quarter warp writes one pixel's full 128-byte chunk row (the kernel's
+    conflict-free stores and whole-line gathers), and lanes l and l ^ 1
+    sample the same (pixel, group) (the kernel's shared corners)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        es = dcn._es(dtype)
+        chunks, v = 128 * es // 128, 16 // es
+        seen = np.zeros((128, 128), np.int64)
+        for c in range(chunks):
+            for warp in range(dcn.FWD128_WARPS):
+                for lane in range(32):
+                    items = dcn.fwd128_items(dtype, c, warp, lane)
+                    assert len(items) == 2
+                    assert len({r // dcn.FWD_TW for r, *_ in items}) == 1
+                    for row, unit, ch0, g in items:
+                        assert ch0 == c * 128 // es + unit * v
+                        assert ch0 // 16 == (ch0 + v - 1) // 16 == g
+                        seen[row, ch0:ch0 + v] += 1
+                    pair = dcn.fwd128_items(dtype, c, warp, lane ^ 1)
+                    assert [(r, g) for r, _, _, g in items] == \
+                        [(r, g) for r, _, _, g in pair]
+                for q in range(4):   # a quarter warp: 8 units of one pixel
+                    items = [dcn.fwd128_items(dtype, c, warp, lane)[0]
+                             for lane in range(8 * q, 8 * q + 8)]
+                    assert len({r for r, *_ in items}) == 1
+                    assert sorted(u for _, u, *_ in items) == list(range(8))
+        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 64, 96), (7, 37, 70)],
+                         ids=["even", "ragged"])
+def test_fwd_128_walk_visits_each_pixel_once(b, h, w):
+    """The 128-channel forward's persistent walk over 132 SMs: 8 x 16
+    tiles in either dtype, blocks whose tile counts differ by at most one,
+    and every pixel of the image in exactly one tile of one block."""
+    for dtype in (torch.bfloat16, torch.float32):
+        th = dcn.tile_rows(dtype, 128)
+        tiles_y, tiles_x = -(-h // th), -(-w // dcn.FWD_TW)
+        grid = dcn.fwd128_grid(b, h, w, 132)
+        assert len(grid) == min(132, b * tiles_y * tiles_x)
+        sizes = [len(t) for t in grid]
+        assert max(sizes) - min(sizes) <= 1
+        seen = np.zeros((b, tiles_y * th, tiles_x * dcn.FWD_TW), np.int64)
+        for tiles in grid:
+            for tile in tiles:
+                tb, rest = divmod(tile, tiles_y * tiles_x)
+                ty, tx = divmod(rest, tiles_x)
+                seen[tb, ty * th:(ty + 1) * th,
+                     tx * dcn.FWD_TW:(tx + 1) * dcn.FWD_TW] += 1
+        assert (seen[:, :h, :w] == 1).all()
 
 
 @pytest.mark.parametrize("hw", [(13, 45), (16, 64)], ids=["ragged", "even"])
