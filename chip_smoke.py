@@ -194,7 +194,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
        the kernel modules' outputs and gradients held against the plain
        op on the same inputs;
        the times of 128 -> 64, 256 -> 256 and DCNv1 64 -> 64 beside their
-       plain versions and bounds;
+       plain versions and bounds, and of DCNv1 64 -> 64 at the flagship's
+       L1 (3, 512, 1024, 64) beside the wgmma pair's DCNv2 there;
     c. the Combine wrapper (``train_EDVR_woTSA_RealVSR_YCbCr_Combine.yml``)
        and the bare ``VideoSR_AllPair`` step (``train_EDVR_woTSA_Vimeo90K
        .yml`` on SyntheticMotion): one step at 64x64 card vs CPU, then the
@@ -213,12 +214,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
 Prints one JSON line per check and timing, then the card line, the
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
-``--ab PARENT`` builds ``conv3x3.cu``, ``conv3x3_sync.cu`` and ``dcn_fwd.cu``
-of the tree unpacked at PARENT (the parent commit) and times the nf 16
-debug configs' four narrow convs, the 128-channel DCN forward (both forms)
-and the controls (the front 64 -> 64 conv, upconv2 64 -> 256, the
-64-channel DCN forward) beside this tree's in turns (parent, this, this,
-parent), then stops.  ``--profile`` adds a
+``--ab PARENT`` builds ``dcn_narrow.cu``, ``dcn_fwd.cu`` and ``conv3x3.cu`` of
+the tree unpacked at PARENT (the parent commit, with its signatures) and
+times both narrow DCN kernels at every AB_NARROW shape (the debug C16 and
+the narrow widths, the general 128 -> 64, 256 -> 256 and DCNv1 64 -> 64 at
+the debug shape's pixels, DCNv1 64 -> 64 at the flagship's L1; both forms
+where there is a mask, bf16 and f32) and the controls (the 64- and
+128-channel DCN forward, the front 64 -> 64 conv) beside this tree's in
+turns (parent, this, this, parent), then stops.  ``--profile`` adds a
 ``torch.profiler`` breakdown of one window's forward
 of each inference model and of the last two steps of each timed training
 run (the flagship's, the families' and the new generators' recipes, the
@@ -2291,6 +2294,8 @@ def time_widths():
                 b_ms, b_by = bound(moved, tc_ops, f32_ops, dname)
                 row = dict(ms=cuda_ms(fn, 50), plain_ms=cuda_ms(pl, 3),
                            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                if (c, dg) == NARROW:  # the debug width: host-paced calls
+                    row["device_ms"] = device_ms(fn, 20)
                 emit(timing=name, case=f"narrow C{c} dg{dg}", shape=shape,
                      dtype=dname, max_offset=r8, **row)
                 rows[(name, f"C{c} dg{dg}", dname)] = row
@@ -2357,6 +2362,11 @@ GENERAL_PIXELS = (2, 64, 96)   # the general path's frames: batch, h, w
 # timed, beside their plain versions and bounds: 128 -> 64, 256 -> 256 and
 # DCNv1 at the flagship's 64 -> 64 in 8 groups (no mask: dcn_narrow.cu)
 GENERAL_TIMED = [(128, 64, 8, True), (256, 256, 8, True), (64, 64, 8, False)]
+# and DCNv1 64 -> 64 in 8 groups at the flagship's L1 (3, 512, 1024, 64),
+# beside the wgmma pair's DCNv2 at the same shape (no plain time: the
+# plain op's columns at 1.6M pixels take ~0.3 s a forward, ~1 s a
+# backward, and the narrow widths hold it at the debug shape's pixels)
+GENERAL_L1 = ("64->64 dg8 v1 L1", 64, 64, 8)
 COMBINE_CFG = os.path.join("configs", "train",
                            "train_EDVR_woTSA_RealVSR_YCbCr_Combine.yml")
 ALLPAIR_CFG = os.path.join("configs", "train", "train_EDVR_woTSA_Vimeo90K.yml")
@@ -2583,7 +2593,9 @@ def time_general():
     (±4) and backward (±8) at the debug shape's pixels, beside the plain
     versions and the bounds (as the narrow widths: the tap products at the
     tensor cores' rate for the dtype, ~9 f32 operations a sampled element
-    forward, ~20 backward).  Returns {key: row}."""
+    forward, ~20 backward); then GENERAL_L1, DCNv1 64 -> 64 in 8 groups at
+    the flagship's L1, beside the wgmma pair's DCNv2 on the same inputs
+    (no plain time).  Returns {key: row}."""
     import torch
 
     from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_bwd_plain,
@@ -2622,6 +2634,36 @@ def time_general():
                      max_offset=R_INFER if name == "dcn_fwd" else r8, **row)
                 rows[(name, case, dname)] = row
             del x, off, mask, gout, out, grads
+        torch.cuda.empty_cache()
+        # DCNv1 64 -> 64 in 8 groups at the flagship's L1 (dcn_narrow.cu),
+        # beside the wgmma pair on the same inputs with a mask (DCNv2)
+        case, cin, cout, dg = GENERAL_L1
+        shape = DCN_CASES[0][1]
+        x, off, mask, wgt, bias, gout = width_inputs(shape, dg, dtype, 71,
+                                                     cout=cout)
+        out = dcn_fwd(x, off, None, wgt, bias, dg, None, R_INFER)
+        grads = dcn_bwd(x, off, None, wgt, gout, dg, r8)
+        p, k = shape[0] * shape[1] * shape[2], 9 * cin
+        for name, fn, pair, moved, tc_ops, f32_ops in (
+                ("dcn_fwd",
+                 lambda: dcn_fwd(x, off, None, wgt, bias, dg, None, R_INFER),
+                 lambda: dcn_fwd(x, off, mask, wgt, bias, dg, None, R_INFER),
+                 nbytes(x, off, wgt, bias, out), 2 * p * k * cout,
+                 9 * p * k),
+                ("dcn_bwd",
+                 lambda: dcn_bwd(x, off, None, wgt, gout, dg, r8),
+                 lambda: dcn_bwd(x, off, mask, wgt, gout, dg, r8),
+                 nbytes(x, off, wgt, gout, *grads), 4 * p * k * cout,
+                 20 * p * k)):
+            b_ms, b_by = bound(moved, tc_ops, f32_ops, dname)
+            row = dict(ms=cuda_ms(fn, 5), plain_ms=None, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=None,
+                       wgmma_pair_dcnv2_ms=cuda_ms(pair, 5))
+            emit(timing=name, case=f"general {case}", shape=shape, cout=cout,
+                 mask=False, dtype=dname,
+                 max_offset=R_INFER if name == "dcn_fwd" else r8, **row)
+            rows[(name, case, dname)] = row
+        del x, off, mask, gout, out, grads
         torch.cuda.empty_cache()
     return rows
 
@@ -3588,8 +3630,16 @@ def srmd_check():
 
 AB_CONTROLS = [  # (name, shape, cout, act): on conv3x3.cu in both trees
     ("front 64->64 relu", (3, H, W, 64), 64, "relu"),
-    (UPCONV2, (1, 2 * VIMEO_H, 2 * VIMEO_W, 64), 256, "lrelu"),
 ]
+# the shapes ``dcn_narrow.cu`` takes that --ab times: (name, pixels (b, h,
+# w), cin, cout, deformable groups, mask, forward clamp); the backward
+# clamps at ±8, as phase 9 times it
+AB_NARROW = [(f"C{c} dg{dg}", NARROW_SHAPE[:3], c, c, dg, True, 8)
+             for c, dg in [NARROW] + NARROW_WIDTHS] + [
+    (f"general {ci}->{co} dg{dg}{'' if m else ' v1'}", NARROW_SHAPE[:3], ci,
+     co, dg, m, R_INFER) for ci, co, dg, m in GENERAL_TIMED] + [
+    ("DCNv1 64->64 dg8 flagship L1", DCN_CASES[0][1][:3], 64, 64, 8, False,
+     R_INFER)]
 
 
 def ab_parent(parent: str) -> None:
@@ -3597,28 +3647,35 @@ def ab_parent(parent: str) -> None:
     unpacked at PARENT (the parent commit, with its signatures) beside this
     tree's and timed in turns (parent, this, this, parent) on the same
     inputs, each with its wrapper's allocations, copies and casts, bf16 and
-    f32: the nf 16 debug configs' four narrow convs (SYNC_CASES: the
-    parent's ``mma.sync`` kernel of ``conv3x3_sync.cu`` with its weight
-    copy, this tree's ``conv3x3.cu`` on 32-byte chunks) and the 128-channel
-    DCN forward at EDVR-L's L1 inference shape (7, 256, 448, 128), ±4, in
-    both forms; as controls, code this tree keeps: the front 64 -> 64 conv
-    and EDVR's upconv2 64 -> 256 (``conv3x3.cu`` on 128-byte chunks) and
-    the 64-channel DCN forward at the flagship's L1 (3, 512, 1024, 64),
-    ±4.  The two trees' outputs are held together first."""
+    f32: both kernels of ``dcn_narrow.cu`` (the parent's f32-core design,
+    this tree's on the tensor cores) at every AB_NARROW shape, forward and
+    backward, in the separate form and, where there is a mask, DCNPack's
+    in-place ``om``, the debug C16 shape's device-only times beside; as
+    controls, code this tree keeps: the 64-channel DCN forward at the
+    flagship's L1 (3, 512, 1024, 64) and the 128-channel one at EDVR-L's L1
+    inference shape (7, 256, 448, 128), ±4 (``dcn_fwd.cu``), and the front
+    64 -> 64 conv (``conv3x3.cu``).  The two trees' outputs are held
+    together first."""
     import ctypes
 
     import torch
 
     from realvsr_tpu_torch.ops.kernels import _build
     from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3, kernel_width
-    from realvsr_tpu_torch.ops.kernels.dcn import dcn_fwd, dcn_fwd_om
+    from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_bwd_om,
+                                                   dcn_fwd, dcn_fwd_om)
 
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # the parent's signatures (ops/kernels/conv3x3.py, dcn.py of that tree)
-    sigs = {"conv3x3": (P, I, P, I, P, P, P, P, P, I, I, I, I, I, I, P),
-            "conv3x3_sync": (P, I, P, I, P, P, P, P, I, I, I, I, I, I, P),
-            "dcn_fwd": (P, P, I, P, I, I, P, P, P, P, I, I, I, I, I, F, I,
-                        P)}
+    sigs = {"conv3x3": {"conv3x3": (P, I, P, I, P, P, P, P, P, I, I, I, I,
+                                    I, I, P)},
+            "dcn_fwd": {"dcn_fwd": (P, P, I, P, I, I, P, P, P, P, I, I, I,
+                                    I, I, F, I, P)},
+            "dcn_narrow": {
+                "dcn_narrow_fwd": (P, P, I, P, I, I, P, P, P, I, I, I, I, I,
+                                   I, I, F, I, P),
+                "dcn_narrow_bwd": (P, P, I, P, I, I, P, P, P, P, I, P, I, P,
+                                   I, I, I, I, I, I, F, I, P)}}
     out_dir = _build.BUILD_DIR / "parent"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {name: subprocess.Popen(
@@ -3633,101 +3690,146 @@ def ab_parent(parent: str) -> None:
         if proc.returncode:
             raise RuntimeError(f"parent {name}: nvcc failed\n{log}")
         so = ctypes.PyDLL(str(out_dir / f"{name}.so"))
-        for dt, sfx in _build.SUFFIX.items():
-            fn = getattr(so, f"{name}_{sfx}")
-            fn.argtypes, fn.restype = list(sigs[name]), ctypes.c_int
-            fns[(name, dt)] = fn
+        for fname, sig in sigs[name].items():
+            for dt, sfx in _build.SUFFIX.items():
+                fn = getattr(so, f"{fname}_{sfx}")
+                fn.argtypes, fn.restype = list(sig), ctypes.c_int
+                fns[(fname, dt)] = fn
+    emit(phase="ab build", parent=parent, built=sorted(sigs))
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
-    def turns(what, parent_fn, change_fn, iters, **info):
+    def turns(what, parent_fn, change_fn, iters, device=False, **info):
         for ref, got in zip(parent_fn(), change_fn()):
+            if ref is None:
+                continue
             if (ref.float() - got.float()).abs().max() > 0.05 * max(
                     1.0, ref.float().abs().max().item()):
-                raise AssertionError(f"{what}: parent and change differ")
+                raise AssertionError(f"{what} {info}: parent and change "
+                                     "differ")
         ms = [cuda_ms(f, iters) for f in (parent_fn, change_fn, change_fn,
                                           parent_fn)]
+        extra = {}
+        if device:
+            extra = dict(parent_device_ms=device_ms(parent_fn, 20),
+                         change_device_ms=device_ms(change_fn, 20))
         emit(ab=what, parent_ms=[ms[0], ms[3]], change_ms=[ms[1], ms[2]],
-             **info)
+             **info, **extra)
 
-    def parent_conv(x, x2, wgt, bias, act):
-        b, h, w, c1 = x.shape
-        c2 = 0 if x2 is None else x2.shape[-1]
+    def parent_conv(x, wgt, bias, act):
+        b, h, w, _ = x.shape
         cout, dt = wgt.shape[0], x.dtype
         out = torch.empty(b, h, w, cout, device="cuda", dtype=dt)
-        x2p = None if x2 is None else x2.data_ptr()
-        ch = 128 // x.element_size()
-        if c1 % ch or c2 % ch:  # the parent's route for these widths
-            # the parent's mma.sync kernel: its channel tile and the weight
-            # copy its wrapper made, (cout, tap, cin) with zero rows
-            n = 64 if cout > 32 else 32 if cout > 16 else 16 if cout > 8 \
-                else 8
-            wt = wgt.permute(0, 2, 3, 1)
-            if cout % n:
-                wt = torch.cat([wt, wt.new_zeros(n - cout % n, 3, 3,
-                                                 c1 + c2)])
-            wt = wt.contiguous()
-            code = fns[("conv3x3_sync", dt)](
-                x.data_ptr(), c1, x2p, c2, wt.data_ptr(), bias.data_ptr(),
-                None, out.data_ptr(), b, h, w, cout, n, _build.ACTS[act],
-                stream())
-        else:
-            n = kernel_width(cout)
-            packed = torch.empty((c1 + c2) * 9 * n, device="cuda", dtype=dt)
-            code = fns[("conv3x3", dt)](
-                x.data_ptr(), c1, x2p, c2, wgt.data_ptr(), packed.data_ptr(),
-                bias.data_ptr(), None, out.data_ptr(), b, h, w, cout, n,
-                _build.ACTS[act], stream())
-        _build.check(code, "parent conv3x3")
+        n = kernel_width(cout)
+        packed = torch.empty(x.shape[-1] * 9 * n, device="cuda", dtype=dt)
+        _build.check(fns[("conv3x3", dt)](
+            x.data_ptr(), x.shape[-1], None, 0, wgt.data_ptr(),
+            packed.data_ptr(), bias.data_ptr(), None, out.data_ptr(), b, h,
+            w, cout, n, _build.ACTS[act], stream()), "parent conv3x3")
         return (out,)
+
+    def sources(off, mask, om, dg):
+        if om is not None:
+            return (om.data_ptr(), dg * 27, om.data_ptr() + dg * 18 *
+                    om.element_size(), dg * 27, 1)
+        return (off.data_ptr(), dg * 18, None if mask is None else
+                mask.data_ptr(), dg * 9, 0)
 
     def parent_dcn(x, off, mask, om, wgt, bias, r):
         b, h, w, c = x.shape
         dt = x.dtype
         packed = torch.empty(c * 9 * c, device="cuda", dtype=dt)
         out = torch.empty(b, h, w, c, device="cuda", dtype=dt)
-        src = ((off.data_ptr(), 144, mask.data_ptr(), 72, 0) if om is None
-               else (om.data_ptr(), 216, om.data_ptr() + 144 *
-                     om.element_size(), 216, 1))
         _build.check(fns[("dcn_fwd", dt)](
-            x.data_ptr(), *src, wgt.data_ptr(), packed.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), b, h, w, c, 0, float(r), 1,
-            stream()), "parent dcn_fwd")
+            x.data_ptr(), *sources(off, mask, om, 8), wgt.data_ptr(),
+            packed.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, c,
+            0, float(r), 1, stream()), "parent dcn_fwd")
         return (out,)
 
+    def parent_narrow_fwd(x, off, mask, om, wgt, bias, dg, r):
+        b, h, w, c = x.shape
+        cout = wgt.shape[0]
+        out = torch.empty(b, h, w, cout, device="cuda", dtype=x.dtype)
+        _build.check(fns[("dcn_narrow_fwd", x.dtype)](
+            x.data_ptr(), *sources(off, mask, om, dg), wgt.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), b, h, w, c, cout, dg, 0,
+            float(r), 1, stream()), "parent dcn_narrow_fwd")
+        return (out,)
+
+    def parent_narrow_bwd(x, off, mask, om, wgt, g, dg, r):
+        # the parent's wrapper: zeroed f32 dx and dW, the gradients of the
+        # offsets and mask (or of om), the casts of dx and dW
+        b, h, w, c = x.shape
+        cout, dt = wgt.shape[0], x.dtype
+        dx = torch.zeros(b, h, w, c, device="cuda", dtype=torch.float32)
+        dw = torch.zeros(cout, 9, c, device="cuda", dtype=torch.float32)
+        if om is None:
+            doff = torch.empty_like(off)
+            dmask = None if mask is None else torch.empty_like(mask)
+            dsts = (doff.data_ptr(), dg * 18,
+                    None if dmask is None else dmask.data_ptr(), dg * 9)
+            rest = (doff, dmask)
+        else:
+            dom = torch.empty_like(om)
+            dsts = (dom.data_ptr(), dg * 27,
+                    dom.data_ptr() + dg * 18 * dom.element_size(), dg * 27)
+            rest = (dom,)
+        _build.check(fns[("dcn_narrow_bwd", dt)](
+            x.data_ptr(), *sources(off, mask, om, dg), wgt.data_ptr(),
+            g.data_ptr(), dx.data_ptr(), *dsts, dw.data_ptr(), b, h, w, c,
+            cout, dg, float(r), 1, stream()), "parent dcn_narrow_bwd")
+        return (dx.to(dt), *rest,
+                dw.view(cout, 3, 3, c).permute(0, 3, 1, 2).to(dt))
+
+    r8 = train_r()
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype)[6:]
-        for name, shape, c2, cout, act, _ in SYNC_CASES:
-            x, x2, wgt, bias, _ = conv_inputs(shape, c2, False, dtype, 61,
-                                              cout)
-            turns("conv3x3", lambda: parent_conv(x, x2, wgt, bias, act),
-                  lambda: (conv3x3(x, wgt, bias, act, None, x2),), 50,
-                  case=name, shape=shape, c2=c2, cout=cout, dtype=dname,
-                  control=False)
+        for name, pix, cin, cout, dg, m, rf in AB_NARROW:
+            x, off, mask, wgt, bias, g = width_inputs((*pix, cin), dg, dtype,
+                                                      69, cout=cout)
+            mask = mask if m else None
+            forms = [("separate", None)]
+            if m:
+                forms.append(("om", om_of(off, mask)))
+            big = pix[0] * pix[1] * pix[2] > 1 << 20
+            for form, om in forms:
+                info = dict(case=name, shape=(*pix, cin), cout=cout, dg=dg,
+                            mask=m, form=form, dtype=dname,
+                            device=name == "C16 dg4")
+                if om is None:
+                    fwd = (lambda: (dcn_fwd(x, off, mask, wgt, bias, dg,
+                                            None, rf),))
+                    bwd = (lambda: dcn_bwd(x, off, mask, wgt, g, dg, r8))
+                else:
+                    fwd = (lambda: (dcn_fwd_om(x, om, wgt, bias, dg, None,
+                                               rf),))
+                    bwd = (lambda: dcn_bwd_om(x, om, wgt, g, dg, r8))
+                turns("dcn_narrow_fwd",
+                      lambda: parent_narrow_fwd(x, off, mask, om, wgt, bias,
+                                                dg, rf),
+                      fwd, 5 if big else 20, max_offset=rf, **info)
+                turns("dcn_narrow_bwd",
+                      lambda: parent_narrow_bwd(x, off, mask, om, wgt, g, dg,
+                                                r8),
+                      bwd, 3 if big else 10, max_offset=r8, **info)
+                del om
+            del x, off, mask, g
+            torch.cuda.empty_cache()
         for name, shape, cout, act in AB_CONTROLS:
             x, _, wgt, bias, _ = conv_inputs(shape, 0, False, dtype, 61, cout)
-            turns("conv3x3", lambda: parent_conv(x, None, wgt, bias, act),
+            turns("conv3x3", lambda: parent_conv(x, wgt, bias, act),
                   lambda: (conv3x3(x, wgt, bias, act),), 20, case=name,
                   shape=shape, cout=cout, dtype=dname, control=True)
             del x
-        for shape in (DCN128_SHAPES[0][1], DCN_CASES[0][1]):
+        for shape in (DCN_CASES[0][1], DCN128_SHAPES[0][1]):
             x, off, mask, wgt, bias, _ = width_inputs(shape, 8, dtype, 63)
-            forms = [("separate", None)]
-            if shape[-1] == 128:
-                forms.append(("om", om_of(off, mask)))
-            for form, om in forms:
-                change = (
-                    (lambda: (dcn_fwd(x, off, mask, wgt, bias, 8, None,
-                                      R_INFER),))
-                    if om is None else
-                    (lambda: (dcn_fwd_om(x, om, wgt, bias, 8, None,
-                                         R_INFER),)))
-                turns("dcn_fwd",
-                      lambda: parent_dcn(x, off, mask, om, wgt, bias,
-                                         R_INFER),
-                      change, 10, shape=shape, form=form, dtype=dname,
-                      max_offset=R_INFER, control=shape[-1] == 64)
+            turns("dcn_fwd",
+                  lambda: parent_dcn(x, off, mask, None, wgt, bias, R_INFER),
+                  lambda: (dcn_fwd(x, off, mask, wgt, bias, 8, None,
+                                   R_INFER),),
+                  10, shape=shape, form="separate", dtype=dname,
+                  max_offset=R_INFER, control=True)
             del x, off, mask
         torch.cuda.empty_cache()
 
@@ -3916,6 +4018,11 @@ def main() -> int:
                                f32=general_rows[(kernel, case, "float32")],
                                shape=(*NARROW_SHAPE[:3], cin), cout=cout,
                                mask=m)
+        case = GENERAL_L1[0]
+        cases[case] = dict(general_rows[(kernel, case, "bfloat16")],
+                           f32=general_rows[(kernel, case, "float32")],
+                           shape=DCN_CASES[0][1], cout=GENERAL_L1[2],
+                           mask=False)
         by_case = {f"{case} {form} {dt} r={r}": e
                    for k, e in general_errs.items() if len(k) == 5
                    and k[0] == kernel for _, form, r, case, dt in [k]}

@@ -29,11 +29,11 @@ The wrappers pick the kernel from the tensors' widths (``cin`` input and
   ``dcn_fwd.cu`` / ``dcn_bwd.cu``;
 * every other shape with dg dividing cin (16 in 4, the repo's debug
   configs; 64 -> 32, 96 in 4, 256 in 8, DCNv1 at any width, ...):
-  ``dcn_narrow.cu``, a simple kernel each way (one pixel a thread, the tap
-  products on the f32 cores, dx and dW summed with f32 atomics; the
-  outputs tiled over the grid and the weight staged by tiles, taps or
-  chunks where it outgrows shared memory), as the wgmma layouts (128-byte
-  weight chunks, 8- or 16-channel dx footprints) do not fit;
+  ``dcn_narrow.cu``, an implicit GEMM each way on the tensor cores (the
+  sampled matrix S made in shared memory in 32-byte K chunks, each
+  (pixel, group, tap) sampled once; the backward's dS and dW on the
+  tensor cores too, dW held by each block over its walk), over the K
+  layout of :func:`narrow_plan`;
 * dg not dividing cin raises a ValueError, as the JAX package cannot run
   it either; nothing falls back to the plain version.
 
@@ -60,8 +60,10 @@ kernel and leaves its gradient to XLA.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
+import numpy as np
 import torch
 
 from realvsr_tpu_torch.ops.deform_conv import (act_grad,
@@ -82,25 +84,37 @@ _BWD_FUNCS = tuple(
     (f"dcn_bwd_{s}", (_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P,
                       _I, _P, _I, _I, _I, _I, _F, _I, _I, _P))
     for s in _build.SUFFIX.values())
-# x, off, off_stride, msk, msk_stride, logits, weight, bias, out, B, H, W,
-# Ci, Co, G, act, max_off, clamp, stream; then the backward's, as dcn_bwd's
-# without wt and rf and with Ci, Co, G in place of C
+_L = ctypes.c_longlong
+# x, off, off_stride, msk, msk_stride, logits, weight, packed, packed_bytes,
+# bias, out, B, H, W, Ci, Co, G, act, max_off, clamp, stream; then the
+# backward's: x ... packed_bytes, part, part_bytes, gout, dx, doff,
+# doff_stride, dmsk, dmsk_stride, dw, B, H, W, Ci, Co, G, max_off, clamp,
+# stream
 _NARROW_FUNCS = tuple(
-    (f"dcn_narrow_fwd_{s}", (_P, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I,
-                             _I, _I, _I, _I, _F, _I, _P))
+    (f"dcn_narrow_fwd_{s}", (_P, _P, _I, _P, _I, _I, _P, _P, _L, _P, _P, _I,
+                             _I, _I, _I, _I, _I, _I, _F, _I, _P))
     for s in _build.SUFFIX.values()) + tuple(
-    (f"dcn_narrow_bwd_{s}", (_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P,
-                             _I, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P))
+    (f"dcn_narrow_bwd_{s}", (_P, _P, _I, _P, _I, _I, _P, _P, _L, _P, _L, _P,
+                             _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                             _F, _I, _P))
     for s in _build.SUFFIX.values())
 C, GROUPS, COUT = 64, 8, 64   # the flagship's width: channels, groups, outputs
 WGMMA_WIDTHS = ((64, 8), (128, 8))  # dcn_fwd.cu / dcn_bwd.cu: C -> C, a mask
 NARROW = (16, 4)              # the debug configs' width, on dcn_narrow.cu
-NARROW_RUN = 256              # dcn_narrow.cu: kThreads, pixels of a block / run
-NARROW_BLOCKS_PER_SM = 4      # dcn_narrow.cu: kBwdBlocksPerSm, at most
-NARROW_CO = 16                # dcn_narrow.cu: kCo, a forward thread's sums
-NARROW_FWD_BUDGET = 160 * 1024  # dcn_narrow.cu: kFwdBudget
-NARROW_BWD_BUDGET = 160 * 1024  # dcn_narrow.cu: kBwdBudget
-NARROW_CHUNK_CO = 32          # dcn_narrow.cu: kChunkCo
+# dcn_narrow.cu's constants (tests/test_torch_dcn_narrow.py reads them from
+# the source): a backward block's threads (one warpgroup) and a wgmma
+# m-tile's pixels, a step's input channels at most, the K chunks run in
+# one super-step, a super-step's chunks at most otherwise, the outputs of
+# a column block / g chunk, the forward's resident weight, streamed slot
+# and two A stages, the backward's resident weight and dW partials, an
+# epilogue row (bytes)
+NARROW_THREADS, NARROW_ROWS, NARROW_STEP_CH = 128, 64, 64
+NARROW_ONE_STAGE, NARROW_STAGE_CHUNKS, NARROW_COL_BLOCK = 18, 8, 256
+NARROW_FWD_RESIDENT, NARROW_SLOT_BYTES = 48 * 1024, 32 * 1024
+NARROW_STAGE_BYTES = 32 * 1024
+NARROW_BWD_RESIDENT, NARROW_DW_BUDGET = 64 * 1024, 48 * 1024
+NARROW_EPI_LD = 80
+NARROW_NW = (8, 16, 32, 64, 128, 256)  # its wgmma N: nw_of
 _SMEM_MAX, _SMEM_SM, _LINE = 232448, 228 * 1024, 128
 # tile rows of both wgmma kernels at C = 64 (dcn_fwd.cu: Shape::TH,
 # dcn_bwd.cu: Layout::TH), of 16 pixels (forward) or 32 (backward); each
@@ -137,54 +151,334 @@ def route(cin: int, cout: int | None = None, dg: int = GROUPS,
     return "narrow"
 
 
-def _chunk_of(cpg: int) -> int:
-    """``dcn_narrow.cu::chunk_of``: channels of a group read at once."""
-    return 8 if cpg % 8 == 0 else 4 if cpg % 4 == 0 else \
-        2 if cpg % 2 == 0 else 1
+def _chunk_of(cpg: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """``dcn_narrow.cu::chunk_of``: channels of a group read at once, the
+    largest power of two up to one 16-byte vector dividing ``cpg``."""
+    ch = 16 // _es(dtype)
+    while cpg % ch:
+        ch //= 2
+    return ch
 
 
-def narrow_fwd_plan(cin: int, cout: int) -> tuple[int, int]:
-    """``dcn_narrow.cu::fwd_plan``: (outputs a block's tile, taps of the
-    weight resident at once): all 9 taps of the widest tile of whole
-    :data:`NARROW_CO`-output chunks within the forward budget, else 16
-    outputs a tap at a time."""
-    def smem(cot, ntap):
-        return (ntap * cin * cot + cot) * 4
-    cot = -(-cout // NARROW_CO) * NARROW_CO
-    while cot > NARROW_CO and smem(cot, 9) > NARROW_FWD_BUDGET:
-        cot -= NARROW_CO
-    if smem(cot, 9) <= NARROW_FWD_BUDGET:
-        return cot, 9
-    return NARROW_CO, 1
+def _pad(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
-def _chunk_ci(cin, cpg, ch, most):
-    if cpg <= most:
-        return min(most // cpg * cpg, cin)
-    k = most // ch * ch
-    while cpg % k:
-        k -= ch
-    return k
+def nw_of(w: int) -> int:
+    """``dcn_narrow.cu::nw_of``: the wgmma N at least ``w`` wide."""
+    return next(n for n in NARROW_NW if n >= w)
 
 
-def _bwd_smem(kc, ko, one_co):
-    return (kc * ko + NARROW_RUN * (ko + 1)
-            + (1 if one_co else 2) * NARROW_RUN * (kc + 1)) * 4
-
-
-def narrow_bwd_plan(cin: int, cout: int, dg: int) -> tuple[int, int, bool]:
-    """``dcn_narrow.cu::bwd_plan``: (input channels a chunk, outputs a g
-    chunk, whole-row form): the whole-row form (the run's g staged once,
-    ``cout`` wide) with the widest chunk of cin, 64, 32, 16 or 8 input
-    channels within the backward budget; else the chunked form (g and the
-    weight in chunks of :data:`NARROW_CHUNK_CO` outputs)."""
+@functools.lru_cache(maxsize=None)
+def narrow_plan(cin: int, cout: int, dg: int,
+                dtype: torch.dtype = torch.bfloat16) -> dict:
+    """``dcn_narrow.cu::make_plan``: the K layout of both narrow kernels.
+    K runs over (tap, input channel), tap-major; a tap's channels in steps
+    of at most :data:`NARROW_STEP_CH`: whole groups where a group fits
+    (``gps`` a step), else a group's pieces (``ppg`` steps a group), each
+    step zero-padded to whole 32-byte chunks of ``E`` channels (16 bf16, 8
+    f32).  ``nr`` steps a tap, ``wfull`` the K of a full step, ``kg`` the K
+    of a group's pieces, ``kt`` the K of a tap; ``padded``: some step's
+    channels are not whole chunks."""
     cpg = cin // dg
-    ch = _chunk_of(cpg)
-    for most in (cin, 64, 32, 16, 8):
-        kc = _chunk_ci(cin, cpg, ch, most)
-        if _bwd_smem(kc, cout, True) <= NARROW_BWD_BUDGET:
-            return kc, cout, True
-    return _chunk_ci(cin, cpg, ch, NARROW_CHUNK_CO), NARROW_CHUNK_CO, False
+    q = dict(Ci=cin, Co=cout, G=dg, cpg=cpg, ch=_chunk_of(cpg, dtype),
+             E=32 // _es(dtype))
+    e = q["E"]
+    if cpg <= NARROW_STEP_CH:
+        gps = min(NARROW_STEP_CH // cpg, dg)
+        nr = -(-dg // gps)
+        last = cin - (nr - 1) * gps * cpg
+        q.update(piece=0, ppg=1, kg=0, gps=gps, nr=nr,
+                 wfull=_pad(gps * cpg, e),
+                 kt=(nr - 1) * _pad(gps * cpg, e) + _pad(last, e),
+                 padded=int((gps * cpg) % e != 0 or last % e != 0))
+    else:
+        ppg = -(-cpg // NARROW_STEP_CH)
+        kg = (ppg - 1) * NARROW_STEP_CH + _pad(
+            cpg - (ppg - 1) * NARROW_STEP_CH, e)
+        q.update(piece=1, gps=1, ppg=ppg, nr=dg * ppg,
+                 wfull=NARROW_STEP_CH, kg=kg, kt=dg * kg,
+                 padded=int((cpg - (ppg - 1) * NARROW_STEP_CH) % e != 0))
+    return q
+
+
+def narrow_range(q: dict, j: int) -> tuple[int, int, int]:
+    """``dcn_narrow.cu::range_of``: step j of a tap's channels [c0, c1) and
+    their K offset in the tap."""
+    if not q["piece"]:
+        c0 = j * q["gps"] * q["cpg"]
+        return c0, min(q["Ci"], c0 + q["gps"] * q["cpg"]), j * q["wfull"]
+    g, i = divmod(j, q["ppg"])
+    c0 = g * q["cpg"] + i * NARROW_STEP_CH
+    return (c0, min(g * q["cpg"] + q["cpg"], c0 + NARROW_STEP_CH),
+            g * q["kg"] + i * NARROW_STEP_CH)
+
+
+def narrow_k_of(q: dict, f: int) -> int:
+    """``dcn_narrow.cu::k_of``: the K offset of flat step f (tap f // nr)."""
+    tap, j = divmod(f, q["nr"])
+    return tap * q["kt"] + narrow_range(q, j)[2]
+
+
+def narrow_fwd_max_wg(n: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """``dcn_narrow.cu::fwd_max_wg``: warpgroups a forward block at most
+    (4 at N <= 64 in bf16, 32 in f32, else 2: 128 registers a thread, or
+    255)."""
+    return 4 if n <= (64 if dtype == torch.bfloat16 else 32) else 2
+
+
+@functools.lru_cache(maxsize=None)
+def narrow_fwd_layout(cin: int, cout: int, dg: int,
+                      dtype: torch.dtype) -> dict:
+    """``dcn_narrow.cu::fwd_layout``: the forward's N (outputs padded to a
+    power of two up to 256), column blocks, warpgroups of a block (``nwg``:
+    the most whose shared memory fits; each a 64-row m-tile of the tile's
+    ``rows`` pixels), whether a block's packed weight is resident, the
+    steps of a super-step (all where the tile's K is
+    :data:`NARROW_ONE_STAGE` chunks or fewer, both stages within
+    :data:`NARROW_STAGE_BYTES` and the weight resident or within a slot),
+    the K chunks of an A stage, the packed weight's bytes a column block,
+    and the shared memory: two A stages, the weight (resident, or two
+    slots), the warps' 16 epilogue rows each, three mbarriers.  Cached: the
+    wrappers read it at every call."""
+    q = narrow_plan(cin, cout, dg, dtype)
+    n = NARROW_COL_BLOCK if cout > NARROW_COL_BLOCK else nw_of(cout)
+    nb = -(-cout // n)
+    chunks = 9 * q["kt"] // q["E"]
+    wbytes = chunks * n * 32
+    resident = nb == 1 and wbytes <= NARROW_FWD_RESIDENT
+    step_chunks = q["wfull"] // q["E"]
+    nwg = narrow_fwd_max_wg(n, dtype)
+    while True:
+        rows = NARROW_ROWS * nwg
+        per_chunk = 2 * rows * 32
+        if (chunks <= NARROW_ONE_STAGE
+                and chunks * per_chunk <= NARROW_STAGE_BYTES
+                and (resident or chunks * n * 32 <= NARROW_SLOT_BYTES)):
+            qs = 9 * q["nr"]
+        else:
+            qs = max(1, min(NARROW_STAGE_CHUNKS // step_chunks,
+                            NARROW_STAGE_BYTES // (step_chunks * per_chunk)))
+            if not resident:
+                qs = min(qs, max(1, NARROW_SLOT_BYTES
+                                 // (step_chunks * n * 32)))
+            qs = min(qs, 9 * q["nr"])
+        sc = qs * step_chunks
+        w_off = sc * per_chunk
+        epi_off = w_off + (wbytes if resident else 2 * sc * n * 32)
+        bar_off = epi_off + 4 * nwg * 16 * NARROW_EPI_LD
+        if bar_off + 24 <= _SMEM_MAX or nwg == 1:
+            break
+        nwg //= 2
+    return dict(N=n, nb=nb, nwg=nwg, rows=rows, resident=int(resident),
+                qs=qs, nsuper=-(-9 * q["nr"] // qs), sc=sc, wbytes=wbytes,
+                w_off=w_off, epi_off=epi_off, bar_off=bar_off,
+                smem=bar_off + 24, packed_bytes=nb * wbytes)
+
+
+@functools.lru_cache(maxsize=None)
+def narrow_bwd_layout(cin: int, cout: int, dg: int,
+                      dtype: torch.dtype) -> dict:
+    """``dcn_narrow.cu::bwd_layout``: the K-blocks (``qb`` consecutive
+    steps of at most 64 channel rows, step i at rows i * wfull; one a block
+    where a step is a group's piece; ``nkb`` of them), the g chunks
+    (``gch`` outputs, at most :data:`NARROW_COL_BLOCK`; ``nw0`` / ``nwl``
+    the wgmma N of a full and of the last one, ``cow`` their sum), the
+    packed weight's bytes (``wtotal``: [K-block][co chunk][64 channel
+    rows][32 bytes]), resident or streamed through ``nslot`` slots, the
+    warps that hold a K-block's rows (``nwr``), the K-blocks of a slice
+    (``sps``: the dW a block holds; ``part`` bytes of partials), whether
+    the partials sit in shared memory (``dws``) or in the block's slot of
+    a global scratch, and the shared memory: the g tile, the weight, dS
+    (rows 4 bytes longer than 64 elements), S^T, the partials, three
+    mbarriers.  Cached."""
+    q = narrow_plan(cin, cout, dg, dtype)
+    es = _es(dtype)
+    qb = 1 if q["piece"] else max(1, NARROW_STEP_CH // q["wfull"])
+    nkb = -(-9 * q["nr"] // qb)
+    gch = min(_pad(cout, q["E"]), NARROW_COL_BLOCK)
+    ngc = -(-cout // gch)
+    nw0 = nw_of(gch)
+    nwl = nw_of(_pad(cout - (ngc - 1) * gch, q["E"]))
+    cow = (ngc - 1) * nw0 + nwl
+    wtotal = nkb * cow // q["E"] * NARROW_ROWS * 32
+    resident = wtotal <= NARROW_BWD_RESIDENT
+    nwr = -(-qb * q["wfull"] // 16)
+    gbytes = nw0 * NARROW_ROWS * es
+    slot = nw0 // q["E"] * NARROW_ROWS * 32
+    dsb = NARROW_ROWS * (NARROW_STEP_CH * es + 4)
+    stb = NARROW_ROWS * NARROW_STEP_CH * es
+    per_kb = cow // 2 * nwr * 32 * 4
+    unit = q["ppg"] if q["piece"] else 1
+    want = max(1, NARROW_DW_BUDGET // (per_kb * unit)) * unit
+    dws, nslot, sps = 0, 1, unit
+    for n_slot, fewest in ((2, 0), (1, 0), (2, 1), (1, 1)):
+        steps = unit if fewest else min(want, nkb)
+        w = wtotal if resident else n_slot * slot
+        if gbytes + w + dsb + stb + steps * per_kb + 24 <= _SMEM_MAX:
+            dws, nslot, sps = 1, n_slot, steps
+            break
+    if not dws:
+        w2 = wtotal if resident else 2 * slot
+        nslot = 2 if gbytes + w2 + dsb + stb + 24 <= _SMEM_MAX else 1
+    w_off = gbytes
+    ds_off = w_off + (wtotal if resident else nslot * slot)
+    st_off = ds_off + dsb
+    dw_off = st_off + stb
+    bar_off = dw_off + (sps * per_kb if dws else 0)
+    return dict(qb=qb, nkb=nkb, gch=gch, ngc=ngc, nw0=nw0, nwl=nwl,
+                cow=cow, resident=int(resident), nslot=nslot, wtotal=wtotal,
+                nwr=nwr, sps=sps, nslices=-(-nkb // sps), dws=dws,
+                part=sps * per_kb,
+                w_off=w_off, ds_off=ds_off, st_off=st_off, dw_off=dw_off,
+                bar_off=bar_off, smem=bar_off + 24, packed_bytes=wtotal)
+
+
+def narrow_channel_at(q: dict, k: int) -> int:
+    """``dcn_narrow.cu::channel_at``: the channel at K offset ``k`` of a
+    tap, or -1 in the padding."""
+    if not q["piece"]:
+        j, off = divmod(k, q["wfull"])
+        if j >= q["nr"]:
+            return -1
+    else:
+        g, r = divmod(k, q["kg"])
+        i = min(r // NARROW_STEP_CH, q["ppg"] - 1)
+        j, off = g * q["ppg"] + i, r - i * NARROW_STEP_CH
+    c0, c1, _ = narrow_range(q, j)
+    return c0 + off if c0 + off < c1 else -1
+
+
+def narrow_sw32_at(r: int, k: int, rows: int, es: int) -> int:
+    """``dcn_narrow.cu::sw32_at``: the byte of element k of row r in a
+    32-byte-swizzled K-major image of ``rows`` rows ([k // E][r][32
+    bytes], 16-byte unit u of row r at u ^ ((r >> 2) & 1): the layout of
+    ``desc_sw32``)."""
+    u = 16 // es
+    e, w = 2 * u, k % (2 * u)
+    return ((k // e) * rows * 32 + r * 32 + (((w // u) ^ ((r >> 2) & 1)) << 4)
+            + (w % u) * es)
+
+
+def narrow_tiles(h: int, w: int, rows: int) -> tuple[int, int, int, int]:
+    """``dcn_narrow.cu::tiles_of``: (tiles_x, tiles_y, th, tw) of tiles of
+    ``rows`` pixels, ``tw`` 16 or the width rounded up to a power of
+    two."""
+    tw = 1
+    while tw < min(w, 16):
+        tw *= 2
+    th = rows // tw
+    return -(-w // tw), -(-h // th), th, tw
+
+
+def narrow_tile_pixels(tile: int, h: int, w: int, rows: int) -> list[int]:
+    """``tile_at`` / ``pixel_at``: the pixel index of each row of a tile
+    (tile = (b * tiles_y + ty) * tiles_x + tx), -1 outside the image."""
+    tiles_x, tiles_y, th, tw = narrow_tiles(h, w, rows)
+    rest, tx = divmod(tile, tiles_x)
+    b, ty = divmod(rest, tiles_y)
+    out = []
+    for r in range(rows):
+        y, x = ty * th + r // tw, tx * tw + r % tw
+        out.append((b * h + y) * w + x if y < h and x < w else -1)
+    return out
+
+
+def narrow_items(q: dict, rows: int, threads: int, f0: int,
+                 nf: int) -> list[list[tuple[int, int, int, int, int]]]:
+    """The sampling walk (``walk_of`` / ``items_of`` / ``item_at``) of
+    steps [f0, f0 + nf) of a tile of ``rows`` pixels: for each thread, its
+    items (row, step, group, lo, hi) in order, groups fastest across a
+    power of two of lanes a pixel (at most 32), rows, then steps."""
+    lpp = 1
+    while lpp < q["gps"] and lpp < 32:
+        lpp *= 2
+    nj = -(-q["gps"] // lpp)
+    slots = nf * rows * lpp
+    cpg = q["cpg"]
+    out = []
+    for t in range(threads):
+        cnt = ((slots - 1 - t) // threads + 1) * nj if t < slots else 0
+        items = []
+        for m in range(cnt):
+            n, j = divmod(m, nj)
+            it = t + threads * n
+            slot, gi = it // lpp, it % lpp + j * lpp
+            r, f = slot % rows, f0 + slot // rows
+            jj = f % q["nr"]
+            c0, c1, _ = narrow_range(q, jj)
+            grp = jj // q["ppg"] if q["piece"] else jj * q["gps"] + gi
+            lo, hi = max(c0, grp * cpg), min(c1, grp * cpg + cpg)
+            if gi < q["gps"] and lo < hi:
+                items.append((r, f, grp, lo, hi))
+        out.append(items)
+    return out
+
+
+def _rounded_mma(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    from realvsr_tpu_torch.ops.kernels.conv3x3 import round_tf32
+    return round_tf32(t.float()) if dtype == torch.float32 else t.to(dtype)
+
+
+def narrow_pack_fwd(weight: torch.Tensor, dg: int) -> torch.Tensor:
+    """``dcn_narrow.cu::pack_fwd`` in plain PyTorch: the forward's packed
+    weight, [column block][K chunk][N rows][E elements], each 32-byte row's
+    16-byte units swizzled, zero in the padding and past cout, rounded as
+    the tensor cores take it (TF32 for f32); flat, in the weight's
+    dtype."""
+    cout, cin = weight.shape[:2]
+    dt = weight.dtype
+    q, lay = narrow_plan(cin, cout, dg, dt), narrow_fwd_layout(cin, cout,
+                                                               dg, dt)
+    n, e, u = lay["N"], q["E"], 16 // _es(dt)
+    chunks = 9 * q["kt"] // e
+    idx = np.arange(lay["nb"] * chunks * n * e)
+    pos, rest = idx % e, idx // e
+    nn, rest = rest % n, rest // n
+    kk, cb = rest % chunks, rest // chunks
+    k = kk * e + ((pos // u) ^ ((nn >> 2) & 1)) * u + pos % u
+    tap, kin = k // q["kt"], k % q["kt"]
+    ch = np.array([narrow_channel_at(q, i) for i in range(q["kt"])])[kin]
+    co = cb * n + nn
+    wf = weight.detach().float().cpu().numpy()
+    ok = (ch >= 0) & (co < cout)
+    vals = np.where(ok, wf[np.minimum(co, cout - 1), np.maximum(ch, 0),
+                           tap // 3, tap % 3], 0.0)
+    return _rounded_mma(torch.from_numpy(vals.astype(np.float32)), dt)
+
+
+def narrow_pack_bwd(weight: torch.Tensor, dg: int) -> torch.Tensor:
+    """``dcn_narrow.cu::pack_bwd`` in plain PyTorch: the backward's packed
+    weight, [K-block][co chunk][64 channel rows][E elements] (row n: channel
+    n % wfull of the block's step n // wfull; each g chunk's outputs padded
+    to its wgmma N), swizzled, zero in the padding, rounded as the tensor
+    cores take it; flat, in the weight's dtype."""
+    cout, cin = weight.shape[:2]
+    dt = weight.dtype
+    q, lay = narrow_plan(cin, cout, dg, dt), narrow_bwd_layout(cin, cout,
+                                                               dg, dt)
+    e, u = q["E"], 16 // _es(dt)
+    chunks = lay["cow"] // e
+    idx = np.arange(lay["nkb"] * chunks * NARROW_ROWS * e)
+    pos, rest = idx % e, idx // e
+    nn, rest = rest % NARROW_ROWS, rest // NARROW_ROWS
+    kk, kb = rest % chunks, rest // chunks
+    cw = kk * e + ((pos // u) ^ ((nn >> 2) & 1)) * u + pos % u
+    gc = np.minimum(cw // lay["nw0"], lay["ngc"] - 1)
+    off = cw - gc * lay["nw0"]
+    co = gc * lay["gch"] + off
+    sub = nn // q["wfull"]
+    f = kb * lay["qb"] + sub
+    fv = np.minimum(f, 9 * q["nr"] - 1)
+    tap, j = fv // q["nr"], fv % q["nr"]
+    ranges = np.array([narrow_range(q, i)[:2] for i in range(q["nr"])])
+    c = ranges[j, 0] + nn - sub * q["wfull"]
+    ok = ((sub < lay["qb"]) & (f < 9 * q["nr"]) & (off < lay["gch"])
+          & (co < cout) & (c < ranges[j, 1]))
+    wf = weight.detach().float().cpu().numpy()
+    vals = np.where(ok, wf[np.minimum(co, cout - 1), np.minimum(c, cin - 1),
+                           tap // 3, tap % 3], 0.0)
+    return _rounded_mma(torch.from_numpy(vals.astype(np.float32)), dt)
 
 
 def tile_rows(dtype: torch.dtype, c: int = C, bwd: bool = False) -> int:
@@ -209,12 +503,10 @@ def fwd_smem_bytes(dtype: torch.dtype, c: int = C, dg: int = GROUPS,
     stages, one 128-byte chunk of a tile's pixels each, a ring of weight
     slots, one chunk of a tap for the 128 outputs each, the MMA warps'
     epilogue rows of 16 pixels x (128 + 16) bytes, and the mbarriers); on
-    ``dcn_narrow.cu`` the f32 weight of the block's output tile (its
-    resident taps, :func:`narrow_fwd_plan`) and its bias."""
+    ``dcn_narrow.cu`` :func:`narrow_fwd_layout`'s."""
     cout = c if cout is None else cout
     if route(c, cout, dg, has_mask) == "narrow":
-        cot, ntap = narrow_fwd_plan(c, cout)
-        return (ntap * c * cot + cot) * 4
+        return narrow_fwd_layout(c, cout, dg, dtype)["smem"]
     px = tile_rows(dtype, c) * FWD_TW
     if c == 128:
         return (FWD128_STAGES * px * _LINE + FWD128_WS * c * _LINE
@@ -274,12 +566,11 @@ def bwd_smem_bytes(dtype: torch.dtype, rf: int, c: int = C,
     buffers, the block reduction); at 128 ``Bwd128::smem`` (the TMA'd g
     tile, a ring of weight taps, two S and two dS slots, the sampling
     warps' reduction, the mbarriers); then the dx footprint of C
-    / 8 + 1 ints a pixel.  On ``dcn_narrow.cu`` (no footprint) one tap's
-    f32 weight for a chunk of inputs and a run's g and S (and, in the
-    chunked form, dS), rows padded by one (:func:`narrow_bwd_plan`)."""
+    / 8 + 1 ints a pixel.  On ``dcn_narrow.cu`` (no footprint)
+    :func:`narrow_bwd_layout`'s."""
     cout = c if cout is None else cout
     if route(c, cout, dg, has_mask) == "narrow":
-        return _bwd_smem(*narrow_bwd_plan(c, cout, dg))
+        return narrow_bwd_layout(c, cout, dg, dtype)["smem"]
     es = _es(dtype)
     pad, cpg = 16 // es, c // GROUPS
     th = tile_rows(dtype, c, bwd=True)
@@ -298,13 +589,22 @@ def bwd_smem_bytes(dtype: torch.dtype, rf: int, c: int = C,
     return fixed + fh * fw * (cpg + 1) * 4
 
 
-def narrow_blocks_per_sm(c: int, cout: int | None = None,
-                         dg: int = 1) -> int:
+def narrow_blocks_per_sm(c: int, cout: int | None = None, dg: int = 1,
+                         dtype: torch.dtype = torch.bfloat16) -> int:
     """Backward blocks an SM of ``dcn_narrow.cu`` at ``c`` -> ``cout``
-    channels in ``dg`` groups (``bwd_launch_form``'s per_sm): at most
-    :data:`NARROW_BLOCKS_PER_SM`, as shared memory allows."""
-    smem = _bwd_smem(*narrow_bwd_plan(c, c if cout is None else cout, dg))
-    return min(NARROW_BLOCKS_PER_SM, _SMEM_SM // (smem + 1024))
+    channels in ``dg`` groups as shared memory allows (the kernel sizes its
+    grid by the card's occupancy, which registers may cut further), at
+    most 2048 threads an SM."""
+    cout = c if cout is None else cout
+    smem = narrow_bwd_layout(c, cout, dg, dtype)["smem"]
+    return min(2048 // NARROW_THREADS, _SMEM_SM // (smem + 1024))
+
+
+def narrow_walk(items: int, blocks: int) -> list[list[int]]:
+    """Both narrow kernels' persistent walk: block i of ``blocks`` takes the
+    items [i * items // blocks, (i + 1) * items // blocks)."""
+    return [list(range(i * items // blocks, (i + 1) * items // blocks))
+            for i in range(blocks)]
 
 
 def bwd_grid(b: int, h: int, w: int, sms: int, dtype: torch.dtype,
@@ -316,13 +616,18 @@ def bwd_grid(b: int, h: int, w: int, sms: int, dtype: torch.dtype,
     tiles are the items' (group, tile) pairs): item j = group * ntiles +
     tile, block i of min(8 * ntiles, sms) the items [i * n // blocks, (i +
     1) * n // blocks).  On ``dcn_narrow.cu`` a block takes every group
-    (group None) and its tiles are runs of :data:`NARROW_RUN` consecutive
-    pixels, run r the pixels ``[r * NARROW_RUN, (r + 1) * NARROW_RUN)``."""
+    (group None) and its tiles are its (slice, tile) items (item = slice *
+    ntiles + tile, :func:`narrow_walk`), a tile :data:`NARROW_ROWS` pixels
+    (:func:`narrow_tile_pixels`) and a slice ``sps`` steps of the K layout
+    (:func:`narrow_bwd_layout`)."""
     cout = c if cout is None else cout
     if route(c, cout, dg, has_mask) == "narrow":
-        runs = -(-b * h * w // NARROW_RUN)
-        blocks = min(runs, narrow_blocks_per_sm(c, cout, dg) * sms)
-        return [(None, list(range(i, runs, blocks))) for i in range(blocks)]
+        tiles_x, tiles_y, _, _ = narrow_tiles(h, w, NARROW_ROWS)
+        ntiles = b * tiles_x * tiles_y
+        items = narrow_bwd_layout(c, cout, dg, dtype)["nslices"] * ntiles
+        blocks = min(items, narrow_blocks_per_sm(c, cout, dg, dtype) * sms)
+        return [(None, [divmod(i, ntiles) for i in run])
+                for run in narrow_walk(items, blocks)]
     th = tile_rows(dtype, c, bwd=True)
     ntiles = b * -(-h // th) * -(-w // BWD_TW)
     if c == 128:
@@ -400,7 +705,10 @@ def _launch_fwd(x, offset, mask, om, weight, bias, dg, act, max_offset):
     if kernel == "narrow":
         fn = getattr(_build.load("dcn_narrow", _NARROW_FUNCS),
                      f"dcn_narrow_fwd_{sfx}")
-        weights, widths = (weight.data_ptr(),), (c, cout, dg)
+        nbytes = narrow_fwd_layout(c, cout, dg, dt)["packed_bytes"]
+        packed = torch.empty(nbytes, device=dev, dtype=torch.uint8)
+        weights = (weight.data_ptr(), packed.data_ptr(), nbytes)
+        widths = (c, cout, dg)
     else:
         packed = torch.empty(c * 9 * c, device=dev, dtype=dt)
         fn = getattr(_build.load("dcn_fwd", _FWD_FUNCS), f"dcn_fwd_{sfx}")
@@ -443,8 +751,7 @@ def dcn_fwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     (DCNv1); weight (Cout, Cin, 3, 3); bias (Cout,) or None; act None /
     "relu" / "lrelu"; max_offset None (exact) or R (offsets clamped to [-R,
     R]); any widths with dg dividing Cin (:func:`route`).  All of one
-    dtype, bf16 or f32 (on the wgmma pair f32 runs the tensor cores in
-    TF32; on the narrow kernels the f32 cores).
+    dtype, bf16 or f32 (f32 runs the tensor cores in TF32).
     """
     if x.device.type == "cpu":
         return dcn_fwd_plain(x, offset, mask, weight, bias, deformable_groups,
@@ -542,7 +849,19 @@ def _launch_bwd(x, offset, mask, om, weight, g, dg, max_offset):
     if kernel == "narrow":
         fn = getattr(_build.load("dcn_narrow", _NARROW_FUNCS),
                      f"dcn_narrow_bwd_{sfx}")
-        weights, widths, radius = (weight.data_ptr(),), (c, cout, dg), ()
+        lay = narrow_bwd_layout(c, cout, dg, dt)
+        nbytes = lay["packed_bytes"]
+        wt = torch.empty(nbytes, device=dev, dtype=torch.uint8)
+        part = None
+        if not lay["dws"]:  # dW partials in global memory: a slot a block
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            part = torch.zeros(sms * narrow_blocks_per_sm(c, cout, dg, dt)
+                               * lay["part"] // 4, device=dev,
+                               dtype=torch.float32)
+        weights = (weight.data_ptr(), wt.data_ptr(), nbytes,
+                   None if part is None else part.data_ptr(),
+                   0 if part is None else part.numel() * 4)
+        widths, radius = (c, cout, dg), ()
     else:   # at 128 channels the kernel lays the weight out in wt first
         wt = torch.empty(c * 9 * c, device=dev, dtype=dt) if c == 128 else None
         fn = getattr(_build.load("dcn_bwd", _BWD_FUNCS), f"dcn_bwd_{sfx}")

@@ -801,6 +801,65 @@ def test_dcn_general_shapes_match_plain(cuda, cin, cout, dg, has_mask, om,
         assert max_abs_err(o, r) <= grad_tolerance(r)
 
 
+# ragged cases of dcn_narrow.cu's tensor-core design: (name, (b, h, w),
+# cin, cout, dg, mask): 6 channels a group (2-element loads, each step
+# zero-padded to whole 32-byte chunks, N 64 for 40 outputs); 300 outputs (a
+# second column block of 44, the backward's second g chunk); 512 inputs in
+# 8 groups (the forward's weight streamed) and 256 in one group (a group
+# in pieces of 64 across steps, its E sums carried; at 256 outputs its dW
+# partials in a global scratch slot a block); a 1-pixel-wide image (tiles
+# 1 pixel wide); a batch whose tiles outnumber the blocks many times
+RAGGED_NARROW = [("24to40_dg4", (2, 13, 21), 24, 40, 4, True),
+                 ("16to300_dg4", (1, 9, 11), 16, 300, 4, True),
+                 ("512to64_dg8", (1, 9, 11), 512, 64, 8, True),
+                 ("256to32_dg1", (1, 9, 11), 256, 32, 1, True),
+                 ("256to256_dg1", (2, 13, 21), 256, 256, 1, True),
+                 ("width1_16_dg4", (3, 37, 1), 16, 16, 4, True),
+                 ("many_tiles_32_dg4_v1", (16, 64, 96), 32, 32, 4, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name,pix,cin,cout,dg,has_mask", RAGGED_NARROW,
+                         ids=[c[0] for c in RAGGED_NARROW])
+def test_dcn_narrow_ragged_shapes_match_plain(cuda, name, pix, cin, cout, dg,
+                                              has_mask, dtype):
+    """``dcn_narrow.cu``'s forward and backward at its ragged cases
+    (RAGGED_NARROW), each against the plain op with check.py's tolerances,
+    ±4, one launch each way, the separate form (and DCNPack's in-place
+    ``om`` where there is a mask, its gradient's offset part against the
+    separate one's)."""
+    x, off, mask, wgt, bias, g = _width_inputs((*pix, cin), dg, dtype, cuda,
+                                               seed=cin + cout + dg,
+                                               cout=cout)
+    mask = mask if has_mask else None
+    n = (dcn_fwd.launches, dcn_bwd.launches)
+    out = dcn_fwd(x, off, mask, wgt, bias, dg, act="lrelu", max_offset=4)
+    ref = dcn_fwd_plain(x, off, mask, wgt, bias, dg, "lrelu", 4)
+    grads = dcn_bwd(x, off, mask, wgt, g, dg, 4)
+    grefs = dcn_bwd_plain(x, off, mask, wgt, g, dg, 4)
+    torch.cuda.synchronize()
+    assert (dcn_fwd.launches - n[0], dcn_bwd.launches - n[1]) == (1, 1)
+    assert out.shape == ref.shape == (*pix, cout) and out.dtype == dtype
+    assert max_abs_err(out, ref) <= tolerance(ref)
+    for o, r in zip(grads, grefs):
+        if r is None:
+            assert o is None
+            continue
+        assert o.shape == r.shape and o.dtype == r.dtype
+        assert max_abs_err(o, r) <= grad_tolerance(r)
+    if has_mask:
+        t = _om(off, mask)
+        out_om = dcn_fwd_om(x, t, wgt, bias, dg, act="lrelu", max_offset=4)
+        dx, dom, dw = dcn_bwd_om(x, t, wgt, g, dg, 4)
+        torch.cuda.synchronize()
+        assert max_abs_err(out_om, dcn_fwd_om_plain(x, t, wgt, bias, dg,
+                                                    "lrelu", 4)) <= \
+            tolerance(ref)
+        assert max_abs_err(dom[..., :dg * 18], grads[1]) <= \
+            grad_tolerance(grefs[1])
+        assert max_abs_err(dx, grads[0]) <= grad_tolerance(grefs[0])
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("padding", [1, 0], ids=["p1_kernel", "p0_columns"])
 def test_deform_conv_module_on_card_matches_cpu(cuda, dtype, padding):

@@ -142,51 +142,144 @@ def test_route_takes_each_design_and_refuses_the_rest():
             dcn.route(cin, cout, dg)
 
 
-def _bwd_chunks(cin, cout, dg):
-    """``dcn_narrow.cu::bwd_kernel``'s walk of one tap: for each chunk of
-    input channels, its (group, first channel, end) parts."""
-    kc, _, _ = dcn.narrow_bwd_plan(cin, cout, dg)
-    cpg = cin // dg
-    return [[(g, max(g * cpg, k0), min(g * cpg + cpg, k0 + kc))
-             for g in range(k0 // cpg, (min(k0 + kc, cin) - 1) // cpg + 1)]
-            for k0 in range(0, cin, kc)]
-
-
 @pytest.mark.parametrize("cin,cout,dg", [
     (16, 16, 4), (64, 64, 4), (64, 32, 8), (32, 64, 8), (96, 96, 4),
     (256, 256, 8), (128, 64, 8), (400, 24, 8), (6, 10, 3), (256, 256, 1),
     (200, 8, 1)])
 def test_narrow_plans_cover_each_channel_once_and_fit(cin, cout, dg):
-    """The generalised kernels' plans (``narrow_fwd_plan`` /
-    ``narrow_bwd_plan``, copies of ``fwd_plan`` / ``bwd_plan``): the
-    forward's output tiles cover cout once in whole 16-output chunks; the
-    backward's chunks take each input channel of a tap once, each chunk
-    whole groups or an equal part of one group, in whole CH-channel loads;
-    both within shared memory, the C -> C <= 64 forms as before (whole
-    weight, whole g row)."""
-    cot, ntap = dcn.narrow_fwd_plan(cin, cout)
-    assert cot % dcn.NARROW_CO == 0 and ntap in (1, 9)
-    assert (ntap * cin * cot + cot) * 4 <= 232448
-    if ntap == 1:
-        assert cot == dcn.NARROW_CO and (9 * cin * 16 + 16) * 4 > \
-            dcn.NARROW_FWD_BUDGET
-    tiles = range(0, cout, cot)
-    assert sorted(c for t in tiles for c in range(t, min(t + cot, cout))) \
-        == list(range(cout))
-    kc, ko, one_co = dcn.narrow_bwd_plan(cin, cout, dg)
-    cpg = cin // dg
-    ch = dcn._chunk_of(cpg)
-    assert kc % ch == 0 and (kc % cpg == 0 or cpg % kc == 0 or kc == cin)
-    parts = [p for chunk in _bwd_chunks(cin, cout, dg) for p in chunk]
-    assert sorted(c for _, lo, hi in parts for c in range(lo, hi)) == \
-        list(range(cin))
-    for g, lo, hi in parts:
-        assert g * cpg <= lo < hi <= g * cpg + cpg and (lo - g * cpg) % ch == 0
-    assert dcn.bwd_smem_bytes(torch.float32, 8, cin, dg, cout, False) \
-        <= 232448
-    assert one_co == (ko == cout)
-    if cin == cout <= 64:
-        assert (cot, ntap, kc, one_co) == (-(-cout // 16) * 16, 9, cin, True)
+    """The generalised kernels' K layout and layouts (``narrow_plan``,
+    ``narrow_fwd_layout``, ``narrow_bwd_layout``, copies of ``make_plan``,
+    ``fwd_layout``, ``bwd_layout``): each tap's K takes every input channel
+    in exactly one slot, the padding (to whole 32-byte chunks of each step)
+    holding none; each step whole groups or a piece of one group, read in
+    whole CH-channel loads of at most 16 bytes, a group's pieces in
+    consecutive steps of one slice; the forward's N and the backward's g
+    chunks powers of two from 8 to 256 (the wgmma widths) covering cout
+    once; both kernels within shared memory, in both dtypes."""
+    for dtype in (torch.bfloat16, torch.float32):
+        es = dcn._es(dtype)
+        q = dcn.narrow_plan(cin, cout, dg, dtype)
+        cpg, e = cin // dg, q["E"]
+        assert e * es == 32 and q["ch"] * es <= 16 and cpg % q["ch"] == 0
+        chans = [dcn.narrow_channel_at(q, k) for k in range(q["kt"])]
+        assert sorted(c for c in chans if c >= 0) == list(range(cin))
+        assert q["kt"] % e == 0 and chans.count(-1) == q["kt"] - cin
+        assert q["padded"] == (q["kt"] != cin)
+        for j in range(q["nr"]):
+            c0, c1, koff = dcn.narrow_range(q, j)
+            assert koff % e == 0 and c0 % q["ch"] == 0
+            assert chans[koff:koff + c1 - c0] == list(range(c0, c1))
+            assert all(c < 0 for c in chans[koff + c1 - c0:
+                                             koff + -(-(c1 - c0) // e) * e])
+            if q["piece"]:
+                assert c1 - c0 <= dcn.NARROW_STEP_CH
+                assert c0 // cpg == (c1 - 1) // cpg
+            else:
+                assert c0 % cpg == 0 and c1 % cpg == 0
+                assert c1 - c0 <= max(cpg, dcn.NARROW_STEP_CH)
+        f = dcn.narrow_fwd_layout(cin, cout, dg, dtype)
+        assert f["N"] in dcn.NARROW_NW and f["N"] >= min(cout, 256)
+        assert f["nb"] * f["N"] >= cout > (f["nb"] - 1) * f["N"]
+        assert f["rows"] == 64 * f["nwg"] and f["smem"] <= 232448
+        bl = dcn.narrow_bwd_layout(cin, cout, dg, dtype)
+        cols = [gc * bl["gch"] + i for gc in range(bl["ngc"])
+                for i in range(bl["gch"])]
+        assert sorted(c for c in cols if c < cout) == list(range(cout))
+        assert bl["nw0"] in dcn.NARROW_NW and bl["nwl"] in dcn.NARROW_NW
+        assert bl["nw0"] >= bl["gch"] and bl["nwl"] * (bl["ngc"] > 1) <= \
+            bl["nw0"]
+        assert bl["smem"] <= 232448
+        if q["piece"]:   # a slice never splits a group's pieces
+            assert bl["sps"] % q["ppg"] == 0
+        assert dcn.bwd_smem_bytes(dtype, 8, cin, dg, cout, False) == \
+            bl["smem"]
+
+
+SAMPLED = [(16, 16, 4), (24, 40, 4), (64, 64, 8), (256, 256, 8),
+           (512, 64, 1), (6, 10, 3)]
+
+
+@pytest.mark.parametrize("cin,cout,dg", SAMPLED,
+                         ids=[f"{a}to{b}_dg{g}" for a, b, g in SAMPLED])
+def test_narrow_sampling_covers_each_channel_once(cin, cout, dg):
+    """The narrow forward's sampling of one tile into its A stages
+    (``narrow_items``, the kernel's walk; ``narrow_sw32_at``, desc_sw32's
+    layout), super-step by super-step, and the backward's S^T of each step:
+    every element of a stage's K range written exactly once (the samples,
+    then the padding's zeros), each CH-channel store within one 16-byte
+    unit, the unit of row r's 16-byte slot u at u ^ ((r >> 2) & 1); the
+    lanes of a pixel on consecutive threads reading neighbouring channels
+    (at 64 channels in 8 groups, 8 lanes a 128-byte row); and every (row,
+    pixel) of a K-block's S^T that holds a channel written once."""
+    for dtype in (torch.bfloat16, torch.float32):
+        es = dcn._es(dtype)
+        q = dcn.narrow_plan(cin, cout, dg, dtype)
+        lay = dcn.narrow_fwd_layout(cin, cout, dg, dtype)
+        rows, e = lay["rows"], q["E"]
+        nsteps = 9 * q["nr"]
+        for ss in range(lay["nsuper"]):
+            f0 = ss * lay["qs"]
+            f1 = min(f0 + lay["qs"], nsteps)
+            kbase = dcn.narrow_k_of(q, f0)
+            nk = dcn.narrow_k_of(q, f1) - kbase
+            assert 0 < nk <= lay["sc"] * e and nk % e == 0
+            seen = np.zeros(lay["sc"] * rows * 32, np.int64)
+            items = dcn.narrow_items(q, rows, 2 * rows, f0, f1 - f0)
+            for t, its in enumerate(items):
+                for r, f, grp, lo, hi in its:
+                    c0, _, koff = dcn.narrow_range(q, f % q["nr"])
+                    k0 = f // q["nr"] * q["kt"] + koff - kbase - c0
+                    for ch in range(lo, hi, q["ch"]):
+                        at = [dcn.narrow_sw32_at(r, k0 + c, rows, es)
+                              for c in range(ch, ch + q["ch"])]
+                        assert len({a // 16 for a in at}) == 1
+                        for a in at:
+                            seen[a:a + es] += 1
+            # the padding's zeros, as the kernel's second pass writes
+            for f in range(f0, f1):
+                c0, c1, koff = dcn.narrow_range(q, f % q["nr"])
+                w = c1 - c0
+                for k in range(w, -(-w // e) * e):
+                    for r in range(rows):
+                        a = dcn.narrow_sw32_at(
+                            r, f // q["nr"] * q["kt"] + koff - kbase + k,
+                            rows, es)
+                        seen[a:a + es] += 1
+            assert (seen[:nk * rows * es] == 1).all()
+            assert (seen[nk * rows * es:] == 0).all()
+        # the swizzle: slot u of row r holds unit u ^ ((r >> 2) & 1)
+        for r in range(8):
+            for k in range(0, e, 16 // es):
+                a = dcn.narrow_sw32_at(r, k, rows, es)
+                assert a // 16 % 2 == (k * es // 16) ^ ((r >> 2) & 1)
+        # the backward's S^T of each K-block (qb steps, step i at rows
+        # i * wfull): (row, pixel) once for each step's channels
+        blay = dcn.narrow_bwd_layout(cin, cout, dg, dtype)
+        assert blay["qb"] * q["wfull"] <= 64
+        for kb in range(min(blay["nkb"], 3)):
+            f0 = kb * blay["qb"]
+            nf = min(blay["qb"], nsteps - f0)
+            st = np.zeros((64, 64), np.int64)
+            for its in dcn.narrow_items(q, 64, 128, f0, nf):
+                for r, f, _, lo, hi in its:
+                    c0 = dcn.narrow_range(q, f % q["nr"])[0]
+                    row = (f - f0) * q["wfull"] - c0
+                    st[row + lo:row + hi, r] += 1
+            want = np.zeros((64, 64), np.int64)
+            for i in range(nf):
+                c0, c1, _ = dcn.narrow_range(q, (f0 + i) % q["nr"])
+                want[i * q["wfull"]:i * q["wfull"] + c1 - c0] = 1
+            assert (st == want).all()
+    if (cin, dg) != (64, 8):
+        return
+    # 64 channels in 8 groups: threads 8 i ... 8 i + 7 take one pixel's 8
+    # groups, a full 128-byte row of bf16 a corner
+    q = dcn.narrow_plan(64, 64, 8, torch.bfloat16)
+    items = dcn.narrow_items(q, 128, 256, 0, 1)
+    for i in range(0, 32, 8):
+        firsts = [items[t][0] for t in range(i, i + 8)]
+        assert len({r for r, *_ in firsts}) == 1
+        assert sorted(lo for *_, lo, _ in firsts) == list(range(0, 64, 8))
 
 
 # ---------------------------------------------------------------- (c)
@@ -228,23 +321,32 @@ def test_shared_memory_of_every_width_fits_a_block():
             for r in (None, 0.5, 4, 8, 12):
                 assert dcn.bwd_smem_bytes(
                     dtype, dcn.footprint_radius(r), c, dg) <= 232448
-    # the narrow kernels: one block an SM at 64 channels, 4 at 16
-    assert dcn.narrow_blocks_per_sm(64) == 1
-    assert dcn.narrow_blocks_per_sm(32) == 3
-    assert dcn.narrow_blocks_per_sm(16) == 4
-    # the widened domain: every shape fits a block, 256 -> 256 in 8 groups
-    # in the chunked backward (2 blocks an SM) and a 16-output forward tile
+    # the narrow kernels: every shape of the widened domain fits a block,
+    # in both forms, the debug width's two kernels two blocks an SM
     for dtype in (bf, f32):
         for cin, cout, dg in ((64, 32, 8), (32, 64, 8), (96, 96, 4),
-                              (256, 256, 8), (128, 64, 8), (400, 24, 8)):
+                              (256, 256, 8), (128, 64, 8), (400, 24, 8),
+                              (16, 300, 4), (512, 16, 1), (64, 64, 8)):
             for m in (True, False):
                 assert dcn.fwd_smem_bytes(dtype, cin, dg, cout, m) <= 232448
                 assert dcn.bwd_smem_bytes(dtype, 8, cin, dg, cout, m) <= \
                     232448
-    assert dcn.narrow_fwd_plan(256, 256) == (16, 9)
-    assert dcn.narrow_bwd_plan(256, 256, 8) == (32, 32, False)
-    assert dcn.narrow_blocks_per_sm(256, 256, 8) == 2
-    assert dcn.narrow_fwd_plan(400, 24) == (16, 1)
+        assert dcn.narrow_blocks_per_sm(16, 16, 4, dtype) >= 2
+        assert 2 * (dcn.narrow_fwd_layout(16, 16, 4, dtype)["smem"]
+                    + 1024) <= 228 * 1024
+    # 256 -> 256 in 8 groups: a column block of 256 (the forward's N) over
+    # 2 warpgroups, the weight streamed; the backward holds one step's dW
+    # (256 x 64 f32) in shared memory and stages g once a tile
+    f = dcn.narrow_fwd_layout(256, 256, 8, bf)
+    assert (f["N"], f["nb"], f["nwg"], f["resident"]) == (256, 1, 2, 0)
+    b = dcn.narrow_bwd_layout(256, 256, 8, bf)
+    assert (b["ngc"], b["nw0"], b["sps"], b["dws"]) == (1, 256, 1, 1)
+    # the debug width: one super-step's stage of 4 warpgroups, the weight
+    # resident, the whole dW of the backward in one slice
+    f = dcn.narrow_fwd_layout(16, 16, 4, bf)
+    assert (f["N"], f["nwg"], f["resident"]) == (16, 4, 1)
+    b = dcn.narrow_bwd_layout(16, 16, 4, bf)
+    assert (b["nslices"], b["resident"], b["dws"]) == (1, 1, 1)
 
 
 def test_bwd_128_constants_are_the_kernel_source():
