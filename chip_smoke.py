@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``realvsr_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile]
-    python3 chip_smoke.py --ab PARENT   # redesigned kernels beside a parent's
+    python3 chip_smoke.py --ab PARENT [TREE ...]   # beside a parent's kernels
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -151,7 +151,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    their plain versions and bounds, EDVR-L's convs, the 300-output conv
    and the debug configs' narrow convs beside cuDNN (and, from
    torch.profiler, each one's device-only time beside cuDNN's), EDVR-L's
-   forward ms, frames/s and peak memory;
+   forward ms, frames/s and peak memory; each conv whose weight is
+   streamed (``conv3x3.cu`` note 7) with its plan and its time per weight
+   slice, and each path's and training run's launches of such convs a
+   window / a step by shape (``streamed_per_window``,
+   ``streamed_per_step``);
 10. multi-process training and the rest of the JAX package (run after
     phase 6's metrics, before phase 9's times); ranks are this script
     started again (``--worker <args.json>``) with torchrun's environment:
@@ -214,13 +218,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
 Prints one JSON line per check and timing, then the card line, the
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
-``--ab PARENT`` builds ``dcn_narrow.cu``, ``dcn_fwd.cu`` and ``conv3x3.cu`` of
-the tree unpacked at PARENT (the parent commit, with its signatures) and
-times both narrow DCN kernels at every AB_NARROW shape (the debug C16 and
-the narrow widths, the general 128 -> 64, 256 -> 256 and DCNv1 64 -> 64 at
-the debug shape's pixels, DCNv1 64 -> 64 at the flagship's L1; both forms
-where there is a mask, bf16 and f32) and the controls (the 64- and
-128-channel DCN forward, the front 64 -> 64 conv) beside this tree's in
+``--ab PARENT [TREE ...]`` builds ``conv3x3.cu`` and ``dcn_fwd.cu`` of the
+tree unpacked at PARENT (the parent commit, with its signatures), and
+``conv3x3.cu`` of each further TREE (ablations: copies of this tree's
+sources with a change), and times every conv whose weight is streamed
+(AB_STREAMED: EDVR-L's 128-wide convs but upconv1, the flagship's PCD L1
+(64+64) -> 64, 64 -> 216 and 64 -> 256; each with its time per weight slice
+and cuDNN + act beside) and the controls (the front 64 -> 64, upconv1's
+column blocks, the debug 16 -> 16 on 32-byte chunks, the C 64 DCN forward
+at L1) beside this tree's, bf16 and f32, in
 turns (parent, this, this, parent), then stops.  ``--profile`` adds a
 ``torch.profiler`` breakdown of one window's forward
 of each inference model and of the last two steps of each timed training
@@ -229,6 +235,7 @@ GAN's).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -390,6 +397,52 @@ def om_of(off, mask):
 
     return torch.cat([off, torch.logit(mask.float(), eps=1e-3)
                       .to(off.dtype)], -1).contiguous()
+
+
+def streamed_info(shape, c2, cout, dtype, residual=False) -> dict:
+    """Where a conv's weight is streamed (``conv3x3.cu`` note 7): its plan
+    (halo stages, weight slots, in clusters or not); the timing row adds
+    its time per weight slice (:func:`per_slice_us`)."""
+    from realvsr_tpu_torch.ops.kernels.conv3x3 import stream_plan
+
+    plan = stream_plan(shape[3], c2, cout, dtype, residual)
+    return {} if plan is None else dict(streamed=plan._asdict())
+
+
+@contextlib.contextmanager
+def streamed_tally():
+    """Counts the models' convs (``models/common.py``'s
+    ``conv3x3_autograd``) whose weight is streamed (``conv3x3.cu`` note 7),
+    by input and output widths and dtype, while the block runs: the
+    launches a window or a step of each streamed shape (each such call is
+    one launch of the kernel)."""
+    from collections import Counter
+
+    from realvsr_tpu_torch.models import common
+    from realvsr_tpu_torch.ops.kernels.conv3x3 import stream_plan
+
+    tally, inner = Counter(), common.conv3x3_autograd
+
+    def counted(x, weight, bias=None, act=None, residual=None, x2=None):
+        c2 = 0 if x2 is None else x2.shape[-1]
+        if x.is_cuda and stream_plan(x.shape[-1], c2, weight.shape[0],
+                                     x.dtype) is not None:
+            tally[f"{x.shape[-1]}+{c2}->{weight.shape[0]} "
+                  f"{str(x.dtype)[6:]}"] += 1
+        return inner(x, weight, bias, act, residual, x2)
+
+    common.conv3x3_autograd = counted
+    try:
+        yield tally
+    finally:
+        common.conv3x3_autograd = inner
+
+
+def add_slice_us(row, shape, c2, dtype) -> dict:
+    """The row with its time per weight slice where its conv is streamed."""
+    if "streamed" in row:
+        row["slice_us"] = per_slice_us(row["ms"], shape, c2, dtype)
+    return row
 
 
 def conv_inputs(shape, c2, residual, dtype, seed, cout=64, bias=True):
@@ -710,13 +763,15 @@ def drive_path(name, model, lq_root, n_frames, clip, out_hw, tmp):
 
     out_dir = os.path.join(tmp, f"out_{name}")
     zero_counts()
-    res = evaluate_wo_gt(model, None, lq_root, n_frames=n_frames,
-                         save_folder=out_dir)
+    with streamed_tally() as tally:
+        res = evaluate_wo_gt(model, None, lq_root, n_frames=n_frames,
+                             save_folder=out_dir)
     torch.cuda.synchronize()
     launches = read_counts()
     per_window = {k: v / clip for k, v in launches.items()}
     emit(phase="path", path=name, windows=clip, launches=launches,
          launches_per_window=per_window,
+         streamed_per_window={k: v / clip for k, v in tally.items()},
          frames_per_s_first_run=res["frames_per_s"])
     expect = dict(EXPECT[name], dcn_bwd=0, dcn_block=0)
     if per_window != expect:
@@ -916,6 +971,7 @@ def run_trainer(opt, per_step, *, offsets_seed=None, warmup=TRAIN_WARMUP,
 
     def step(state, batch, gen):
         n0 = {k: f.launches for k, f in kernels.items()}
+        s0 = tally.copy()  # the streamed convs' calls (validation's apart)
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
@@ -923,7 +979,7 @@ def run_trainer(opt, per_step, *, offsets_seed=None, warmup=TRAIN_WARMUP,
         t1.record()
         steps.append(dict(
             launches={k: f.launches - n0[k] for k, f in kernels.items()},
-            logs=logs, start=t0, end=t1))
+            streamed=dict(tally - s0), logs=logs, start=t0, end=t1))
         return state, logs
 
     def validate(at):
@@ -934,7 +990,8 @@ def run_trainer(opt, per_step, *, offsets_seed=None, warmup=TRAIN_WARMUP,
     trainer.train_step, trainer.validate = step, validate
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    trainer.train()
+    with streamed_tally() as tally:
+        trainer.train()
     torch.cuda.synchronize()
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -964,6 +1021,7 @@ def run_trainer(opt, per_step, *, offsets_seed=None, warmup=TRAIN_WARMUP,
         scale=ds.get("scale") or 1, dcn_max_offset=train_r(),
         steps=len(steps), launches=launches,
         launches_per_step=steps[-1]["launches"],
+        streamed_per_step=steps[-1]["streamed"],
         losses=[{k: v.item() for k, v in st["logs"].items()} for st in steps],
         steps_per_s=len(timed) / (ms / 1e3), step_ms=step_ms,
         median_step_ms=sorted(step_ms[warmup:])[len(timed) // 2],
@@ -1340,7 +1398,9 @@ def time_kernels():
                 ms=cuda_ms(lambda: conv3x3(x, wgt, bias, act, res, x2), 20),
                 plain_ms=cuda_ms(
                     lambda: conv3x3_plain(x, wgt, bias, act, res, x2), 5),
-                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                **streamed_info(shape, c2, cout, dtype, residual))
+            add_slice_us(row, shape, c2, dtype)
             kernel = "conv3x3" if cout == 64 else "conv3x3_fused"
             emit(timing=kernel, case=name, shape=shape, cout=cout,
                  dtype=dname, **row)
@@ -2337,7 +2397,9 @@ def time_widths():
                 plain_ms=cuda_ms(
                     lambda: conv3x3_plain(x, wgt, bias, act, res, x2), 3),
                 bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                route=f"wgmma, {line}-byte chunks", **device)
+                route=f"wgmma, {line}-byte chunks", **device,
+                **streamed_info(shape, c2, cout, dtype, residual))
+            add_slice_us(row, shape, c2, dtype)
             emit(timing=kernel, case=name, shape=shape, c2=c2, cout=cout,
                  dtype=dname, **row)
             rows[(kernel, name, dname)] = row
@@ -3628,209 +3690,197 @@ def srmd_check():
         raise AssertionError(f"SRMD card vs CPU: {errs}")
 
 
-AB_CONTROLS = [  # (name, shape, cout, act): on conv3x3.cu in both trees
-    ("front 64->64 relu", (3, H, W, 64), 64, "relu"),
-]
-# the shapes ``dcn_narrow.cu`` takes that --ab times: (name, pixels (b, h,
-# w), cin, cout, deformable groups, mask, forward clamp); the backward
-# clamps at ±8, as phase 9 times it
-AB_NARROW = [(f"C{c} dg{dg}", NARROW_SHAPE[:3], c, c, dg, True, 8)
-             for c, dg in [NARROW] + NARROW_WIDTHS] + [
-    (f"general {ci}->{co} dg{dg}{'' if m else ' v1'}", NARROW_SHAPE[:3], ci,
-     co, dg, m, R_INFER) for ci, co, dg, m in GENERAL_TIMED] + [
-    ("DCNv1 64->64 dg8 flagship L1", DCN_CASES[0][1][:3], 64, 64, 8, False,
-     R_INFER)]
+# --ab: (name, shape, c2, cout, act, residual).  The convs whose weight the
+# parent streamed through a ring of 3 slots and this tree in clusters of
+# two (conv3x3.cu note 7): EDVR-L's, all but upconv1 and the 300-wide
+# test shape; the flagship's 64 -> 216 and 64 -> 256, and its PCD L1 (64 +
+# 64) -> 64 (streamed in f32; in bf16 resident, a control)
+AB_STREAMED = [case for case in EDVRL_CONVS
+               if case[0] not in (UPCONV1, "300 ragged +res")] + [
+    ("PCD L1 128 (64+64)->64 lrelu", (3, H, W, 64), 64, 64, "lrelu",
+     False),
+    ("64->216 lrelu", (3, H, W, 64), 0, 216, "lrelu", False),
+    ("64->256 +res", (1, 2 * VIMEO_H, 2 * VIMEO_W, 64), 0, 256, None, True),
+    (UPCONV2, (1, 2 * VIMEO_H, 2 * VIMEO_W, 64), 0, 256, "lrelu", False)]
+# controls, code this tree keeps: the resident weight (the front 64 -> 64),
+# column blocks (upconv1), 32-byte chunks (the debug 16 -> 16); and the C 64
+# DCN forward at L1 (dcn_fwd.cu)
+AB_CONTROLS = [("front 64->64 relu", (3, H, W, 64), 0, 64, "relu", False),
+               EDVRL_CONVS[[c[0] for c in EDVRL_CONVS].index(UPCONV1)],
+               SYNC_CASES[0]]
 
 
-def ab_parent(parent: str) -> None:
-    """``--ab PARENT``: the kernels this tree redesigns, built from the tree
-    unpacked at PARENT (the parent commit, with its signatures) beside this
-    tree's and timed in turns (parent, this, this, parent) on the same
-    inputs, each with its wrapper's allocations, copies and casts, bf16 and
-    f32: both kernels of ``dcn_narrow.cu`` (the parent's f32-core design,
-    this tree's on the tensor cores) at every AB_NARROW shape, forward and
-    backward, in the separate form and, where there is a mask, DCNPack's
-    in-place ``om``, the debug C16 shape's device-only times beside; as
-    controls, code this tree keeps: the 64-channel DCN forward at the
-    flagship's L1 (3, 512, 1024, 64) and the 128-channel one at EDVR-L's L1
-    inference shape (7, 256, 448, 128), ±4 (``dcn_fwd.cu``), and the front
-    64 -> 64 conv (``conv3x3.cu``).  The two trees' outputs are held
-    together first."""
+def per_slice_us(ms, shape, c2, dtype):
+    """A weight slice's card time on one SM (one tap of one 128-byte input
+    chunk against every output: time x 132 / (tiles x chunks x 9)), in
+    microseconds."""
+    import torch
+
+    b, h, w, c1 = shape
+    tiles = b * -(-h // 8) * -(-w // 16)
+    chunks = (c1 + c2) * (2 if dtype == torch.bfloat16 else 4) // 128
+    return ms * 1e3 * torch.cuda.get_device_properties(0) \
+        .multi_processor_count / (tiles * chunks * 9)
+
+
+def ab_parent(parent: str, *others: str) -> None:
+    """``--ab PARENT [TREE ...]``: ``conv3x3.cu`` built from the tree
+    unpacked at PARENT (the parent commit) and from each further TREE (a
+    copy of this tree's sources with a change, for ablations; the same C
+    signature) beside this tree's, timed in turns (parent, this, trees...,
+    then back: parent, this, this, parent with no TREE) on the same inputs,
+    each with its wrapper's allocations and weight packing, bf16 and f32:
+    every AB_STREAMED conv, each with its time per weight slice
+    (:func:`per_slice_us`) and cuDNN + act beside; as controls, the
+    AB_CONTROLS convs and the 64-channel DCN forward at the flagship's L1
+    (3, 512, 1024, 64), ±4 (``dcn_fwd.cu``, the parent's against this
+    tree's).  The trees' outputs are held together first."""
     import ctypes
 
     import torch
+    import torch.nn.functional as F
 
+    from realvsr_tpu_torch.ops.deform_conv import apply_act
     from realvsr_tpu_torch.ops.kernels import _build
-    from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3, kernel_width
-    from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_bwd_om,
-                                                   dcn_fwd, dcn_fwd_om)
+    from realvsr_tpu_torch.ops.kernels.conv3x3 import (_plan, conv3x3,
+                                                       stream_plan)
+    from realvsr_tpu_torch.ops.kernels.dcn import dcn_fwd
 
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    P, I, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # the parent's signatures (ops/kernels/conv3x3.py, dcn.py of that tree)
     sigs = {"conv3x3": {"conv3x3": (P, I, P, I, P, P, P, P, P, I, I, I, I,
                                     I, I, P)},
             "dcn_fwd": {"dcn_fwd": (P, P, I, P, I, I, P, P, P, P, I, I, I,
-                                    I, I, F, I, P)},
-            "dcn_narrow": {
-                "dcn_narrow_fwd": (P, P, I, P, I, I, P, P, P, I, I, I, I, I,
-                                   I, I, F, I, P),
-                "dcn_narrow_bwd": (P, P, I, P, I, I, P, P, P, P, I, P, I, P,
-                                   I, I, I, I, I, I, F, I, P)}}
-    out_dir = _build.BUILD_DIR / "parent"
+                                    I, I, F32, I, P)}}
+    trees = {"parent": (parent, sigs)}
+    for i, tree in enumerate(others):
+        trees[f"tree{i + 1}"] = (tree, {"conv3x3": sigs["conv3x3"]})
+    out_dir = _build.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {name: subprocess.Popen(
+    procs = {(label, name): subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-         str(out_dir / f"{name}.so"),
-         os.path.join(parent, "realvsr_tpu_torch", "csrc", f"{name}.cu")],
+         str(out_dir / f"{label}-{name}.so"),
+         os.path.join(tree, "realvsr_tpu_torch", "csrc", f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name in sigs}
+        for label, (tree, tsigs) in trees.items() for name in tsigs}
     fns = {}
-    for name, proc in procs.items():
+    for (label, name), proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
-            raise RuntimeError(f"parent {name}: nvcc failed\n{log}")
-        so = ctypes.PyDLL(str(out_dir / f"{name}.so"))
-        for fname, sig in sigs[name].items():
+            raise RuntimeError(f"{label} {name}: nvcc failed\n{log}")
+        for kernel, regs, stores, loads in ptxas_lines(log):
+            if stores or loads:  # timed all the same, spills and all
+                emit(ab_spill=label, kernel=kernel, spill_stores=stores,
+                     spill_loads=loads)
+        so = ctypes.PyDLL(str(out_dir / f"{label}-{name}.so"))
+        for fname, sig in trees[label][1][name].items():
             for dt, sfx in _build.SUFFIX.items():
                 fn = getattr(so, f"{fname}_{sfx}")
                 fn.argtypes, fn.restype = list(sig), ctypes.c_int
-                fns[(fname, dt)] = fn
-    emit(phase="ab build", parent=parent, built=sorted(sigs))
+                fns[(label, fname, dt)] = fn
+    emit(phase="ab build", parent=parent, trees=list(others),
+         built=sorted(f"{lb}-{n}" for lb, n in procs))
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
-    def turns(what, parent_fn, change_fn, iters, device=False, **info):
-        for ref, got in zip(parent_fn(), change_fn()):
-            if ref is None:
-                continue
-            if (ref.float() - got.float()).abs().max() > 0.05 * max(
-                    1.0, ref.float().abs().max().item()):
-                raise AssertionError(f"{what} {info}: parent and change "
-                                     "differ")
-        ms = [cuda_ms(f, iters) for f in (parent_fn, change_fn, change_fn,
-                                          parent_fn)]
-        extra = {}
-        if device:
-            extra = dict(parent_device_ms=device_ms(parent_fn, 20),
-                         change_device_ms=device_ms(change_fn, 20))
-        emit(ab=what, parent_ms=[ms[0], ms[3]], change_ms=[ms[1], ms[2]],
-             **info, **extra)
+    def turns(what, calls, iters, **info):
+        """calls: [(label, fn)], the first the parent, the second this
+        tree; run in turns there and back."""
+        ref = calls[0][1]()
+        for label, fn in calls[1:]:
+            for r, got in zip(ref, fn()):
+                if (r.float() - got.float()).abs().max() > 0.05 * max(
+                        1.0, r.float().abs().max().item()):
+                    raise AssertionError(f"{what} {info}: {label} and the "
+                                         "parent differ")
+        order = calls + calls[::-1]
+        ms = {}
+        for label, fn in order:
+            ms.setdefault(label, []).append(cuda_ms(fn, iters))
+        row = {f"{label}_ms": v for label, v in ms.items()}
+        emit(ab=what, **info, **row)
+        return row
 
-    def parent_conv(x, wgt, bias, act):
-        b, h, w, _ = x.shape
+    def tree_conv(fn, x, wgt, bias, act, res, x2):
+        b, h, w, c1 = x.shape
+        c2 = 0 if x2 is None else x2.shape[-1]
         cout, dt = wgt.shape[0], x.dtype
+        _, n, _, scratch = _plan(c1, c2, cout, dt)
+        packed = (torch.empty(scratch, device="cuda", dtype=dt)
+                  if scratch else None)
         out = torch.empty(b, h, w, cout, device="cuda", dtype=dt)
-        n = kernel_width(cout)
-        packed = torch.empty(x.shape[-1] * 9 * n, device="cuda", dtype=dt)
-        _build.check(fns[("conv3x3", dt)](
-            x.data_ptr(), x.shape[-1], None, 0, wgt.data_ptr(),
-            packed.data_ptr(), bias.data_ptr(), None, out.data_ptr(), b, h,
-            w, cout, n, _build.ACTS[act], stream()), "parent conv3x3")
+        _build.check(fn(
+            x.data_ptr(), c1, None if x2 is None else x2.data_ptr(), c2,
+            wgt.data_ptr(), None if packed is None else packed.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if res is None else res.data_ptr(), out.data_ptr(), b, h, w,
+            cout, n, _build.ACTS[act], stream()), "tree conv3x3")
         return (out,)
 
-    def sources(off, mask, om, dg):
-        if om is not None:
-            return (om.data_ptr(), dg * 27, om.data_ptr() + dg * 18 *
-                    om.element_size(), dg * 27, 1)
-        return (off.data_ptr(), dg * 18, None if mask is None else
-                mask.data_ptr(), dg * 9, 0)
-
-    def parent_dcn(x, off, mask, om, wgt, bias, r):
+    def parent_dcn(x, off, mask, wgt, bias, r):
         b, h, w, c = x.shape
         dt = x.dtype
         packed = torch.empty(c * 9 * c, device="cuda", dtype=dt)
         out = torch.empty(b, h, w, c, device="cuda", dtype=dt)
-        _build.check(fns[("dcn_fwd", dt)](
-            x.data_ptr(), *sources(off, mask, om, 8), wgt.data_ptr(),
-            packed.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, c,
-            0, float(r), 1, stream()), "parent dcn_fwd")
+        _build.check(fns[("parent", "dcn_fwd", dt)](
+            x.data_ptr(), off.data_ptr(), 8 * 18, mask.data_ptr(), 8 * 9, 0,
+            wgt.data_ptr(), packed.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), b, h, w, c, 0, float(r), 1, stream()),
+            "parent dcn_fwd")
         return (out,)
 
-    def parent_narrow_fwd(x, off, mask, om, wgt, bias, dg, r):
-        b, h, w, c = x.shape
-        cout = wgt.shape[0]
-        out = torch.empty(b, h, w, cout, device="cuda", dtype=x.dtype)
-        _build.check(fns[("dcn_narrow_fwd", x.dtype)](
-            x.data_ptr(), *sources(off, mask, om, dg), wgt.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), b, h, w, c, cout, dg, 0,
-            float(r), 1, stream()), "parent dcn_narrow_fwd")
-        return (out,)
-
-    def parent_narrow_bwd(x, off, mask, om, wgt, g, dg, r):
-        # the parent's wrapper: zeroed f32 dx and dW, the gradients of the
-        # offsets and mask (or of om), the casts of dx and dW
-        b, h, w, c = x.shape
-        cout, dt = wgt.shape[0], x.dtype
-        dx = torch.zeros(b, h, w, c, device="cuda", dtype=torch.float32)
-        dw = torch.zeros(cout, 9, c, device="cuda", dtype=torch.float32)
-        if om is None:
-            doff = torch.empty_like(off)
-            dmask = None if mask is None else torch.empty_like(mask)
-            dsts = (doff.data_ptr(), dg * 18,
-                    None if dmask is None else dmask.data_ptr(), dg * 9)
-            rest = (doff, dmask)
-        else:
-            dom = torch.empty_like(om)
-            dsts = (dom.data_ptr(), dg * 27,
-                    dom.data_ptr() + dg * 18 * dom.element_size(), dg * 27)
-            rest = (dom,)
-        _build.check(fns[("dcn_narrow_bwd", dt)](
-            x.data_ptr(), *sources(off, mask, om, dg), wgt.data_ptr(),
-            g.data_ptr(), dx.data_ptr(), *dsts, dw.data_ptr(), b, h, w, c,
-            cout, dg, float(r), 1, stream()), "parent dcn_narrow_bwd")
-        return (dx.to(dt), *rest,
-                dw.view(cout, 3, 3, c).permute(0, 3, 1, 2).to(dt))
-
-    r8 = train_r()
+    labels = list(trees)
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype)[6:]
-        for name, pix, cin, cout, dg, m, rf in AB_NARROW:
-            x, off, mask, wgt, bias, g = width_inputs((*pix, cin), dg, dtype,
-                                                      69, cout=cout)
-            mask = mask if m else None
-            forms = [("separate", None)]
-            if m:
-                forms.append(("om", om_of(off, mask)))
-            big = pix[0] * pix[1] * pix[2] > 1 << 20
-            for form, om in forms:
-                info = dict(case=name, shape=(*pix, cin), cout=cout, dg=dg,
-                            mask=m, form=form, dtype=dname,
-                            device=name == "C16 dg4")
-                if om is None:
-                    fwd = (lambda: (dcn_fwd(x, off, mask, wgt, bias, dg,
-                                            None, rf),))
-                    bwd = (lambda: dcn_bwd(x, off, mask, wgt, g, dg, r8))
-                else:
-                    fwd = (lambda: (dcn_fwd_om(x, om, wgt, bias, dg, None,
-                                               rf),))
-                    bwd = (lambda: dcn_bwd_om(x, om, wgt, g, dg, r8))
-                turns("dcn_narrow_fwd",
-                      lambda: parent_narrow_fwd(x, off, mask, om, wgt, bias,
-                                                dg, rf),
-                      fwd, 5 if big else 20, max_offset=rf, **info)
-                turns("dcn_narrow_bwd",
-                      lambda: parent_narrow_bwd(x, off, mask, om, wgt, g, dg,
-                                                r8),
-                      bwd, 3 if big else 10, max_offset=r8, **info)
-                del om
-            del x, off, mask, g
+        for cases, control in ((AB_STREAMED, False), (AB_CONTROLS, True)):
+            for name, shape, c2, cout, act, residual in cases:
+                x, x2, wgt, bias, res = conv_inputs(shape, c2, residual,
+                                                    dtype, 61, cout)
+                calls = [(lb, (lambda f=fns[(lb, "conv3x3", dtype)]:
+                               tree_conv(f, x, wgt, bias, act, res, x2)))
+                         for lb in labels]
+                calls.insert(1, ("change", lambda: (conv3x3(
+                    x, wgt, bias, act, res, x2),)))
+                # the flagship's PCD L1 is resident in bf16: a control
+                ctl = control or stream_plan(shape[3], c2, cout, dtype,
+                                             residual) is None
+                info = dict(case=name, shape=shape, c2=c2, cout=cout,
+                            dtype=dname, control=ctl)
+                if not ctl:
+                    xcat = x if x2 is None else torch.cat([x, x2], -1)
+                    x_nchw = xcat.permute(0, 3, 1, 2)
+                    w_cl = wgt.contiguous(memory_format=torch.channels_last)
+                    res_nchw = None if res is None else res.permute(
+                        0, 3, 1, 2)
+
+                    def library():  # cuDNN conv + bias / act / residual
+                        y = apply_act(F.conv2d(x_nchw, w_cl, bias,
+                                               padding=1), act)
+                        return y if res_nchw is None else y + res_nchw
+
+                    torch.backends.cudnn.allow_tf32 = dtype == torch.float32
+                    info["library_ms"] = cuda_ms(library, 10)
+                    torch.backends.cudnn.allow_tf32 = False
+                    del xcat, x_nchw, w_cl, res_nchw
+                row = turns("conv3x3", calls, 10, **info)
+                if not ctl:
+                    emit(ab="conv3x3 per slice", case=name, dtype=dname,
+                         **{k.replace("_ms", "_us"): [
+                             per_slice_us(m, shape, c2, dtype) for m in v]
+                            for k, v in row.items()})
+                del x, x2, res, calls
             torch.cuda.empty_cache()
-        for name, shape, cout, act in AB_CONTROLS:
-            x, _, wgt, bias, _ = conv_inputs(shape, 0, False, dtype, 61, cout)
-            turns("conv3x3", lambda: parent_conv(x, wgt, bias, act),
-                  lambda: (conv3x3(x, wgt, bias, act),), 20, case=name,
-                  shape=shape, cout=cout, dtype=dname, control=True)
-            del x
-        for shape in (DCN_CASES[0][1], DCN128_SHAPES[0][1]):
-            x, off, mask, wgt, bias, _ = width_inputs(shape, 8, dtype, 63)
-            turns("dcn_fwd",
-                  lambda: parent_dcn(x, off, mask, None, wgt, bias, R_INFER),
-                  lambda: (dcn_fwd(x, off, mask, wgt, bias, 8, None,
-                                   R_INFER),),
-                  10, shape=shape, form="separate", dtype=dname,
-                  max_offset=R_INFER, control=True)
-            del x, off, mask
+        x, off, mask, wgt, bias, _ = width_inputs(DCN_CASES[0][1], 8, dtype,
+                                                  63)
+        turns("dcn_fwd",
+              [("parent", lambda: parent_dcn(x, off, mask, wgt, bias,
+                                             R_INFER)),
+               ("change", lambda: (dcn_fwd(x, off, mask, wgt, bias, 8, None,
+                                           R_INFER),))],
+              10, shape=DCN_CASES[0][1], form="separate", dtype=dname,
+              max_offset=R_INFER, control=True)
+        del x, off, mask
         torch.cuda.empty_cache()
 
 
@@ -3867,7 +3917,7 @@ def main() -> int:
                 raise AssertionError(f"{kernel} spills")
 
     if sys.argv[1:2] == ["--ab"]:
-        ab_parent(sys.argv[2])
+        ab_parent(*sys.argv[2:])
         print(smi())
         return 0
     profiling = "--profile" in sys.argv[1:]

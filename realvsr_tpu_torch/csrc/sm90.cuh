@@ -1,9 +1,10 @@
 // Hopper pieces shared by the hand-written kernels (conv3x3.cu, dcn_fwd.cu,
 // dcn_bwd.cu): the wgmma fences and waits, the descriptors of a K-major
 // operand with the 128- and 32-byte swizzles, ldmatrix, mbarriers with a
-// watchdog, TMA and bulk copies, the tensor map of an NHWC tile, and the
-// packer that lays an OIHW weight out as the image of shared memory the
-// wgmma kernels copy.
+// watchdog, TMA loads and stores and bulk copies, the cluster pieces (rank,
+// barrier, remote arrives, multicast bulk copies), the tensor map of an
+// NHWC tile, and the packer that lays an OIHW weight out as the image of
+// shared memory the wgmma kernels copy.
 #pragma once
 
 #include <cuda.h>
@@ -149,6 +150,81 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "[%0], [%1], %2, [%3];" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// ---------------------------------------------------------------- clusters
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// Every thread of the cluster's blocks that has not exited meets here;
+// what each wrote before (mbarrier inits too) is seen by all after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n\t"
+      "barrier.cluster.wait.acquire;" ::
+          : "memory");
+}
+
+// mbarrier.arrive on the barrier at `bar`'s offset in the shared memory of
+// the cluster's block `rank` (the default release at CTA scope: a
+// cluster-scope release would wait for the thread's global stores).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
+                                                    uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}" ::"r"(bar),
+      "r"(rank)
+      : "memory");
+}
+
+// bulk_load into the shared memory of every block of the cluster in `mask`,
+// at `dst`'s offset in each, each completing the bytes on its barrier at
+// `bar`'s offset.
+__device__ __forceinline__ void bulk_load_multicast(uint32_t dst,
+                                                    const void* src,
+                                                    uint32_t bytes,
+                                                    uint32_t bar,
+                                                    uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "h"(mask)
+      : "memory");
+}
+
+// TMA store of the box at `src` (shared memory) to the tensor map's
+// coordinates, in this thread's bulk async-group; what lies outside the
+// tensor is not written.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Waits until at most kPending of this thread's bulk groups have yet to
+// read their shared memory (.read) or to complete.
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(kPending)
+               : "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(kPending) : "memory");
 }
 
 // wgmma descriptor of a K-major operand with the 128-byte swizzle: rows of

@@ -8,10 +8,14 @@ conv3x3_fused`` (the same function at any output width, with the custom VJP
 ``conv3x3``).  Both run one CUDA kernel: persistent blocks, ``wgmma`` on
 the whole output width (N = cout padded to one of :data:`WIDTHS`; past
 256 outputs, column blocks of 256, :func:`column_blocks`), the weight
-resident in shared memory or streamed tap by tap, the input halo loaded by
+resident in shared memory or streamed tap by tap (up to 256 outputs on
+128-byte chunks through a ring as deep as shared memory allows, and up
+to 128 in clusters of two blocks, each slice read from L2 once a pair
+and multicast to both: :func:`stream_plan`), the input halo loaded by
 TMA in a ring of stages, and the epilogue (bias, activation, cast,
-residual) in registers with 16-byte stores; see the source for the design.
-No pair packing: the TPU's 128-lane layout is not carried over.
+residual) in registers with 16-byte stores (streamed weights: by TMA
+stores); see the source for the design.  No pair packing: the TPU's
+128-lane layout is not carried over.
 
 The weight goes to the kernel as the image of its shared memory, which a
 small kernel of the same source lays out before each launch
@@ -50,6 +54,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from types import SimpleNamespace
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -75,6 +80,14 @@ NARROW_LINE = 32   # the chunk of narrow inputs: one wgmma k-step
 # epilogue rows and padding, the mbarriers (plan())
 _SMEM_MAX, _HALO_PIXELS, _EPI_ROWS, _EPI_PAD, _BARS = (232448, 10 * 18, 16,
                                                        8, 8 * 15)
+# its streamed regime (kPair, kPairHalo, kRingMax, kRingSplit, kPairWidth,
+# kEpiBufs): blocks a cluster, halo stages, most weight slots, the slots of
+# the cluster kernel's ring beside its resident slices, the widest N in
+# clusters, the epilogue's staging buffers a warp
+PAIR, PAIR_HALO, RING_MAX, RING_SPLIT, PAIR_WIDTH, EPI_BUFS = (2, 2, 16, 6,
+                                                               128, 2)
+# kTmaOutWidth: past PAIR_WIDTH, the TMA-store epilogue (bf16 only)
+TMA_OUT_WIDTH = 216
 
 
 def conv3x3_plain(x, weight, bias=None, act=None, residual=None, x2=None):
@@ -139,6 +152,47 @@ def weight_resident(c1: int, c2: int, cout: int, dtype: torch.dtype) -> bool:
     epi = 8 * _EPI_ROWS * (LINE // es + _EPI_PAD) * es
     return ((c1 + c2) * es * 9 * blocks[0][1] + 2 * halo + epi + _BARS
             <= _SMEM_MAX)
+
+
+class StreamPlan(NamedTuple):
+    """A conv of the streamed regime (``conv3x3.cu::plan_stream``, design
+    note 7): the halo stages and weight slots of its ring, whether it runs
+    in clusters of :data:`PAIR` blocks, each weight slice multicast to both
+    (N up to :data:`PAIR_WIDTH`), and the slices of a tile's weight that
+    the cluster kernel keeps resident beside a ring of :data:`RING_SPLIT`
+    (the first of each tile; the rest streamed)."""
+    stages: int
+    slots: int
+    pair: bool
+    resident: int
+
+
+@functools.lru_cache(maxsize=None)
+def stream_plan(c1: int, c2: int, cout: int, dtype: torch.dtype,
+                residual: bool = False) -> StreamPlan | None:
+    """The streamed regime's plan for a conv that takes it: one whose
+    weight is not resident, on 128-byte chunks, at most 256 outputs; None
+    for any other.  Its epilogue stages the TMA stores (in clusters, and
+    at :data:`TMA_OUT_WIDTH` in bf16 without a residual, rows of whole
+    16-byte vectors) or runs the resident convs' (the rest), which takes
+    less shared memory."""
+    blocks = column_blocks(cout)
+    if (len(blocks) > 1 or chunk_bytes(c1, c2, dtype) != LINE
+            or weight_resident(c1, c2, cout, dtype)):
+        return None
+    n, es = blocks[0][1], dtype.itemsize
+    stage = -(-_HALO_PIXELS * LINE // 1024) * 1024
+    tma = n <= PAIR_WIDTH or (n == TMA_OUT_WIDTH and es == 2
+                              and not residual and cout * es % 16 == 0)
+    epi = (8 * EPI_BUFS * _EPI_ROWS * LINE if tma
+           else 8 * _EPI_ROWS * (LINE // es + _EPI_PAD) * es)
+    bars = 8 * (2 * PAIR_HALO + 2 * RING_MAX + 1)
+    slots = (_SMEM_MAX - PAIR_HALO * stage - epi - bars) // (n * LINE)
+    pair, res = n <= PAIR_WIDTH, 0
+    if pair and slots > RING_SPLIT:
+        res = min(slots - RING_SPLIT, 9 * (c1 + c2) // chunk(dtype) - 1)
+        slots = RING_SPLIT
+    return StreamPlan(PAIR_HALO, min(slots, RING_MAX), pair, res)
 
 
 def _units(ch: int) -> int:
@@ -303,19 +357,28 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor,
     return out
 
 
+def scratch_elements(c1: int, c2: int, cout: int, dtype: torch.dtype) -> int:
+    """Elements of the scratch the kernel's packer lays the weight out in:
+    every column block (:func:`column_blocks`) of (c1 + c2) * 9 rows; none
+    for narrow inputs whose weight is resident (their blocks lay it out)."""
+    if (chunk_bytes(c1, c2, dtype) == NARROW_LINE
+            and weight_resident(c1, c2, cout, dtype)):
+        return 0
+    blocks = column_blocks(cout)
+    return len(blocks) * (c1 + c2) * 9 * blocks[0][1]
+
+
 @functools.lru_cache(maxsize=None)
 def _plan(c1: int, c2: int, cout: int, dtype: torch.dtype):
     """(the C entry, n: the last (or only) column block's width, narrow
-    inputs, elements of scratch the packer lays the weight out in: none
-    where narrow inputs' blocks do it), once a width and dtype: at the nf
-    16 debug configs' sizes a call's host time is its cost."""
-    blocks = column_blocks(cout)
-    narrow = chunk_bytes(c1, c2, dtype) == NARROW_LINE
-    scratch = 0 if narrow and weight_resident(c1, c2, cout, dtype) else \
-        len(blocks) * (c1 + c2) * 9 * blocks[0][1]
+    inputs, elements of scratch the packer lays the weight out in), once a
+    width and dtype: at the nf 16 debug configs' sizes a call's host time
+    is its cost."""
     fn = getattr(_build.load("conv3x3", _FUNCS),
                  f"conv3x3_{_build.SUFFIX[dtype]}")
-    return fn, blocks[-1][1], narrow, scratch
+    return (fn, column_blocks(cout)[-1][1],
+            chunk_bytes(c1, c2, dtype) == NARROW_LINE,
+            scratch_elements(c1, c2, cout, dtype))
 
 
 conv3x3.launches = 0

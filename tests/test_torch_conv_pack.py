@@ -31,10 +31,12 @@ import torch
 from realvsr_tpu.ops.pallas.conv3x3_kernel import (
     conv3x3_fused as jax_conv3x3_fused)
 from realvsr_tpu_torch.csrc import gen_wgmma
+from realvsr_tpu_torch.ops.kernels import _build
+from realvsr_tpu_torch.ops.kernels import conv3x3 as conv_mod
 from realvsr_tpu_torch.ops.kernels.conv3x3 import (
     LINE, NARROW_LINE, WIDTHS, chunk, chunk_bytes, column_blocks,
     conv3x3_from_packed, conv3x3_plain, kernel_width, pack_weight,
-    round_tf32, unpack_weight, weight_resident)
+    round_tf32, stream_plan, unpack_weight, weight_resident)
 
 TOL = 5e-5
 COUTS = [3, 64, 216, 256, 300, 512]
@@ -232,3 +234,90 @@ def test_wgmma_header_is_up_to_date():
     assert gen_wgmma.HEADER.read_text() == gen_wgmma.render()
     assert WIDTHS == gen_wgmma.WIDTHS and WIDTHS[-1] == 256
     assert all(n % 8 == 0 for n in WIDTHS)
+
+
+def test_stream_constants_are_the_kernel_source():
+    """``conv3x3.py``'s mirror of the streamed regime (``conv3x3.cu`` note
+    7: the cluster's blocks, the halo stages, the most weight slots, the
+    widest N in clusters, the shared memory and its mbarriers) reads as the
+    source states it, and gives EDVR-L's and the flagship's streamed convs
+    the plans the note names: 9 slots at N 128 and 16 at N 64 in
+    clusters, 5 at 216 and 4 at 256 without; the resident convs, column
+    blocks past 256 and 32-byte chunks none."""
+    import re
+
+    src = (_build.CSRC / "conv3x3.cu").read_text()
+    pair = re.search(r"constexpr int kPair = (\d+), kPairHalo = (\d+), "
+                     r"kRingMax = (\d+), kRingSplit = (\d+);", src)
+    assert tuple(map(int, pair.groups())) == (
+        conv_mod.PAIR, conv_mod.PAIR_HALO, conv_mod.RING_MAX,
+        conv_mod.RING_SPLIT)
+    assert f"constexpr int kSmemMax = {conv_mod._SMEM_MAX};" in src
+    assert "constexpr int kEpiRows = 16, kEpiPad = 8;" in src
+    assert (conv_mod._EPI_ROWS, conv_mod._EPI_PAD) == (16, 8)
+    assert "constexpr int kTH = 8, kTW = 16;" in src
+    assert conv_mod._HALO_PIXELS == (8 + 2) * (16 + 2)
+    assert "const int bar_bytes = 8 * (2 * 4 + 2 * 3 + 1);" in src
+    assert conv_mod._BARS == 8 * (2 * 4 + 2 * 3 + 1)
+    body = src[src.index("int plan_stream(Params& p, bool split, bool tma_epi) {"):
+               src.index("// Shared memory of a launch")]
+    assert ("const int most_bars = 8 * (2 * kPairHalo + 2 * kRingMax + 1);"
+            in body)
+    assert ("p.sw = (kSmemMax - kPairHalo * kStage - epi - most_bars) / "
+            "slice;" in body)
+    assert "if (p.sw > kRingMax) p.sw = kRingMax;" in body
+    assert "if (split && p.sw > kRingSplit) {" in body
+    assert "p.nres = p.sw - kRingSplit;" in body
+    assert "if (p.nres > 9 * p.nchunk - 1) p.nres = 9 * p.nchunk - 1;" in body
+    # every streamed one-block conv on 128-byte chunks takes plan_stream;
+    # those up to kPairWidth run in clusters
+    assert ("if (NL == 0 && CB == kLine && !p.resident)\n"
+            "    return plan_stream<T, N>(p, false, false);" in src)
+    launch = src[src.index("int launch_n("):src.index("// n: the wgmma width")]
+    assert ("if constexpr (NL == 0 && CB == kLine && N <= kPairWidth) {"
+            in launch)
+    assert "if (!p.resident)  // the streamed regime in clusters (7)" in launch
+    assert "attr.val.clusterDim.x = kPair;" in src
+    assert f"constexpr int kPairWidth = {conv_mod.PAIR_WIDTH};" in src
+    assert (f"constexpr int kEpiBufs = {conv_mod.EPI_BUFS}, kEpiBuf = "
+            "kEpiRows * kLine," in src)
+    assert "const int epi = tma_epi ? 8 * kEpiBufs * kEpiBuf" in body
+    bf, f32 = torch.bfloat16, torch.float32
+    # (ring slots, in clusters, resident slices) of EDVR-L's and the
+    # flagship's streamed convs
+    want = {(128, 0, 128, bf): (6, True, 3), (128, 128, 128, bf): (6, True, 3),
+            (128, 0, 216, bf): (5, False, 0), (64, 0, 216, bf): (5, False, 0),
+            (128, 0, 256, bf): (5, False, 0), (64, 0, 256, bf): (5, False, 0),
+            (128, 0, 128, f32): (6, True, 3), (64, 64, 64, f32): (6, True, 12),
+            (128, 128, 128, f32): (6, True, 3), (128, 0, 64, f32): (6, True, 12),
+            (64, 0, 216, f32): (5, False, 0), (128, 0, 256, f32): (5, False, 0),
+            (128, 0, 216, f32): (5, False, 0),
+            (2048, 0, 8, bf): (6, True, 142), (2048, 0, 8, f32): (6, True, 142)}
+    for (c1, c2, cout, dt), (slots, pair, res) in want.items():
+        plan = stream_plan(c1, c2, cout, dt)
+        assert plan == (2, slots, pair, res)
+        n = kernel_width(cout)
+        # the plan fits a block: ring and resident slices, halo stages,
+        # epilogue (the TMA stores' staging, or at 256 the resident
+        # convs'), mbarriers
+        es = dt.itemsize
+        epi = (8 * 16 * (LINE // es + 8) * es if n == 256 or (
+            n == 216 and dt == f32) else 8 * 2 * 16 * LINE)
+        used = ((slots + res) * n * LINE + 2 * 23552 + epi
+                + 8 * (2 * 2 + 2 * slots + 1))
+        assert used <= conv_mod._SMEM_MAX
+        assert conv_mod.scratch_elements(c1, c2, cout, dt) == (
+            n * (c1 + c2) * 9)
+    # at 216 a residual takes the resident convs' epilogue, whose smaller
+    # staging leaves one more slot in bf16 (6); 256 takes it always
+    assert stream_plan(64, 0, 216, bf, True) == (2, 6, False, 0)
+    assert stream_plan(64, 0, 256, bf, True) == (2, 5, False, 0)
+    assert stream_plan(128, 0, 128, bf, True) == (2, 6, True, 3)
+    assert ("const bool tma_out = NL == 0 && CB == kLine && N == "
+            "kTmaOutWidth &&\n                       sizeof(T) == 2 &&" in src)
+    assert f"kTmaOutWidth = {conv_mod.TMA_OUT_WIDTH};" in src
+    for c1, c2, cout, dt in ((64, 0, 64, bf), (64, 64, 64, bf),
+                             (128, 0, 64, bf), (64, 0, 64, f32),
+                             (128, 0, 512, bf), (128, 0, 300, f32),
+                             (16, 16, 16, bf), (48, 0, 128, f32)):
+        assert stream_plan(c1, c2, cout, dt) is None

@@ -27,7 +27,7 @@ from realvsr_tpu_torch.ops.kernels.conv3x3 import (chunk, chunk_bytes,
                                                    conv3x3_narrow,
                                                    conv3x3_plain, pack_weight,
                                                    pack_weight_cuda,
-                                                   round_tf32)
+                                                   round_tf32, stream_plan)
 from realvsr_tpu_torch.ops.kernels.dcn import (dcn_bwd, dcn_bwd_om,
                                                dcn_bwd_om_plain,
                                                dcn_bwd_plain, dcn_fwd,
@@ -236,6 +236,56 @@ def test_conv3x3_edvr_l_widths_match_plain(cuda, dtype, c1, c2, cout, act,
     torch.cuda.synchronize()
     assert (conv3x3_fused.launches, conv3x3_narrow.launches) == (n[0] + 1,
                                                                  n[1])
+    assert max_abs_err(out, ref) <= tolerance(ref)
+
+
+# the streamed regime (a ring as deep as shared memory allows; up to 128
+# outputs in clusters of two blocks, each weight slice multicast to both):
+# (c1, c2, cout, act, residual, pixels (b, h, w)), in bf16 and f32 but
+# (64+64)->64 and 128->64, streamed in f32 only
+_BF, _F32 = torch.bfloat16, torch.float32
+STREAMED = [(dt, *case) for dt in (_BF, _F32) for case in (
+    (128, 0, 128, None, True, (2, 64, 96)),        # a ResBlock's conv2
+    (128, 128, 128, "lrelu", False, (2, 64, 96)),  # PCD 256 (128+128)->128
+    (64, 0, 216, "lrelu", False, (2, 64, 96)),     # conv_offset_mask
+    (128, 0, 256, "lrelu", True, (1, 40, 64)),     # upconv2's width
+    (128, 0, 128, "relu", False, (1, 8, 48)),      # 3 tiles: odd, < SMs
+    (128, 0, 128, "relu", True, (2, 37, 45)),      # ragged H and W
+    (128, 0, 128, None, False, (2, 256, 448)),     # ~14 tiles a block
+    (2048, 0, 8, "relu", True, (1, 8, 16)),        # one tile; N 8
+    (1024, 0, 20, None, True, (1, 21, 37)),   # rows of 20: bf16 not in 16 B
+)] + [(_F32, 64, 64, 64, "lrelu", False, (2, 64, 96)),  # PCD L1 (64+64)
+      (_F32, 128, 0, 64, None, True, (3, 24, 40))]
+
+
+@pytest.mark.parametrize("dtype,c1,c2,cout,act,residual,pix", STREAMED,
+                         ids=[f"{str(c[0])[6:]}-{c[1]}+{c[2]}-{c[3]}-"
+                              f"{'x'.join(map(str, c[6]))}"
+                              for c in STREAMED])
+def test_conv3x3_streamed_weights_match_plain(cuda, dtype, c1, c2, cout, act,
+                                              residual, pix):
+    """Every conv whose weight outgrows shared memory at cout <= 256 on
+    128-byte chunks runs the streamed regime (``conv3x3.cu`` note 7): a
+    ring as deep as shared memory allows, and up to 128 outputs clusters of
+    two blocks, each weight slice multicast to both.  Where the tiles are
+    odd in number (3; 1) the second block of the last cluster takes the
+    last tile again and stores nothing."""
+    g = _gen(21)
+    x = torch.randn(*pix, c1, generator=g).to(cuda, dtype)
+    x2 = torch.randn(*pix, c2, generator=g).to(cuda, dtype) if c2 else None
+    w = ((torch.rand(cout, c1 + c2, 3, 3, generator=g) * 2 - 1)
+         / (9 * (c1 + c2)) ** 0.5).to(cuda, dtype)
+    b = (torch.randn(cout, generator=g) * 0.1).to(cuda, dtype)
+    res = (torch.randn(*pix, cout, generator=g).to(cuda, dtype)
+           if residual else None)
+    assert stream_plan(c1, c2, cout, dtype) is not None
+    n = (conv3x3.launches, conv3x3_fused.launches)
+    out = conv3x3(x, w, b, act, res, x2)
+    ref = conv3x3_plain(x, w, b, act, res, x2)
+    torch.cuda.synchronize()
+    assert conv3x3.launches + conv3x3_fused.launches == sum(n) + 1
+    assert out.shape == ref.shape == (*pix, cout)
+    assert torch.isfinite(out).all()
     assert max_abs_err(out, ref) <= tolerance(ref)
 
 
