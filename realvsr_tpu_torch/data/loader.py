@@ -9,17 +9,25 @@ pipeline, ``codes/data/__init__.py`` + ``data_sampler.py``):
   * :class:`TrainLoader` — thread-pooled ``get`` calls with a bounded
     prefetch queue and a per-(seed, epoch, position) numpy RNG.  A failure
     in the producer thread is handed to the consumer, which raises it; a
-    consumer that stops early stops the producer,
+    consumer that stops early stops the producer.  Traced
+    (:mod:`~realvsr_tpu_torch.utils.trace`): the producer's
+    ``loader.fetch``, ``loader.collate`` and ``loader.put_wait`` (blocked
+    on a full queue), the consumer's ``loader.wait``, all with ``req``
+    (epoch, batch index), and the counter ``loader.ready`` (batches in the
+    queue at each get),
   * :class:`EvalLoader` — sequential batch-1 loading for validation.
 """
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
 import numpy as np
+
+from realvsr_tpu_torch.utils import trace
 
 
 def collate(samples: list[dict]) -> dict:
@@ -87,36 +95,43 @@ class TrainLoader:
                 return self.dataset.get(int(idx), rng)
             return self.dataset[int(idx)]
 
-        def put(item) -> bool:
-            while not cancel.is_set():
-                try:
-                    q.put(item, timeout=0.1)
-                    return True
-                except queue.Full:
-                    continue
+        def put(item, req=None) -> bool:
+            with trace.span("loader.put_wait", req):
+                while not cancel.is_set():
+                    try:
+                        q.put(item, timeout=0.1)
+                        return True
+                    except queue.Full:
+                        continue
             return False
 
         def producer():
             try:
                 with ThreadPoolExecutor(self.num_workers) as pool:
                     for b in range(n_batches):
+                        req = (epoch, b)
                         chunk = indices[b * self.batch_size:
                                         (b + 1) * self.batch_size]
                         args = [(b * self.batch_size + i, ix)
                                 for i, ix in enumerate(chunk)]
-                        if not put(collate(list(pool.map(fetch_sample,
-                                                         args)))):
+                        with trace.span("loader.fetch", req):
+                            samples = list(pool.map(fetch_sample, args))
+                        with trace.span("loader.collate", req):
+                            batch = collate(samples)
+                        if not put(batch, req):
                             return
             except Exception as exc:  # the consumer raises it
                 put(_Failure(exc))
                 return
-            put(done)
+            put(done, (epoch, n_batches))
 
         t = threading.Thread(target=producer, daemon=True)
         t.start()
         try:
-            while True:
-                item = q.get()
+            for b in itertools.count():
+                trace.count("loader.ready", q.qsize())
+                with trace.span("loader.wait", (epoch, b)):
+                    item = q.get()
                 if item is done:
                     break
                 if isinstance(item, _Failure):

@@ -37,7 +37,9 @@ output channels counts in ``conv3x3.launches``, one with any other width in
 ``conv3x3_fused.launches``, so the two rows of the TPU table keep their own
 counts; of these, the launches on 32-byte chunks (narrow inputs) count in
 ``conv3x3_narrow.launches`` too.  For a CPU tensor it runs
-:func:`conv3x3_plain`.
+:func:`conv3x3_plain`.  Either way a call is one ``kernel.conv3x3`` span
+(``utils/trace.py``), and each of the backward's cuDNN calls one
+``kernel.conv3x3_bwd``.
 :func:`conv3x3_fused` is the JAX-named entry (one input, no ``x2``).
 :func:`conv3x3_autograd` is the differentiable op (the counterpart of the
 JAX custom VJP ``conv3x3``): the kernel forward, and a backward through
@@ -62,6 +64,7 @@ import torch.nn.functional as F
 from realvsr_tpu_torch.csrc.gen_wgmma import WIDTHS
 from realvsr_tpu_torch.ops.deform_conv import act_grad, apply_act
 from realvsr_tpu_torch.ops.kernels import _build
+from realvsr_tpu_torch.utils import trace
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # x1, c1, x2, c2, weight, packed, bias, residual, out, B, H, W, cout, n,
@@ -306,7 +309,16 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor,
     3), any cout >= 1; bias (cout,) or None; residual (B, H, W, cout) or
     None.  All contiguous and 16-byte aligned, of one dtype, bf16 or f32
     (f32 runs the tensor cores in TF32); c1 and c2 multiples of 16.
+    Traced as one ``kernel.conv3x3`` span a call
+    (:func:`realvsr_tpu_torch.utils.trace.kernel`).
     """
+    with trace.kernel("kernel.conv3x3", x, weight, x2, act=act):
+        return _conv3x3(x, weight, bias, act, residual, x2)
+
+
+def _conv3x3(x, weight, bias, act, residual, x2):
+    """:func:`conv3x3` inside its span (it calls itself under the tensor's
+    device, which opens no second span)."""
     if x.device.type == "cpu":
         return conv3x3_plain(x, weight, bias, act, residual, x2)
     if not x.is_cuda:
@@ -328,7 +340,7 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor,
     dt, dev = x.dtype, x.device
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
-            return conv3x3(x, weight, bias, act, residual, x2)
+            return _conv3x3(x, weight, bias, act, residual, x2)
     _build.check_tensor(x, "x", (b, h, w, c1), dt, dev)
     if x2 is not None:
         _build.check_tensor(x2, "x2", (b, h, w, c2), dt, dev)
@@ -410,11 +422,12 @@ def _grad_conv(x, weight, g_nchw, bias):
     """(d input, d weight, d bias or None) of a 3x3 / s1 / p1 conv of NHWC
     ``x`` for the NCHW cotangent ``g_nchw``, in the input dtype: one
     ``convolution_backward`` with the real weight, as ``F.conv2d``'s own
-    autograd calls it (cuDNN on the card)."""
-    dx, dw, db = torch.ops.aten.convolution_backward(
-        g_nchw, x.permute(0, 3, 1, 2), weight.contiguous(),
-        [weight.shape[0]] if bias else None, [1, 1], [1, 1], [1, 1], False,
-        [0, 0], 1, [True, True, bias])
+    autograd calls it (cuDNN on the card); a ``kernel.conv3x3_bwd`` span."""
+    with trace.kernel("kernel.conv3x3_bwd", x, weight):
+        dx, dw, db = torch.ops.aten.convolution_backward(
+            g_nchw, x.permute(0, 3, 1, 2), weight.contiguous(),
+            [weight.shape[0]] if bias else None, [1, 1], [1, 1], [1, 1],
+            False, [0, 0], 1, [True, True, bias])
     return dx.permute(0, 2, 3, 1), dw, db
 
 

@@ -53,9 +53,10 @@ Two forms of the offsets and mask, one kernel each way:
 Each launches its kernel for a CUDA tensor (or raises on what the kernel
 does not take) and counts the launch in ``dcn_fwd.launches`` /
 ``dcn_bwd.launches``; for a CPU tensor it runs the plain version beside it
-(``*_plain``).  The autograd forms undo the fused activation and bias
-before the backward kernel, as the JAX package adds the bias outside its
-kernel and leaves its gradient to XLA.
+(``*_plain``).  Either way a call is one ``kernel.dcn_fwd`` /
+``kernel.dcn_bwd`` span (``utils/trace.py``).  The autograd forms undo the
+fused activation and bias before the backward kernel, as the JAX package
+adds the bias outside its kernel and leaves its gradient to XLA.
 """
 from __future__ import annotations
 
@@ -70,6 +71,7 @@ from realvsr_tpu_torch.ops.deform_conv import (act_grad,
                                                modulated_deform_conv_plain,
                                                split_om)
 from realvsr_tpu_torch.ops.kernels import _build
+from realvsr_tpu_torch.utils import trace
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # x, off, off_stride, msk, msk_stride, logits, weight, packed, bias, out,
@@ -751,15 +753,19 @@ def dcn_fwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     (DCNv1); weight (Cout, Cin, 3, 3); bias (Cout,) or None; act None /
     "relu" / "lrelu"; max_offset None (exact) or R (offsets clamped to [-R,
     R]); any widths with dg dividing Cin (:func:`route`).  All of one
-    dtype, bf16 or f32 (f32 runs the tensor cores in TF32).
+    dtype, bf16 or f32 (f32 runs the tensor cores in TF32).  Traced as a
+    ``kernel.dcn_fwd`` span (:func:`realvsr_tpu_torch.utils.trace.kernel`),
+    as :func:`dcn_fwd_om` is.
     """
-    if x.device.type == "cpu":
-        return dcn_fwd_plain(x, offset, mask, weight, bias, deformable_groups,
-                             act, max_offset)
-    out = launch_fwd(x, offset, mask, weight, bias, deformable_groups, act,
-                     max_offset)
-    dcn_fwd.launches += 1
-    return out
+    with trace.kernel("kernel.dcn_fwd", x, weight,
+                      groups=deformable_groups, act=act):
+        if x.device.type == "cpu":
+            return dcn_fwd_plain(x, offset, mask, weight, bias,
+                                 deformable_groups, act, max_offset)
+        out = launch_fwd(x, offset, mask, weight, bias, deformable_groups,
+                         act, max_offset)
+        dcn_fwd.launches += 1
+        return out
 
 
 def dcn_fwd_om(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
@@ -768,13 +774,15 @@ def dcn_fwd_om(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
                max_offset: float | None = None) -> torch.Tensor:
     """:func:`dcn_fwd` with the offsets and mask logits read in place from
     ``om`` (B, H, W, dg*27); counted in ``dcn_fwd.launches``."""
-    if x.device.type == "cpu":
-        return dcn_fwd_om_plain(x, om, weight, bias, deformable_groups, act,
-                                max_offset)
-    out = _launch_fwd(x, None, None, om, weight, bias, deformable_groups,
-                      act, max_offset)
-    dcn_fwd.launches += 1
-    return out
+    with trace.kernel("kernel.dcn_fwd", x, weight,
+                      groups=deformable_groups, act=act):
+        if x.device.type == "cpu":
+            return dcn_fwd_om_plain(x, om, weight, bias, deformable_groups,
+                                    act, max_offset)
+        out = _launch_fwd(x, None, None, om, weight, bias, deformable_groups,
+                          act, max_offset)
+        dcn_fwd.launches += 1
+        return out
 
 
 def launch_fwd(x, offset, mask, weight, bias, deformable_groups, act,
@@ -890,13 +898,15 @@ def dcn_bwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     Same inputs and layouts as :func:`dcn_fwd`.  dx and dweight are summed
     in f32 with atomics (the order of the sums changes from run to run) and
     cast to the input dtype; doffset is zero where the clamp cut the offset
-    (the gate passes on [-R, R] inclusive).
+    (the gate passes on [-R, R] inclusive).  Traced as a ``kernel.dcn_bwd``
+    span, as :func:`dcn_bwd_om` is.
     """
-    if x.device.type == "cpu":
-        return dcn_bwd_plain(x, offset, mask, weight, g, deformable_groups,
-                             max_offset)
-    return _launch_bwd(x, offset, mask, None, weight, g, deformable_groups,
-                       max_offset)
+    with trace.kernel("kernel.dcn_bwd", x, weight, groups=deformable_groups):
+        if x.device.type == "cpu":
+            return dcn_bwd_plain(x, offset, mask, weight, g,
+                                 deformable_groups, max_offset)
+        return _launch_bwd(x, offset, mask, None, weight, g,
+                           deformable_groups, max_offset)
 
 
 def dcn_bwd_om(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
@@ -905,11 +915,12 @@ def dcn_bwd_om(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
     """:func:`dcn_bwd` from ``om``: (dx, dom, dweight), dom the gradient of
     ``om`` (B, H, W, dg*27) — the offset gradient as it is and the mask
     gradient times s (1 - s); counted in ``dcn_bwd.launches``."""
-    if x.device.type == "cpu":
-        return dcn_bwd_om_plain(x, om, weight, g, deformable_groups,
-                                max_offset)
-    return _launch_bwd(x, None, None, om, weight, g, deformable_groups,
-                       max_offset)
+    with trace.kernel("kernel.dcn_bwd", x, weight, groups=deformable_groups):
+        if x.device.type == "cpu":
+            return dcn_bwd_om_plain(x, om, weight, g, deformable_groups,
+                                    max_offset)
+        return _launch_bwd(x, None, None, om, weight, g, deformable_groups,
+                           max_offset)
 
 
 dcn_bwd.launches = 0

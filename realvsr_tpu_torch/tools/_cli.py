@@ -12,7 +12,7 @@ import torch
 
 from realvsr_tpu_torch.core.config import parse
 from realvsr_tpu_torch.eval.sliding_window import (
-    make_forward, sliding_window_infer)
+    CLIP_IDS, make_forward, sliding_window_infer, to_host)
 from realvsr_tpu_torch.eval.streaming import StreamingRunner
 from realvsr_tpu_torch.eval.tiled import make_batched_tiled_forward
 from realvsr_tpu_torch.models import define_g
@@ -58,8 +58,12 @@ def restorer(args, opt, model):
         if args.flip_test or args.tile is not None:
             raise ValueError("streaming takes no flip test and no tiles")
         runner = StreamingRunner(model, None, padding, device)
-        return lambda frames: enumerate(
-            out.float().cpu().numpy() for out in runner.run_lazy(frames))
+
+        def stream(frames):
+            clip = next(CLIP_IDS)
+            return ((t, to_host(out, (clip, t)))
+                    for t, out in enumerate(runner.run_lazy(frames)))
+        return stream
     if args.tile is not None:
         forward = make_batched_tiled_forward(
             model, None, tuple(args.tile), args.overlap,

@@ -10,7 +10,13 @@ each of the N processes drives ``cuda:LOCAL_RANK`` (or the CPU) and takes
 ``gloo`` on the CPU.  The DCN offsets are
 clamped to ±8 px unless ``--dcn_max_offset`` says otherwise (0: the exact
 DCN), as the JAX package trains its frame path.  ``--profile`` writes a
-torch.profiler trace of steps 10-15 to ``<experiments_root>/profile``.
+torch.profiler trace of steps 10-15 to ``<experiments_root>/profile``:
+``trace.json`` (Chrome trace format), ``summary.txt`` (ops by time) and
+``spans.json``, the port's own spans and counters of those steps
+(``realvsr_tpu_torch/utils/trace.py``: the loop's upload and step, the
+step's phases, each kernel call with its shape, the loader thread's fetch,
+collate and queue) in Unix nanoseconds, the clock torch.profiler puts its
+events on.
 """
 from __future__ import annotations
 

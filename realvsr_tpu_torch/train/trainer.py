@@ -54,6 +54,7 @@ from realvsr_tpu_torch.train import checkpoint as ckpt
 from realvsr_tpu_torch.train.gan import create_gan_train_state
 from realvsr_tpu_torch.train.state import create_train_state
 from realvsr_tpu_torch.train.wrappers import make_eval_step, make_train_step
+from realvsr_tpu_torch.utils import trace
 
 logger = logging.getLogger("base")
 
@@ -264,7 +265,11 @@ class Trainer:
 
     def _profile(self, prof):
         """Start (returns the profiler) or stop (returns None) the trace at
-        the ``profile_steps`` window."""
+        the ``profile_steps`` window.  The window's torch.profiler trace
+        goes to ``profile/trace.json``; the spans and counters of
+        :mod:`~realvsr_tpu_torch.utils.trace` recorded in it, the loader
+        thread's too, to ``profile/spans.json`` on the same Unix-ns
+        clock."""
         if self.profile_steps is None:
             return prof
         start, stop = self.profile_steps
@@ -273,6 +278,7 @@ class Trainer:
             if self.device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             prof = torch.profiler.profile(activities=acts)
+            trace.clear()
             prof.__enter__()
         elif self.current_step == stop and prof is not None:
             if self.device.type == "cuda":
@@ -281,6 +287,7 @@ class Trainer:
             out = osp.join(self.opt["path"]["experiments_root"], "profile")
             os.makedirs(out, exist_ok=True)
             prof.export_chrome_trace(osp.join(out, "trace.json"))
+            trace.save(osp.join(out, "spans.json"))
             sort = ("cuda_time_total" if self.device.type == "cuda"
                     else "cpu_time_total")
             with open(osp.join(out, "summary.txt"), "w") as f:
@@ -319,11 +326,13 @@ class Trainer:
                     if self.current_step > self.total_iters:
                         break
                     prof = self._profile(prof)
-                    device_batch = {
-                        k: torch.from_numpy(batch[k]).to(self.device)
-                        for k in ("LQs", "GT")}
-                    self.state, logs = self.train_step(self.state,
-                                                       device_batch, self.gen)
+                    with trace.span("train.upload", self.current_step):
+                        device_batch = {
+                            k: torch.from_numpy(batch[k]).to(self.device)
+                            for k in ("LQs", "GT")}
+                    with trace.span("train.step", self.current_step):
+                        self.state, logs = self.train_step(
+                            self.state, device_batch, self.gen)
 
                     if self.current_step % print_freq == 0:
                         logs = _mean_logs(logs, self.device)

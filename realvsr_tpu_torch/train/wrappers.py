@@ -18,7 +18,10 @@ at inference, so FSTRN trains without its dropout (``models/fstrn.py``).
 
 Each ``make_*_train_step`` returns ``train_step(state, batch, gen) ->
 (state, logs)``: augment, forward, loss, backward and one optimizer update
-of the :class:`~realvsr_tpu_torch.train.state.TrainState` (in place).  Batches are
+of the :class:`~realvsr_tpu_torch.train.state.TrainState` (in place), each
+a span of :mod:`~realvsr_tpu_torch.utils.trace` (``train.augment``,
+``train.forward``, ``train.loss``, ``train.backward`` with the gradients'
+average, ``train.optimizer``).  Batches are
 ``{'LQs': (B, T, H, W, C), 'GT': (B, T, H, W, C)}`` tensors on the model's
 device (AllPair layout; the loss takes the centre frame); ``gen`` is the
 augmentations' generator on that device.  ``logs`` are 0-d tensors, read
@@ -42,6 +45,7 @@ from realvsr_tpu_torch.data.augments import apply_augment
 from realvsr_tpu_torch.losses import get_pixel_criterion, pyramid_loss
 from realvsr_tpu_torch.models.common import updating_batch_stats
 from realvsr_tpu_torch.parallel.mesh import average_gradients
+from realvsr_tpu_torch.utils import trace
 
 
 def _maybe_augment(opt: dict, gen, gt, lq):
@@ -62,10 +66,12 @@ def _forward_train(model, lq: torch.Tensor) -> torch.Tensor:
 
 
 def _update(state, loss: torch.Tensor) -> None:
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    average_gradients(state.model.parameters())
-    state.apply_gradients()
+    with trace.span("train.backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        average_gradients(state.model.parameters())
+    with trace.span("train.optimizer"):
+        state.apply_gradients()
 
 
 def make_split_train_step(model, opt: dict) -> Callable:
@@ -77,12 +83,15 @@ def make_split_train_step(model, opt: dict) -> Callable:
     w_c = float(train_opt["pixel_weight_c"])
 
     def train_step(state, batch, gen):
-        gt, lq = _maybe_augment(opt, gen, batch["GT"], batch["LQs"])
-        gt_c = gt[:, lq.shape[1] // 2]
-        pred = _forward_train(state.model, lq)
-        l_y = w_y * cri_y(pred[..., 0:1], gt_c[..., 0:1])
-        l_c = w_c * cri_c(pred[..., 1:3], gt_c[..., 1:3])
-        l_pix = l_y + l_c
+        with trace.span("train.augment"):
+            gt, lq = _maybe_augment(opt, gen, batch["GT"], batch["LQs"])
+            gt_c = gt[:, lq.shape[1] // 2]
+        with trace.span("train.forward"):
+            pred = _forward_train(state.model, lq)
+        with trace.span("train.loss"):
+            l_y = w_y * cri_y(pred[..., 0:1], gt_c[..., 0:1])
+            l_c = w_c * cri_c(pred[..., 1:3], gt_c[..., 1:3])
+            l_pix = l_y + l_c
         _update(state, l_pix)
         return state, {"l_pix_y": l_y.detach(), "l_pix_c": l_c.detach(),
                        "l_pix": l_pix.detach()}
@@ -119,23 +128,26 @@ def make_combine_train_step(model, opt: dict,
         w_edg = float(train_opt["edge_weight"])
 
     def train_step(state, batch, gen):
-        gt, lq = _maybe_augment(opt, gen, batch["GT"], batch["LQs"])
-        gt_c = gt[:, lq.shape[1] // 2]
-        pred = _forward_train(state.model, lq)
-        l_pix = w_pix * cri_pix(pred, gt_c)
-        logs = {"l_pix": l_pix.detach()}
-        l_tot = l_pix
-        if cri_edg is not None:
-            l_edg = w_edg * cri_edg(pred, gt_c)
-            logs["l_edg"] = l_edg.detach()
-            l_tot = l_tot + l_edg
-        if cri_fea is not None:
-            with torch.no_grad():
-                real_fea = feature_apply(gt_c)
-            l_fea = w_fea * cri_fea(feature_apply(pred), real_fea)
-            logs["l_fea"] = l_fea.detach()
-            l_tot = l_tot + l_fea
-        logs["l_tot"] = l_tot.detach()
+        with trace.span("train.augment"):
+            gt, lq = _maybe_augment(opt, gen, batch["GT"], batch["LQs"])
+            gt_c = gt[:, lq.shape[1] // 2]
+        with trace.span("train.forward"):
+            pred = _forward_train(state.model, lq)
+        with trace.span("train.loss"):
+            l_pix = w_pix * cri_pix(pred, gt_c)
+            logs = {"l_pix": l_pix.detach()}
+            l_tot = l_pix
+            if cri_edg is not None:
+                l_edg = w_edg * cri_edg(pred, gt_c)
+                logs["l_edg"] = l_edg.detach()
+                l_tot = l_tot + l_edg
+            if cri_fea is not None:
+                with torch.no_grad():
+                    real_fea = feature_apply(gt_c)
+                l_fea = w_fea * cri_fea(feature_apply(pred), real_fea)
+                logs["l_fea"] = l_fea.detach()
+                l_tot = l_tot + l_fea
+            logs["l_tot"] = l_tot.detach()
         _update(state, l_tot)
         return state, logs
 

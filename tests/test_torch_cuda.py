@@ -1461,3 +1461,55 @@ def test_ssim_pools_backward_on_card_matches_cpu(cuda, which):
     torch.testing.assert_close(y1, y0, rtol=0, atol=1e-5)
     torch.testing.assert_close(d1, d0, rtol=0,
                                atol=1e-4 * d0.abs().max().item())
+
+
+def test_flagship_window_kernel_spans_match_the_launch_counters(cuda):
+    """One flagship window (EDVR_NoUp at its published widths and depth,
+    bf16) through the restore entry under torch.profiler: its
+    ``kernel.conv3x3`` and ``kernel.dcn_fwd`` spans equal the launch
+    counters' deltas over the window, the frame's restore spans are there
+    once each, and each restore span agrees with the profiler's event of
+    it within 50 us at both ends (the median over the spans)."""
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from realvsr_tpu_torch.eval.sliding_window import (make_forward,
+                                                       sliding_window_infer)
+    from realvsr_tpu_torch.models.edvr import EDVRNoUp
+    from realvsr_tpu_torch.utils import trace
+
+    model = EDVRNoUp(nf=64, nframes=3, groups=8, front_RBs=5, back_RBs=10,
+                     w_TSA=False, dcn_max_offset=4, device=cuda,
+                     dtype=torch.bfloat16)
+    fwd = make_forward(model)
+    clip = torch.rand(3, 64, 128, 3, generator=_gen(40)).numpy()
+    next(sliding_window_infer(fwd, clip, 3, device=cuda))   # warm-up
+    trace.clear()
+    n = (conv3x3.launches + conv3x3_fused.launches, dcn_fwd.launches)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        idx, out = next(sliding_window_infer(fwd, clip, 3, device=cuda))
+    torch.cuda.synchronize()
+    delta = (conv3x3.launches + conv3x3_fused.launches - n[0],
+             dcn_fwd.launches - n[1])
+    spans = trace.spans()
+    got = (sum(s.name == "kernel.conv3x3" for s in spans),
+           sum(s.name == "kernel.dcn_fwd" for s in spans))
+    print(f"kernel spans {got}, launch counter deltas {delta}")
+    assert got == delta and delta[0] > 0 and delta[1] == 4
+    assert idx == 0 and out.shape == (64, 128, 3)
+    phases = [s for s in spans if s.name.startswith("restore.")]
+    assert sorted(s.name for s in phases) == [
+        "restore.download", "restore.forward", "restore.gather",
+        "restore.upload", "restore.wait"]
+    events = {e.name(): e for e in prof.profiler.kineto_results.events()
+              if e.name().startswith("restore.")
+              and "CUDA" not in str(e.device_type())}
+    gaps = [(abs(events[s.name].start_ns() - s.start_ns),
+             abs(events[s.name].start_ns() + events[s.name].duration_ns()
+                 - s.end_ns)) for s in phases]
+    print(f"restore spans against the profiler's events, ns: {gaps}")
+    assert statistics.median(g[0] for g in gaps) < 50_000
+    assert statistics.median(g[1] for g in gaps) < 50_000
+    trace.clear()
