@@ -51,7 +51,15 @@ def restorer(args, opt, model):
     model's ``nframes``, each window restored whole or, with ``--tile H W``,
     in tiles run as one batch
     (:func:`~realvsr_tpu_torch.eval.tiled.make_batched_tiled_forward`),
-    ``--flip_test`` averaging its four flipped forwards."""
+    ``--flip_test`` averaging its four flipped forwards.
+
+    Each frame is the caller's own float32 array, in pinned host memory
+    when the model runs on CUDA (``eval/sliding_window.py::Download``).
+    The sliding window runs one window ahead from the second ask, its next
+    forward queued before a frame's download is waited for;
+    ``--streaming`` downloads each frame through
+    :func:`~realvsr_tpu_torch.eval.sliding_window.to_host` as its stream
+    yields it, with no look-ahead."""
     padding = opt["datasets"]["test"].get("padding") or "replicate"
     device = next(model.parameters()).device
     if args.streaming:

@@ -1513,3 +1513,114 @@ def test_flagship_window_kernel_spans_match_the_launch_counters(cuda):
     assert statistics.median(g[0] for g in gaps) < 50_000
     assert statistics.median(g[1] for g in gaps) < 50_000
     trace.clear()
+
+
+def _restore_model(cuda):
+    """The flagship at its widths, cut depth, bf16, and a 6-frame clip of
+    64 x 128."""
+    from realvsr_tpu_torch.eval.sliding_window import make_forward
+    from realvsr_tpu_torch.models.edvr import EDVRNoUp
+
+    model = EDVRNoUp(nf=64, nframes=3, groups=8, front_RBs=1, back_RBs=1,
+                     dcn_max_offset=4, device=cuda, dtype=torch.bfloat16,
+                     generator=_gen(50))
+    frames = np.random.default_rng(51).random((6, 64, 128, 3)).astype(
+        np.float32)
+    return make_forward(model), frames
+
+
+def _synchronous_frames(fwd, frames, cuda):
+    """Frame by frame, each output cast, waited for and copied to pageable
+    host memory before the next window runs."""
+    from realvsr_tpu_torch.utils.indexing import index_generation
+
+    clip = torch.from_numpy(frames).to(cuda)
+    out = []
+    for t in range(frames.shape[0]):
+        window = clip[index_generation(t, frames.shape[0], 3,
+                                       padding="replicate")]
+        y = fwd(window).float()
+        torch.cuda.synchronize()
+        out.append(y.cpu().numpy())
+    return out
+
+
+def test_run_ahead_restore_equals_the_synchronous_frames(cuda):
+    """The restore entry (pinned downloads, one window ahead) against the
+    synchronous loop on a short bf16 clip: bit for bit where two
+    synchronous runs agree bit for bit (deterministic kernels), else within
+    the restore cells' frame gap (0.05 of the residual's rms)."""
+    from realvsr_tpu_torch.eval.sliding_window import sliding_window_infer
+
+    fwd, frames = _restore_model(cuda)
+    ref = _synchronous_frames(fwd, frames, cuda)
+    again = _synchronous_frames(fwd, frames, cuda)
+    got = list(sliding_window_infer(fwd, frames, 3, device=cuda))
+    assert [i for i, _ in got] == list(range(frames.shape[0]))
+    exact = all(np.array_equal(a, b) for a, b in zip(ref, again))
+    for (_, g), r, x in zip(got, ref, frames):
+        assert g.dtype == np.float32 and g.shape == r.shape
+        gap = np.sqrt(np.mean((g - r) ** 2)) / np.sqrt(np.mean((r - x) ** 2))
+        print(f"deterministic {exact}, max abs diff {np.abs(g - r).max()}, "
+              f"gap {gap}")
+        assert np.array_equal(g, r) if exact else gap <= 0.05
+
+
+def test_run_ahead_frames_are_pinned_and_stay_intact(cuda):
+    """Each frame handed back lies on its own pinned tensor and does not
+    change while three more frames are handed back."""
+    from realvsr_tpu_torch.eval.sliding_window import sliding_window_infer
+
+    fwd, frames = _restore_model(cuda)
+    kept, copies = [], []
+    for _, out in sliding_window_infer(fwd, frames, 3, device=cuda):
+        assert isinstance(out.base, torch.Tensor) and out.base.is_pinned()
+        assert not any(np.shares_memory(out, k) for k in kept)
+        kept.append(out)
+        copies.append(out.copy())
+        if len(kept) >= 4:
+            assert np.array_equal(kept[-4], copies[-4])
+    assert all(np.array_equal(a, b) for a, b in zip(kept, copies))
+
+
+def test_run_ahead_gather_and_forward_never_wait_on_the_host(cuda):
+    """A profiled frame past the second (the third ask, which gathers and
+    launches the fourth window): no synchronize call and no blocking
+    ``cudaMemcpy`` inside that window's ``restore.gather`` or
+    ``restore.forward``, which launch kernels; the frame's own wait is an
+    event's synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from realvsr_tpu_torch.eval.sliding_window import sliding_window_infer
+    from realvsr_tpu_torch.utils import trace
+
+    fwd, frames = _restore_model(cuda)
+    it = sliding_window_infer(fwd, frames, 3, device=cuda)
+    next(it)
+    next(it)
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        idx, _ = next(it)
+    it.close()
+    assert idx == 2
+    spans = {s.name: s for s in trace.spans() if s.req[1:] == (3,)
+             and s.name in ("restore.gather", "restore.forward")}
+    waits = trace.spans("restore.wait")
+    assert spans.keys() == {"restore.gather", "restore.forward"}
+    calls = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.name().startswith(("cuda", "cu"))
+             and "CUDA" not in str(e.device_type())]
+    inside = {n: [c for c, a, b in calls
+                  if s.start_ns <= a and b <= s.end_ns]
+              for n, s in spans.items()}
+    print({n: sorted(set(c)) for n, c in inside.items()})
+    assert any("Launch" in c for c in inside["restore.forward"])
+    for n, c in inside.items():
+        bad = [x for x in c if "Synchronize" in x or x == "cudaMemcpy"]
+        assert not bad, (n, bad)
+    (w,) = waits
+    assert any(c == "cudaEventSynchronize" and w.start_ns <= a
+               and b <= w.end_ns for c, a, b in calls)
+    trace.clear()

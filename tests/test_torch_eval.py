@@ -98,6 +98,106 @@ def test_sliding_window_windows_follow_index_generation():
     assert seen == [[0, 0, 1], [0, 1, 2], [1, 2, 3], [2, 3, 4], [3, 4, 4]]
 
 
+class _Recorder:
+    """A window forward that records the frames of each window it is
+    called on (the frames' values are their indices) and returns a fresh
+    output of ``dtype`` mixing the window's frames."""
+
+    def __init__(self, dtype=torch.float32):
+        self.calls, self.dtype = [], dtype
+
+    def __call__(self, window):
+        self.calls.append(window[:, 0, 0, 0].long().tolist())
+        w = torch.arange(1, window.shape[0] + 1, dtype=window.dtype)
+        return (window * w[:, None, None, None]).sum(0).to(self.dtype)
+
+
+def _indexed_clip(n, h=4, w=6):
+    """(n, h, w, 3) float32 frames: frame t is t plus a small texture."""
+    tex = np.random.default_rng(n).random((h, w, 3), dtype=np.float32)
+    return (np.arange(n, dtype=np.float32)[:, None, None, None]
+            + 0.25 * tex)
+
+
+def test_first_ask_runs_its_own_window_alone():
+    fwd = _Recorder()
+    frames = sliding_window_infer(fwd, _indexed_clip(6), 3, device="cpu")
+    idx, _ = next(frames)
+    assert idx == 0 and fwd.calls == [[0, 0, 1]]
+    frames.close()
+
+
+def test_each_later_ask_has_launched_the_next_window():
+    """From the second ask on, frame k is handed back after frame k+1's
+    forward was called; the last frame launches nothing."""
+    n = 6
+    fwd = _Recorder()
+    frames = sliding_window_infer(fwd, _indexed_clip(n), 3, device="cpu")
+    for k in range(n):
+        idx, _ = next(frames)
+        assert idx == k
+        assert len(fwd.calls) == (1 if k == 0 else min(k + 2, n))
+    with pytest.raises(StopIteration):
+        next(frames)
+    assert len(fwd.calls) == n
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 7])
+@pytest.mark.parametrize("flip_test", [False, True], ids=["plain", "flips"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_run_ahead_frames_equal_the_frame_by_frame_ones(n, flip_test,
+                                                        dtype):
+    """The frames, their order and indices equal a synchronous loop's, bit
+    for bit: the window of index_generation, the forward, float32 numpy."""
+    from realvsr_tpu_torch.eval.sliding_window import flipx4_forward
+    from realvsr_tpu_torch.utils.indexing import index_generation
+
+    clip = _indexed_clip(n)
+    got = list(sliding_window_infer(_Recorder(dtype), clip, 5,
+                                    padding="reflection" if n > 2
+                                    else "replicate",
+                                    flip_test=flip_test, device="cpu"))
+    fwd = _Recorder(dtype)
+    want = []
+    for t in range(n):
+        window = torch.from_numpy(clip[index_generation(
+            t, n, 5, padding="reflection" if n > 2 else "replicate")])
+        out = flipx4_forward(fwd, window) if flip_test else fwd(window)
+        want.append(out.float().cpu().numpy())
+    assert [i for i, _ in got] == list(range(n))
+    for (_, a), b in zip(got, want):
+        assert a.dtype == np.float32 and a.shape == b.shape
+        assert np.array_equal(a, b)
+
+
+def test_close_mid_clip_drops_the_queued_window():
+    fwd = _Recorder()
+    frames = sliding_window_infer(fwd, _indexed_clip(8), 3, device="cpu")
+    for _ in range(3):
+        next(frames)
+    assert len(fwd.calls) == 4
+    frames.close()
+    assert len(fwd.calls) == 4
+    with pytest.raises(StopIteration):
+        next(frames)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_kept_frames_are_the_callers_own(dtype):
+    """Frames kept by the caller share no memory and do not change as
+    later frames are handed back."""
+    kept, copies = [], []
+    for _, out in sliding_window_infer(_Recorder(dtype), _indexed_clip(6), 3,
+                                       device="cpu"):
+        kept.append(out)
+        copies.append(out.copy())
+    for i, a in enumerate(kept):
+        assert np.array_equal(a, copies[i])
+        assert not any(np.shares_memory(a, b) for b in kept[i + 1:])
+
+
 def test_cli_test_wi_gt_on_cpu(clip, tmp_path, monkeypatch):
     """``python -m realvsr_tpu_torch.tools.test_wi_gt`` from a YAML and a
     torch .pth gives the library's summary."""

@@ -8,6 +8,7 @@ import json
 import os
 import statistics
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -150,6 +151,52 @@ def test_restore_entry_spans_share_the_frames_request(flip_test):
              if s.name.startswith("restore.") and s.req == (clip, 1)]
     assert order == ["restore.gather", "restore.forward", "restore.wait",
                      "restore.download"]
+
+
+@pytest.mark.parametrize("n,want", [(1, [0]), (2, [0, 0]), (4, [0, 0, 1, 1]),
+                                    (6, [0, 0, 1, 1, 1, 1])])
+def test_restore_ahead_counts_the_windows_launched_early(n, want):
+    """``restore.ahead``: one sample a frame, 1 where the frame's window
+    was launched before the caller asked for it."""
+    frames = np.random.default_rng(n).random((n, 8, 12, 3),
+                                             dtype=np.float32)
+    with _profiled(), torch.no_grad():
+        out = list(sliding_window_infer(_Tiny(3), frames, 3, device="cpu"))
+    assert len(out) == n
+    assert [c.value for c in trace.counters("restore.ahead")] == want
+
+
+def test_run_ahead_spans_keep_their_frame():
+    """Running one window ahead, each phase keeps one span a frame with its
+    (clip, index); frame k+1's gather and forward run inside frame k's ask,
+    after frame k's forward and before its wait.  Closed after three asks
+    of six frames: four windows launched, three handed back."""
+    frames = np.random.default_rng(1).random((6, 8, 12, 3),
+                                             dtype=np.float32)
+    with _profiled(), torch.no_grad():
+        it = sliding_window_infer(_Tiny(3), frames, 3, device="cpu")
+        asks = []
+        for _ in range(3):
+            a = time.time_ns()
+            next(it)
+            asks.append((a, time.time_ns()))
+        it.close()
+    (upload,) = trace.spans("restore.upload")
+    clip = upload.req[0]
+    by = {p: {s.req: s for s in trace.spans(f"restore.{p}")}
+          for p in ("gather", "forward", "wait", "download")}
+    for p, n in (("gather", 4), ("forward", 4), ("wait", 3),
+                 ("download", 3)):
+        assert [s.req for s in trace.spans(f"restore.{p}")] == [
+            (clip, i) for i in range(n)], p
+    for k in (1, 2):
+        nxt = (clip, k + 1)
+        a, b = asks[k]
+        assert a <= by["gather"][nxt].start_ns
+        assert by["forward"][(clip, k)].end_ns <= by["gather"][nxt].start_ns
+        assert by["forward"][nxt].end_ns <= by["wait"][(clip, k)].start_ns
+        assert by["download"][(clip, k)].end_ns <= b
+    assert by["forward"][(clip, 1)].start_ns >= asks[1][0]
 
 
 class _Toy:
