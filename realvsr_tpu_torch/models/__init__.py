@@ -3,7 +3,8 @@
 ``define_g`` / ``define_d`` / ``define_f`` dispatch on the same YAML keys
 and constructor options as the JAX package's
 ``realvsr_tpu/models/__init__.py``: every generator (EDVR_NoUp, EDVR,
-TDAN, TOF, FSTRN, RCAN; ``scale`` from the top of the config), every
+TDAN, TOF, FSTRN, RCAN; ``scale`` from the top of the config), and
+BasicVSR++ (``BasicVSRPlusPlus``, x4, which the JAX package lacks); every
 discriminator and the VGG19 feature extractor of the perceptual loss.
 Each takes ``device``, the compute ``dtype`` and the ``generator`` its
 weights are drawn from.
@@ -38,6 +39,16 @@ def define_g(opt: dict, *, device="cuda", dtype: torch.dtype = torch.float32,
                     nframes=opt_net["nframes"], nb_f=opt_net["nb_f"],
                     nb_b=opt_net["nb_b"], groups=opt_net["groups"],
                     scale=opt["scale"], **kw)
+    if which == "BasicVSRPlusPlus":
+        from realvsr_tpu_torch.models.basicvsr_pp import BasicVSRPlusPlus
+
+        if opt.get("scale", 4) != 4:
+            raise ValueError(f"BasicVSR++ restores x4, not x{opt['scale']}")
+        return BasicVSRPlusPlus(
+            mid_channels=opt_net["mid_channels"],
+            num_blocks=opt_net["num_blocks"],
+            max_residue_magnitude=opt_net.get("max_residue_magnitude", 10),
+            is_low_res_input=opt_net.get("is_low_res_input", True), **kw)
     kw.pop("dcn_max_offset")   # the models below have no DCN
     if which == "TOF":
         from realvsr_tpu_torch.models.tof import TOF

@@ -974,7 +974,10 @@ def dcn_autograd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                  max_offset: float | None = None) -> torch.Tensor:
     """Differentiable :func:`dcn_fwd`: forward :func:`dcn_fwd`, backward
     :func:`dcn_bwd` (the kernels for a CUDA tensor, their plain versions for
-    a CPU tensor)."""
+    a CPU tensor).  With gradients off, :func:`dcn_fwd` itself."""
+    if not torch.is_grad_enabled():
+        return dcn_fwd(x, offset, mask, weight, bias, deformable_groups, act,
+                       max_offset)
     return _DCN.apply(x, offset, mask, weight, bias, deformable_groups, act,
                       max_offset)
 
@@ -984,6 +987,10 @@ def dcn_om_autograd(x: torch.Tensor, om: torch.Tensor, weight: torch.Tensor,
                     deformable_groups: int = 8, act: str | None = None,
                     max_offset: float | None = None) -> torch.Tensor:
     """Differentiable :func:`dcn_fwd_om`: backward :func:`dcn_bwd_om`, so
-    the gradient of ``om`` comes out whole."""
+    the gradient of ``om`` comes out whole.  With gradients off,
+    :func:`dcn_fwd_om` itself."""
+    if not torch.is_grad_enabled():
+        return dcn_fwd_om(x, om, weight, bias, deformable_groups, act,
+                          max_offset)
     return _DCNOm.apply(x, om, weight, bias, deformable_groups, act,
                         max_offset)

@@ -11,6 +11,7 @@ from functools import partial
 import torch
 
 from realvsr_tpu_torch.core.config import parse
+from realvsr_tpu_torch.eval.recurrent import recurrent_infer
 from realvsr_tpu_torch.eval.sliding_window import (
     CLIP_IDS, make_forward, sliding_window_infer, to_host)
 from realvsr_tpu_torch.eval.streaming import StreamingRunner
@@ -59,9 +60,22 @@ def restorer(args, opt, model):
     forward queued before a frame's download is waited for;
     ``--streaming`` downloads each frame through
     :func:`~realvsr_tpu_torch.eval.sliding_window.to_host` as its stream
-    yields it, with no look-ahead."""
-    padding = opt["datasets"]["test"].get("padding") or "replicate"
+    yields it, with no look-ahead.
+
+    A model with a true ``recurrent`` class attribute (BasicVSR++) runs
+    over whole clips instead
+    (:func:`~realvsr_tpu_torch.eval.recurrent.recurrent_infer`), its
+    weights cast to its compute dtype here, once; it takes no flip test,
+    no tiles and no streaming (each raises)."""
     device = next(model.parameters()).device
+    if getattr(model, "recurrent", False):
+        if args.flip_test or args.tile is not None or args.streaming:
+            raise ValueError("a recurrent model restores whole clips: no "
+                             "flip test, tiles or streaming")
+        model.eval()
+        model.to(model.dtype)
+        return partial(recurrent_infer, model, device=device)
+    padding = opt["datasets"]["test"].get("padding") or "replicate"
     if args.streaming:
         if args.flip_test or args.tile is not None:
             raise ValueError("streaming takes no flip test and no tiles")

@@ -5,7 +5,8 @@ test_RealVSR_wi_GT.py).
 
 The YAML needs network_G, path.pretrain_model_G (a torch state dict) and
 datasets.test {dataroot_LQ, dataroot_GT, N_frames, color, padding}.  Runs
-on ``--device`` (default ``cuda``).
+on ``--device`` (default ``cuda``).  A recurrent model (BasicVSR++, no
+``nframes``) restores whole clips, every frame counted as a centre one.
 
 ``--flip_test`` averages the four flipped forwards of each window;
 ``--streaming`` restores each sequence as a stream, each frame's pyramid
@@ -24,7 +25,7 @@ def main(argv=None) -> dict:
     ds = opt["datasets"]["test"]
     return restore_wi_gt(
         restorer(args, opt, model), lq_root=ds["dataroot_LQ"],
-        gt_root=ds["dataroot_GT"], n_frames=opt["network_G"]["nframes"],
+        gt_root=ds["dataroot_GT"], n_frames=opt["network_G"]["nframes"] or 1,
         color=ds.get("color") or "YCbCr",
         crop_border=int(ds.get("crop_border") or 0),
         save_folder=results_root if args.save_imgs else None)

@@ -1624,3 +1624,147 @@ def test_run_ahead_gather_and_forward_never_wait_on_the_host(cuda):
     assert any(c == "cudaEventSynchronize" and w.start_ns <= a
                and b <= w.end_ns for c, a, b in calls)
     trace.clear()
+
+
+# ---- BasicVSR++ (models/basicvsr_pp.py, eval/recurrent.py) ----------------
+
+def _basicvsrpp(dev, mid=64, num_blocks=2, seed=3):
+    """BasicVSR++ at the published width (``mid``) with fewer blocks, on
+    the benchmark cell's seeded weights and gains (``portbench/``)."""
+    import json
+
+    from portbench.drivers.restore_recurrent import make_weights
+    from realvsr_tpu_torch.models import define_g
+
+    net = dict(which_model_G="BasicVSRPlusPlus", mid_channels=mid,
+               num_blocks=num_blocks, max_residue_magnitude=10,
+               is_low_res_input=True)
+    with open("portbench/configs/basicvsrpp.json") as f:
+        params = make_weights(json.load(f), seed, "cpu", torch.float32, net)
+    model = define_g({"network_G": net, "scale": 4}, device=dev)
+    model.load_state_dict(params, strict=True)
+    return model
+
+
+def test_basicvsrpp_on_card_matches_cpu_with_large_flows(cuda):
+    """The CUDA model (f32: the conv and DCN kernels in TF32, cuDNN's
+    SPyNet and ``grid_sample``) against the port's plain CPU path, 5 frames
+    at 64x96.  SPyNet's flows card vs CPU first; then both propagate the
+    same flows scaled to ~12 px rms (to 45 px: exact offsets whose corners
+    fall far outside a DCN tile) and reconstruct every frame.  Tolerance:
+    0.5% of each frame's residual rms (the card reads ~0.1%: TF32's ~1e-3
+    a conv carried through the four branches' recurrence); an offset
+    misplaced by a pixel reads ~O(1)."""
+    from realvsr_tpu_torch.models.basicvsr_pp import BRANCHES
+    from realvsr_tpu_torch.ops.resize import resize_bilinear
+
+    models = {"cpu": _basicvsrpp("cpu"), "cuda": _basicvsrpp(cuda)}
+    x = torch.rand(1, 5, 64, 96, 3, generator=_gen(7))
+    n = dcn_fwd.launches
+    with torch.no_grad():
+        fwd, bwd = models["cpu"].compute_flow(x)
+        fwd_c, bwd_c = models["cuda"].compute_flow(x.to(cuda))
+        for a, b in ((fwd, fwd_c), (bwd, bwd_c)):
+            assert max_abs_err(b.cpu(), a) <= 1e-3 * max(1.0, a.abs().max())
+        s = 12.0 / bwd.pow(2).mean().sqrt()
+        fwd, bwd = fwd * s, bwd * s
+        print(f"flow rms {bwd.pow(2).mean().sqrt():.2f} max "
+              f"{bwd.abs().max():.2f}")
+        out = {}
+        for dev, m in models.items():
+            lqs = x.to(dev)
+            feats = {"spatial": m.extract(lqs)}
+            for br in BRANCHES:
+                flows = bwd if br.startswith("backward") else fwd
+                m.propagate(feats, flows.to(dev), br)
+            out[dev] = torch.stack([m.reconstruct(lqs[:, t], feats, t)
+                                    for t in range(5)], 1).cpu()
+    torch.cuda.synchronize()
+    assert dcn_fwd.launches - n == 4 * 4
+    base = resize_bilinear(x[0], (256, 384))
+    for t in range(5):
+        res = (out["cpu"][0, t] - base[t]).pow(2).mean().sqrt()
+        gap = (out["cuda"][0, t] - out["cpu"][0, t]).pow(2).mean().sqrt()
+        print(f"frame {t}: gap {gap / res:.2e}")
+        assert gap <= 0.005 * res, t
+
+
+@pytest.mark.parametrize("om", [False, True], ids=["separate", "om"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dcn_at_basicvsrpp_alignment_exact_offsets(cuda, dtype, om):
+    """BasicVSR++'s alignment DCN on ``dcn_narrow.cu`` at its deployed
+    shape, (1, 180, 320) 128 -> 64 in 16 groups, exact offsets of flow
+    magnitude (a translation of (13.5, -17.25) px plus 4 px rms: corners
+    far outside a tile, many outside the frame), against the plain op."""
+    x, off, mask, wgt, bias, _ = _width_inputs((1, 180, 320, 128), 16,
+                                               dtype, cuda, seed=20, std=4.0,
+                                               cout=64)
+    off = (off.float() + torch.tensor([13.5, -17.25], device=cuda).repeat(
+        16 * 9)).to(dtype)
+    n = dcn_fwd.launches
+    if om:
+        t = _om(off, mask)
+        out = dcn_fwd_om(x, t, wgt, bias, 16)
+        ref = dcn_fwd_om_plain(x, t, wgt, bias, 16)
+    else:
+        out = dcn_fwd(x, off, mask, wgt, bias, 16)
+        ref = dcn_fwd_plain(x, off, mask, wgt, bias, 16)
+    torch.cuda.synchronize()
+    assert dcn_fwd.launches - n == 1
+    assert out.shape == ref.shape == (1, 180, 320, 64)
+    assert max_abs_err(out, ref) <= tolerance(ref)
+
+
+def test_recurrent_restore_never_waits_on_the_host_while_propagating(cuda):
+    """The recurrent entry's first ask of a second clip, profiled: no
+    synchronize call and no blocking ``cudaMemcpy`` inside
+    ``restore.extract``, ``restore.flow`` or ``restore.propagate`` (the
+    host launches the whole clip's propagation ahead of the device); the
+    frames equal the model's whole-clip forward (bf16, deterministic
+    kernels: within the restore cells' 0.05 of the residual otherwise)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from realvsr_tpu_torch.eval.recurrent import recurrent_infer
+    from realvsr_tpu_torch.utils import trace
+
+    model = _basicvsrpp(cuda, num_blocks=1)
+    model.dtype = torch.bfloat16
+    model.to(torch.bfloat16)
+    frames = torch.rand(4, 64, 64, 3, generator=_gen(9)).numpy()
+    with torch.inference_mode():
+        want = model(torch.from_numpy(frames).to(cuda)[None]).float().cpu()
+    first = list(recurrent_infer(model, frames, cuda))    # warm-up
+    trace.clear()
+    it = recurrent_infer(model, frames, cuda)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0, _ = next(it)
+    it.close()
+    assert t0 == 0
+    spans = [s for s in trace.spans() if s.name in (
+        "restore.extract", "restore.flow", "restore.propagate")]
+    assert len(spans) == 6
+    calls = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.name().startswith(("cuda", "cu"))
+             and "CUDA" not in str(e.device_type())]
+    for s in spans:
+        inside = [c for c, a, b in calls if s.start_ns <= a and b <= s.end_ns]
+        bad = [c for c in inside if "Synchronize" in c or c == "cudaMemcpy"]
+        assert any("Launch" in c for c in inside), s.name
+        assert not bad, (s.name, s.attrs, bad)
+    trace.clear()
+    for t, got in first:
+        w = want[0, t].numpy()
+        base = _resize_bilinear_np(frames[t], 4)
+        gap = np.sqrt(np.mean((got - w) ** 2)) / np.sqrt(np.mean(
+            (w - base) ** 2))
+        print(f"frame {t}: max abs diff {np.abs(got - w).max()}, gap {gap}")
+        assert gap <= 0.05
+
+
+def _resize_bilinear_np(frame, scale):
+    """The frame resized x``scale`` bilinearly (half-pixel centres)."""
+    x = torch.from_numpy(frame)[None].permute(0, 3, 1, 2)
+    return F.interpolate(x, scale_factor=scale, mode="bilinear",
+                         align_corners=False)[0].permute(1, 2, 0).numpy()
