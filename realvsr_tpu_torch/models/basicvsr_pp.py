@@ -15,7 +15,10 @@ branches over every later frame.  :meth:`BasicVSRPlusPlus.forward` runs it
 whole; the restore entry (``eval/recurrent.py``) runs its stages one by
 one (:meth:`~BasicVSRPlusPlus.extract`, :meth:`~BasicVSRPlusPlus.
 compute_flow`, :meth:`~BasicVSRPlusPlus.propagate` per branch,
-:meth:`~BasicVSRPlusPlus.reconstruct` per frame).  As in mmediting,
+:meth:`~BasicVSRPlusPlus.reconstruct` per frame), and may hand
+``propagate`` its own runner of a branch step, which calls the step's two
+segments (:meth:`~BasicVSRPlusPlus.align_input`, :meth:`~BasicVSRPlusPlus.
+backbone_step`) and the DCN between them apart.  As in mmediting,
 ``feat_extract`` runs over all frames at once and SPyNet over all frame
 pairs of a direction in one batched call.
 
@@ -135,7 +138,9 @@ class SecondOrderDeformableAlignment(nn.Module):
     half (groups 0 .. dg/2 - 1, over ``x``'s first cin/2 channels) plus
     flow_1 and the second half plus flow_2, each flow flipped to (dy, dx)
     and repeated over its half's (group, tap) pairs; the DCN takes the
-    mask's sigmoid.  Exact offsets: nothing is clamped."""
+    mask's sigmoid.  Exact offsets: nothing is clamped.  :meth:`offsets`
+    and :meth:`deform` are the two halves, which the propagation calls
+    apart (``BasicVSRPlusPlus.step``)."""
 
     def __init__(self, cin: int, cout: int, deform_groups: int = 16,
                  max_residue_magnitude: float = 10):
@@ -156,9 +161,11 @@ class SecondOrderDeformableAlignment(nn.Module):
         _uniform_(self.weight, self.weight[0].numel() ** -0.5, gen)
         nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor, cond: torch.Tensor,
-                flow_1: torch.Tensor, flow_2: torch.Tensor) -> torch.Tensor:
-        dt, dg = x.dtype, self.deform_groups
+    def offsets(self, cond: torch.Tensor, flow_1: torch.Tensor,
+                flow_2: torch.Tensor) -> torch.Tensor:
+        """The DCN's offset / mask tensor (B, H, W, 27 x dg), laid out as
+        DCNPack's, from the condition and the two flows."""
+        dt, dg = cond.dtype, self.deform_groups
         om = self.conv_offset(
             torch.cat([cond, flow_1.to(dt), flow_2.to(dt)], -1))
         b, h, w, _ = om.shape
@@ -166,9 +173,17 @@ class SecondOrderDeformableAlignment(nn.Module):
         res = torch.tanh(om[..., :n]).mul_(self.max_residue_magnitude)
         flows = torch.stack([flow_1.flip(-1), flow_2.flip(-1)], 3)
         off = res.view(b, h, w, 2, n // 4, 2) + flows[:, :, :, :, None]
-        om = torch.cat([off.view(b, h, w, n).to(dt), om[..., n:]], -1)
+        return torch.cat([off.view(b, h, w, n).to(dt), om[..., n:]], -1)
+
+    def deform(self, x: torch.Tensor, om: torch.Tensor) -> torch.Tensor:
+        """The DCNv2 of ``x`` at :meth:`offsets`' ``om``."""
+        dt = x.dtype
         return modulated_deform_conv_om(x, om, self.weight.to(dt),
-                                        self.bias.to(dt), dg)
+                                        self.bias.to(dt), self.deform_groups)
+
+    def forward(self, x: torch.Tensor, cond: torch.Tensor,
+                flow_1: torch.Tensor, flow_2: torch.Tensor) -> torch.Tensor:
+        return self.deform(x, self.offsets(cond, flow_1, flow_2))
 
 
 class ResidualBlocksWithInputConv(nn.Module):
@@ -269,43 +284,79 @@ class BasicVSRPlusPlus(nn.Module):
         forward = self.spynet(l2, l1).view(b, t - 1, h, w, 2)
         return forward, backward
 
-    def propagate(self, feats: dict, flows: torch.Tensor,
-                  module: str) -> None:
+    def propagate(self, feats: dict, flows: torch.Tensor, module: str,
+                  step=None) -> None:
         """Run branch ``module`` over the clip, adding ``feats[module]``:
-        each frame's propagated features, in frame order."""
+        each frame's propagated features, in frame order.
+
+        Each step is :meth:`step`, or ``step`` where given (a callable of
+        the same arguments: the restore entry's graph runner,
+        ``eval/recurrent.py``): segment A (:meth:`align_input`: the warps,
+        the condition, the offsets), the alignment's DCN, then segment B
+        (:meth:`backbone_step`: the backbone and its residual).  The first
+        step has no alignment and the second no second order."""
         spatial = feats["spatial"]
         t = len(spatial)
         if module.startswith("backward"):
             frame_idx = flow_idx = range(t - 1, -1, -1)
         else:
             frame_idx, flow_idx = range(t), range(-1, t - 1)
-        align = self.deform_align[module]
-        backbone = self.backbone[module]
+        step = step or self.step
         earlier = [feats[k] for k in feats if k not in ("spatial", module)]
         out = []
         prop = spatial[0].new_zeros(spatial[0].shape)
         for i, idx in enumerate(frame_idx):
-            current = spatial[idx]
-            if i > 0:
-                flow_n1 = flows[:, flow_idx[i]]
-                cond_n1 = flow_warp(prop, flow_n1)
-                if i > 1:   # second order: the output two steps back
-                    feat_n2 = out[-2]
-                    flow_n2 = flow_n1 + flow_warp(flows[:, flow_idx[i - 1]],
-                                                  flow_n1)
-                    cond_n2 = flow_warp(feat_n2, flow_n2)
-                else:
-                    feat_n2 = torch.zeros_like(prop)
-                    flow_n2 = torch.zeros_like(flow_n1)
-                    cond_n2 = torch.zeros_like(cond_n1)
-                cond = torch.cat([cond_n1, current, cond_n2], -1)
-                prop = align(torch.cat([prop, feat_n2], -1), cond, flow_n1,
-                             flow_n2)
-            feat = torch.cat([current] + [f[idx] for f in earlier] + [prop],
-                             -1)
-            prop = prop + backbone(feat)
+            flow_n1 = flows[:, flow_idx[i]] if i > 0 else None
+            n2 = (out[-2], flows[:, flow_idx[i - 1]]) if i > 1 else ()
+            prop = step(module, prop, spatial[idx],
+                        [f[idx] for f in earlier], flow_n1, *n2)
             out.append(prop)
         feats[module] = out[::-1] if module.startswith("backward") else out
+
+    def step(self, module: str, prop: torch.Tensor, current: torch.Tensor,
+             others: list, flow_n1: torch.Tensor | None = None,
+             feat_n2: torch.Tensor | None = None,
+             flow_prev: torch.Tensor | None = None) -> torch.Tensor:
+        """One step of branch ``module``: the frame's propagated features
+        from the previous step's ``prop``, the frame's own features
+        ``current`` and the earlier branches' at the frame (``others``).
+        ``flow_n1`` (B, H, W, 2) warps the previous step's frame onto this
+        one (None: the first step, no alignment); ``feat_n2`` is the output
+        two steps back and ``flow_prev`` the flow before ``flow_n1`` (None:
+        no second order)."""
+        if flow_n1 is not None:
+            x, om = self.align_input(module, prop, current, flow_n1, feat_n2,
+                                     flow_prev)
+            prop = self.deform_align[module].deform(x, om)
+        return self.backbone_step(module, current, others, prop)
+
+    def align_input(self, module: str, prop: torch.Tensor,
+                    current: torch.Tensor, flow_n1: torch.Tensor,
+                    feat_n2: torch.Tensor | None = None,
+                    flow_prev: torch.Tensor | None = None):
+        """Segment A of a step (:meth:`step`'s arguments): (the DCN's input
+        ``cat([prop, feat_n2])``, its offset / mask tensor) from the three
+        warps, the condition and branch ``module``'s offset convs."""
+        cond_n1 = flow_warp(prop, flow_n1)
+        if feat_n2 is None:     # no output two steps back yet
+            feat_n2 = torch.zeros_like(prop)
+            flow_n2 = torch.zeros_like(flow_n1)
+            cond_n2 = torch.zeros_like(cond_n1)
+        else:
+            flow_n2 = flow_n1 + flow_warp(flow_prev, flow_n1)
+            cond_n2 = flow_warp(feat_n2, flow_n2)
+        cond = torch.cat([cond_n1, current, cond_n2], -1)
+        om = self.deform_align[module].offsets(cond, flow_n1, flow_n2)
+        return torch.cat([prop, feat_n2], -1), om
+
+    def backbone_step(self, module: str, current: torch.Tensor,
+                      others: list, prop: torch.Tensor,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+        """Segment B of a step: ``prop`` (the aligned features) plus branch
+        ``module``'s backbone over ``cat([current, *others, prop])``,
+        written into ``out`` where given."""
+        feat = torch.cat([current, *others, prop], -1)
+        return torch.add(prop, self.backbone[module](feat), out=out)
 
     def reconstruct(self, lq: torch.Tensor, feats: dict,
                     t: int) -> torch.Tensor:

@@ -15,7 +15,8 @@ import torch
 import yaml
 from torch.profiler import ProfilerActivity, profile
 
-from realvsr_tpu_torch.eval.recurrent import recurrent_infer
+from realvsr_tpu_torch.eval.recurrent import (graphs, recurrent_infer,
+                                              step_key)
 from realvsr_tpu_torch.models import define_g
 from realvsr_tpu_torch.models.basicvsr_pp import (
     BRANCHES, SecondOrderDeformableAlignment)
@@ -96,6 +97,90 @@ def test_forward_matches_the_reference_per_frame():
         # f32 on both sides: rounding through the recurrence, far under
         # bf16's ~4e-3 a value
         assert gap < 1e-4 * res[0, t].pow(2).mean().sqrt(), t
+
+
+def test_factored_step_matches_the_reference_per_frame():
+    """Each branch step run as the graph runner runs it, its two segments
+    and the DCN between them called apart (``align_input``, ``deform``,
+    ``backbone_step`` into a buffer of its own): the whole clip equals
+    ``forward`` and matches the plain reference as
+    ``test_forward_matches_the_reference_per_frame`` holds it."""
+    model, params = _model()
+    x = _clip()
+    calls = []
+
+    def apart(module, prop, current, others, flow_n1=None, feat_n2=None,
+              flow_prev=None):
+        calls.append(feat_n2 is not None)
+        if flow_n1 is None:
+            return model.step(module, prop, current, others)
+        xin, om = model.align_input(module, prop, current, flow_n1, feat_n2,
+                                    flow_prev)
+        aligned = model.deform_align[module].deform(xin, om)
+        out = torch.empty_like(prop)
+        got = model.backbone_step(module, current, others, aligned, out=out)
+        assert got is out
+        return out
+
+    with torch.no_grad():
+        whole = model(x)
+        feats = {"spatial": model.extract(x)}
+        fwd, bwd = model.compute_flow(x)
+        for br in BRANCHES:
+            model.propagate(feats, bwd if br.startswith("backward") else fwd,
+                            br, apart)
+        got = torch.stack([model.reconstruct(x[:, t], feats, t)
+                           for t in range(5)], 1)
+        want, res = ref.forward(SMALL, params, x)
+    assert calls == 4 * [False, False, True, True, True]
+    assert torch.equal(got, whole)
+    for t in range(5):
+        gap = (got[0, t] - want[0, t].permute(1, 2, 0)).pow(2).mean().sqrt()
+        assert gap < 1e-4 * res[0, t].pow(2).mean().sqrt(), t
+
+
+def test_cpu_restore_never_engages_the_graph_runner():
+    """On the CPU every branch step runs eagerly: the model's runner
+    captures nothing and ``restore.graph`` reads 0 for each of the clip's
+    4 x T steps."""
+    model, _ = _model()
+    x = _clip(t=4)
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = list(recurrent_infer(model, x[0].numpy(), "cpu"))
+    assert len(out) == 4
+    assert not graphs(model).sizes
+    assert [c.value for c in trace.counters("restore.graph")] == [0] * 16
+
+
+@pytest.mark.parametrize("differs", ["branch", "shape", "dtype", "device"])
+def test_step_key_separates_branch_shape_and_dtype(differs):
+    """The graphs' key is read from the step's input alone: (branch, B, H,
+    W, C, dtype, device); a change of any one of them is another key, the
+    same input the same key."""
+    prop = torch.zeros(1, 18, 32, 16)
+    other = {"branch": ("forward_1", prop),
+             "shape": ("backward_1", torch.zeros(1, 18, 40, 16)),
+             "dtype": ("backward_1", prop.to(torch.bfloat16)),
+             "device": ("backward_1", torch.zeros(1, 18, 32, 16,
+                                                  device="meta"))}[differs]
+    key = step_key("backward_1", prop)
+    assert key == ("backward_1", 1, 18, 32, 16, torch.float32,
+                   torch.device("cpu"))
+    assert step_key("backward_1", prop.clone()) == key
+    assert step_key(*other) != key
+
+
+def test_runner_drops_its_captures_once_the_weights_move():
+    """The runner's captures read the branches' weights where they lay:
+    a cast of the model (new tensors) drops them; an ask with the weights
+    in place keeps them."""
+    model, _ = _model()
+    runner = graphs(model)
+    size = (1, 64, 64, 16, torch.float32, torch.device("cpu"))
+    runner.sizes[size] = (None, {})
+    assert graphs(model) is runner and size in runner.sizes
+    model.to(torch.float64)
+    assert graphs(model) is runner and not runner.sizes
 
 
 @pytest.mark.parametrize("half", ["first", "second"])

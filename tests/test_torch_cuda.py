@@ -1763,6 +1763,94 @@ def test_recurrent_restore_never_waits_on_the_host_while_propagating(cuda):
         assert gap <= 0.05
 
 
+def _graph_counts(model, frames, cuda):
+    """(the clip's restored frames, ``restore.graph``'s samples), the
+    restore profiled so the counter records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from realvsr_tpu_torch.eval.recurrent import recurrent_infer
+    from realvsr_tpu_torch.utils import trace
+
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = [f for _, f in recurrent_infer(model, frames, cuda)]
+    counts = [c.value for c in trace.counters("restore.graph")]
+    trace.clear()
+    return out, counts
+
+
+def _eager(model, frames, cuda):
+    """The clip through the model's ``forward`` (every step eager)."""
+    with torch.inference_mode():
+        out = model(torch.from_numpy(frames).to(cuda)[None])
+    return [f.float().cpu().numpy() for f in out[0]]
+
+
+def test_recurrent_graphs_match_the_eager_restore(cuda):
+    """The restore entry's branch steps replayed from CUDA graphs against
+    the same clip through ``forward``, every step eager (bf16, the
+    published width): the frames are bit-identical, the same kernels on
+    the same inputs.  A clip's first restore captures each branch at its
+    third step; a second restore of the size replays from the third step
+    on; a second size captures anew and keeps the first's."""
+    from realvsr_tpu_torch.eval.recurrent import graphs
+
+    model = _basicvsrpp(cuda, num_blocks=1).to(torch.bfloat16)
+    model.dtype = torch.bfloat16
+    runner = graphs(model)
+    for h, w in ((64, 64), (64, 96)):
+        frames = torch.rand(5, h, w, 3, generator=_gen(h + w)).numpy()
+        want = _eager(model, frames, cuda)
+        for n, per_branch in ((1, [0, 0, 0, 1, 1]), (2, [0, 0, 1, 1, 1])):
+            got, counts = _graph_counts(model, frames, cuda)
+            assert counts == 4 * per_branch, (h, w, n)
+            for t, (g, e) in enumerate(zip(got, want)):
+                assert np.array_equal(g, e), (h, w, n, t,
+                                              np.abs(g - e).max())
+    assert [s[1:3] for s in runner.sizes] == [(64, 64), (64, 96)]
+    assert all(len(group) == 4 for _, group in runner.sizes.values())
+
+
+def test_recurrent_two_frame_clip_runs_eagerly(cuda):
+    """A clip of two frames has no second-order step: every step runs
+    eagerly, nothing is captured, and the frames equal ``forward``'s."""
+    from realvsr_tpu_torch.eval.recurrent import graphs
+
+    model = _basicvsrpp(cuda, num_blocks=1).to(torch.bfloat16)
+    model.dtype = torch.bfloat16
+    frames = torch.rand(2, 64, 80, 3, generator=_gen(3)).numpy()
+    got, counts = _graph_counts(model, frames, cuda)
+    assert counts == [0] * 8
+    assert not graphs(model).sizes
+    for g, e in zip(got, _eager(model, frames, cuda)):
+        assert np.array_equal(g, e)
+
+
+def test_recurrent_graph_counter_mean_and_kept_sizes(cuda):
+    """``restore.graph``'s mean over a 12-frame clip after its size's
+    captures: (12 - 2) / 12 a branch, the first two steps eager.  Past
+    ``MAX_SIZES`` clip sizes the least recently used size's captures are
+    dropped, and a restore of it captures them again."""
+    from realvsr_tpu_torch.eval import recurrent
+
+    model = _basicvsrpp(cuda, num_blocks=1).to(torch.bfloat16)
+    model.dtype = torch.bfloat16
+    runner = recurrent.graphs(model)
+    frames = torch.rand(12, 64, 64, 3, generator=_gen(4)).numpy()
+    _graph_counts(model, frames, cuda)
+    _, counts = _graph_counts(model, frames, cuda)
+    assert len(counts) == 48 and np.mean(counts) == pytest.approx(10 / 12)
+    widths = [80 + 16 * i for i in range(recurrent.MAX_SIZES)]
+    for w in widths:           # the last of them drops 64's captures
+        clip = torch.rand(3, 64, w, 3, generator=_gen(w)).numpy()
+        _, counts = _graph_counts(model, clip, cuda)
+        assert counts == 4 * [0, 0, 0]
+    assert [s[2] for s in runner.sizes] == widths
+    _, counts = _graph_counts(model, frames, cuda)
+    assert counts == 4 * ([0, 0, 0] + [1] * 9)
+    assert [s[2] for s in runner.sizes] == widths[1:] + [64]
+
+
 def _resize_bilinear_np(frame, scale):
     """The frame resized x``scale`` bilinearly (half-pixel centres)."""
     x = torch.from_numpy(frame)[None].permute(0, 3, 1, 2)
