@@ -1,4 +1,4 @@
-"""Synthetic video datasets for tests, debug configs and the chip smoke run.
+"""Synthetic video datasets for tests and the debug and smoke configs.
 
 A copy of ``realvsr_tpu/data/synthetic.py`` (numpy only), with the same
 random draws in the same order, so items equal the JAX package's:

@@ -33,10 +33,10 @@ BUILD_DIR = PKG / "build"
 SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 ACTS = {None: 0, "relu": 1, "lrelu": 2}
 # --split-compile=0: optimise a source's kernels on all cores at once
-# (halves the build of conv3x3.cu's instantiations); -fno-gnu-unique: a
+# (halves the build of conv3x3.cu's instantiations); -fno-gnu-unique keeps
+# two builds of a source that are loaded in one process apart: a
 # template's function-local statics (the launchers' "attribute set" flags)
-# stay each library's own, so two builds of a source loaded side by side
-# (chip_smoke.py --ab) do not share them
+# stay each library's own
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xcompiler",
               "-fno-gnu-unique", "-Xptxas", "-v", "--split-compile=0")

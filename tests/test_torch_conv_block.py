@@ -10,7 +10,7 @@
 
 On the CPU the port's wrappers run their plain versions (the tensors lie on
 the CPU); the kernels themselves are held to those on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).  Inputs come from numpy
+(``tests/test_torch_cuda.py``).  Inputs come from numpy
 seeds as float32; the port takes OIHW weights, JAX HWIO.
 """
 import jax

@@ -5,8 +5,7 @@ image of its shared memory that ``ops/kernels/conv3x3.py::pack_weight``
 makes, in 128-byte input chunks or, for narrow inputs (16, 32 or 48 wide:
 the nf 16 debug configs), 32-byte ones; the kernel itself, its packer, its
 in-kernel layout of a narrow weight and its walk over the output tiles
-(ragged, across images) run only on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py``).
+(ragged, across images) run only on the card (``tests/test_torch_cuda.py``).
 Here, with inputs from numpy seeds in f32:
 
 * ``conv3x3_from_packed`` (the conv from the packed weight, column block

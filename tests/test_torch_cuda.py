@@ -1,8 +1,10 @@
-"""The port's CUDA kernels against their plain versions on the card.
+"""The port on the card: its CUDA kernels against their plain versions,
+their build, and its models, entries, tools and training paths against the
+CPU (the port's correctness checks on the card; ``portbench/`` measures it).
 
-Marked ``gpu``: each test asks the ``cuda`` fixture, which skips where
-there is no CUDA device (decided when the test runs, never at import).  On
-a machine with an H100 and nvcc:
+Marked ``gpu``: each test but the ptxas reader's asks the ``cuda`` fixture,
+which skips where there is no CUDA device (decided when the test runs,
+never at import).  On a machine with an H100 and nvcc:
 
     python -m pytest tests/test_torch_cuda.py -m gpu --noconftest -q
 
@@ -67,6 +69,168 @@ def _om(off, mask):
                       .to(off.dtype)], -1).contiguous()
 
 
+def _launches():
+    """Every kernel wrapper's launch count so far, by name."""
+    return {"dcn_fwd": dcn_fwd.launches, "dcn_bwd": dcn_bwd.launches,
+            "conv3x3": conv3x3.launches,
+            "conv3x3_fused": conv3x3_fused.launches,
+            "conv3x3_narrow": conv3x3_narrow.launches,
+            "dcn_block": modulated_deform_conv_block.launches}
+
+
+def _since(before):
+    """The launches since ``before`` (a :func:`_launches`), the card
+    waited for."""
+    torch.cuda.synchronize()
+    return {k: v - before[k] for k, v in _launches().items()}
+
+
+def _counts(dcn=0, conv=0, fused=0, narrow=0, bwd=0, block=0):
+    return {"dcn_fwd": dcn, "dcn_bwd": bwd, "conv3x3": conv,
+            "conv3x3_fused": fused, "conv3x3_narrow": narrow,
+            "dcn_block": block}
+
+
+def _step(forward):
+    """A training step's launches: the forward's, and one DCN backward a
+    DCN (the convs' gradients run cuDNN)."""
+    return dict(forward, dcn_bwd=forward["dcn_fwd"])
+
+
+def _randomise_offsets(model, seed, std=0.5):
+    """The DCN offset/mask convs start at zero; random weights (from
+    ``seed``, a seed or a generator) make the offsets reach a few
+    pixels."""
+    g = seed if isinstance(seed, torch.Generator) else _gen(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "conv_offset_mask" in name:
+                p.copy_(torch.randn(p.shape, generator=g) * std)
+
+
+# each model as its recipe gives it (full width), cut in depth: (recipe,
+# network changes)
+_MODELS = {
+    "edvr_noup": ("train_EDVR_woTSA_RealVSR_YCbCr_Split.yml",
+                  dict(front_RBs=1, back_RBs=1)),
+    "tdan": ("train_TDAN_RealVSR_YCbCr_Split.yml", dict(nb_f=1, nb_b=1)),
+    "edvr_x4": ("train_EDVRx4_TSA_Vimeo90K.yml",
+                dict(front_RBs=1, back_RBs=1, nframes=5)),
+    "edvr_l": ("train_EDVRx4_TSA_Vimeo90K.yml",
+               dict(nf=128, front_RBs=1, back_RBs=1, nframes=5)),
+    "tof": ("train_TOF_RealVSR_YCbCr_Split.yml", dict(nb=1)),
+    "fstrn": ("train_FSTRN_RealVSR_YCbCr_Split.yml", {}),
+    "rcan": ("train_RCAN_RealVSR_YCbCr_Split.yml",
+             dict(num_group=1, num_block=1)),
+}
+# one forward's launches at _MODELS' depths, from the models' routing: on
+# conv3x3 (64 outputs) the ResBlocks' convs, PCD's 10 offset convs, EDVR's
+# fea_L2_conv2 / fea_L3_conv2 / L2_fea_conv / L1_fea_conv and HRconv, TSA's
+# 6, TDAN's bottle_neck and 4 offset convs, TOF's trunk and HRconv, RCAN's
+# RCABs, group conv and body conv; on conv3x3_fused (other widths) the 4
+# conv_offset_mask (216), conv_last (3), TDAN's reconstruction, x4's
+# upconv1 / upconv2; at nf 128 every conv but HRconv; FSTRN runs cuDNN alone
+_FORWARD = {
+    "edvr_noup": _counts(4, 19, 5),
+    "tdan": _counts(4, 9, 6),
+    "edvr_x4": _counts(4, 25, 7),
+    "edvr_l": _counts(4, 1, 31),
+    "tof": _counts(0, 3, 1),
+    "fstrn": _counts(),
+    "rcan": _counts(0, 4, 1),
+}
+# launches of one forward at the recipes' own depths, as _FORWARD counts
+# them: EDVR_NoUp's 5 + 10 ResBlocks, TDAN's 5 + 10, EDVR x4's 5 + 10 (with
+# TSA), EDVR-L's 5 + 40 at nf 128, TOF's 10 ResBlocks, RCAN's 5 groups of 2
+_RECIPE_FORWARD = {
+    "edvr_noup": _counts(4, 45, 5), "tdan": _counts(4, 35, 6),
+    "edvr_x4": _counts(4, 51, 7), "edvr_l": _counts(4, 1, 117),
+    "tof": _counts(0, 21, 1), "fstrn": _counts(), "rcan": _counts(0, 26, 1)}
+# the nf 16 debug configs' step: the narrow DCN kernels, the conv on 32-byte
+# chunks
+_DEBUG_STEP = _step(_counts(4, 1, 23, 23))
+
+
+def _recipe_opt(name, cuts=None):
+    import os
+
+    import yaml
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "configs", "train", name)) as f:
+        opt = yaml.safe_load(f)
+    opt["network_G"].update(cuts or {})
+    return opt
+
+
+def _sliced(plain, *args):
+    """``plain(*args)``, on slices of the frames past 2^26 input elements
+    (the plain DCN's autograd keeps some 80 f32 copies of its input): the
+    outputs and the per-pixel gradients joined, the weight's gradient
+    summed in f32 (the weight passed in f32: the same values) and rounded
+    once."""
+    b, h, w, c = args[0].shape
+    n = max(1, 2 ** 26 // (h * w * c))
+    if b <= n:
+        return plain(*args)
+    dt = [a.dtype for a in args if a.dim() == 4 and a.shape[:3] != (b, h, w)]
+    parts = [plain(*[a[i:i + n] if a.shape[:3] == (b, h, w) else
+                     a.float() if a.dim() == 4 else a for a in args])
+             for i in range(0, b, n)]
+    if torch.is_tensor(parts[0]):
+        return torch.cat(parts)
+    return tuple(torch.cat(p) if p[0].shape[:3] == (n, h, w)
+                 else sum(p).to(dt[0]) for p in zip(*parts))
+
+
+def _hold_fwd(x, off, mask, wgt, bias, dg, act, max_offset, om):
+    """The DCN forward kernel in one form (``om``: DCNPack's offset/mask
+    tensor read in place, the sigmoid in the kernel), one launch, against
+    its plain version (check.py's tolerance); returns its output."""
+    n = dcn_fwd.launches
+    if om:
+        t = _om(off, mask)
+        out = dcn_fwd_om(x, t, wgt, bias, dg, act=act, max_offset=max_offset)
+        ref = _sliced(lambda *a: dcn_fwd_om_plain(*a, dg, act, max_offset),
+                      x, t, wgt, bias)
+    else:
+        out = dcn_fwd(x, off, mask, wgt, bias, dg, act=act,
+                      max_offset=max_offset)
+        ref = _sliced(lambda *a: dcn_fwd_plain(*a, dg, act, max_offset), x,
+                      off, mask, wgt, bias)
+    torch.cuda.synchronize()
+    assert dcn_fwd.launches == n + 1
+    assert out.shape == ref.shape and out.dtype == x.dtype
+    assert max_abs_err(out, ref) <= tolerance(ref)
+    return out
+
+
+def _hold_bwd(x, off, mask, wgt, g, dg, max_offset, om):
+    """The DCN backward kernel in one form for the cotangent ``g``, one
+    launch, each gradient finite and against its plain version
+    (check.py's tolerance); no offset gradient past the clamp."""
+    n = dcn_bwd.launches
+    if om:
+        t = _om(off, mask)
+        out = dcn_bwd_om(x, t, wgt, g, dg, max_offset)
+        ref = _sliced(lambda *a: dcn_bwd_om_plain(*a, dg, max_offset), x, t,
+                      wgt, g)
+        doff = out[1][..., :dg * 18]
+    else:
+        out = dcn_bwd(x, off, mask, wgt, g, dg, max_offset)
+        ref = _sliced(lambda *a: dcn_bwd_plain(*a, dg, max_offset), x, off,
+                      mask, wgt, g)
+        doff = out[1]
+    torch.cuda.synchronize()
+    assert dcn_bwd.launches == n + 1
+    for i, (o, r) in enumerate(zip(out, ref)):
+        assert o.shape == r.shape and o.dtype == r.dtype, i
+        assert torch.isfinite(o).all(), i
+        assert max_abs_err(o, r) <= grad_tolerance(r), i
+    if max_offset is not None:
+        assert not doff[off.abs() > max_offset].any()
+
+
 @pytest.mark.parametrize("om", [False, True], ids=["separate", "om"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape,act,max_offset", [
@@ -78,20 +242,7 @@ def _om(off, mask):
 def test_dcn_kernel_matches_plain(cuda, dtype, shape, act, max_offset, om):
     """Both forms: the separate offsets and mask, and DCNPack's
     offset/mask tensor read in place (sigmoid in the kernel)."""
-    x, off, mask, wgt, bias = _dcn_inputs(shape, dtype, cuda)
-    n = dcn_fwd.launches
-    if om:
-        t = _om(off, mask)
-        out = dcn_fwd_om(x, t, wgt, bias, 8, act=act, max_offset=max_offset)
-        ref = dcn_fwd_om_plain(x, t, wgt, bias, 8, act, max_offset)
-    else:
-        out = dcn_fwd(x, off, mask, wgt, bias, 8, act=act,
-                      max_offset=max_offset)
-        ref = dcn_fwd_plain(x, off, mask, wgt, bias, 8, act, max_offset)
-    torch.cuda.synchronize()
-    assert dcn_fwd.launches == n + 1
-    assert out.shape == ref.shape and out.dtype == dtype
-    assert max_abs_err(out, ref) <= tolerance(ref)
+    _hold_fwd(*_dcn_inputs(shape, dtype, cuda), 8, act, max_offset, om)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -103,7 +254,18 @@ def test_dcn_kernel_matches_plain(cuda, dtype, shape, act, max_offset, om):
     ((3, 37, 45, 64), 64, "lrelu", False),  # ... with the concat input
     ((2, 96, 512, 64), 64, None, False),   # many tiles per block
     ((2, 37, 45, 16), 16, "relu", True),  # narrow inputs: 32-byte chunks
+    ((2, 37, 45, 16), 0, "lrelu", False),  # one 32-byte chunk (HRconv, nf 16)
     ((1, 20, 24, 48), 0, None, True),     # 48 inputs: 32-byte chunks
+    # the cells' own planes: the flagship's front ResBlocks and PCD L1
+    # offset convs at 1024x512, a back ResBlock's conv2; the training
+    # step's front convs (96 frames of 192x192); EDVR-L's HRconv at
+    # 1792x1024; BasicVSR++'s reconstruction input conv (320 -> 64)
+    ((3, 512, 1024, 64), 0, "relu", False),
+    ((3, 512, 1024, 64), 64, "lrelu", False),
+    ((1, 512, 1024, 64), 0, None, True),
+    ((96, 192, 192, 64), 0, "relu", False),
+    ((1, 1024, 1792, 64), 0, "lrelu", False),
+    ((1, 180, 320, 320), 0, "lrelu", False),
 ])
 def test_conv3x3_kernel_matches_plain(cuda, dtype, shape, c2, act, residual):
     b, h, w, c1 = shape
@@ -184,6 +346,21 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     ((1, 20, 24, 16), 0, 300, None, True, True),     # narrow past 256
     ((2, 21, 37, 48), 0, 128, "lrelu", True, False),  # 48: f32 streams
     ((3, 37, 45, 16), 16, 108, "lrelu", True, False),  # 16+16 -> 108
+    ((2, 37, 45, 16), 0, 108, "lrelu", True, False),  # 16 -> 108
+    ((2, 37, 45, 16), 0, 16, "relu", True, False),    # nf 16 ResBlock
+    ((2, 37, 45, 16), 16, 16, "lrelu", True, False),  # nf 16 PCD offsets
+    ((2, 37, 45, 128), 0, 300, None, True, True),     # 2 chunks past 256
+    # the cells' own planes: the flagship's conv_last with the centre frame
+    # at 1024x512; EDVR-L's upconv1 at 448x256 and conv_last with its base
+    # at 1792x1024; BasicVSR++'s last offset conv (27 x 16: 256 + 176
+    # columns), its second pixel-shuffle conv and conv_last with its base
+    # at 1280x720
+    ((1, 512, 1024, 64), 0, 3, None, True, True),
+    ((1, 256, 448, 128), 0, 512, "lrelu", True, False),
+    ((1, 1024, 1792, 64), 0, 3, None, True, True),
+    ((1, 180, 320, 64), 0, 432, None, True, False),
+    ((1, 360, 640, 64), 0, 256, "lrelu", True, False),
+    ((1, 720, 1280, 64), 0, 3, None, True, True),
 ])
 def test_conv3x3_any_width_matches_plain(cuda, dtype, shape, c2, cout, act,
                                          bias, residual):
@@ -254,8 +431,18 @@ STREAMED = [(dt, *case) for dt in (_BF, _F32) for case in (
     (128, 0, 128, None, False, (2, 256, 448)),     # ~14 tiles a block
     (2048, 0, 8, "relu", True, (1, 8, 16)),        # one tile; N 8
     (1024, 0, 20, None, True, (1, 21, 37)),   # rows of 20: bf16 not in 16 B
+    # the cells' own planes: the flagship's conv_offset_mask at 1024x512;
+    # EDVR-L's front ResBlocks, PCD L1 offset convs and conv_offset_mask
+    # (7 frames of 448x256) and upconv2 (at 896x512)
+    (64, 0, 216, "lrelu", False, (3, 512, 1024)),
+    (128, 0, 128, "relu", False, (7, 256, 448)),
+    (128, 128, 128, "lrelu", False, (7, 256, 448)),
+    (128, 0, 216, "lrelu", False, (7, 256, 448)),
+    (128, 0, 256, "lrelu", False, (1, 512, 896)),
 )] + [(_F32, 64, 64, 64, "lrelu", False, (2, 64, 96)),  # PCD L1 (64+64)
-      (_F32, 128, 0, 64, None, True, (3, 24, 40))]
+      (_F32, 128, 0, 64, None, True, (3, 24, 40)),
+      # the training step's PCD L1 offset convs (96 frames of 192x192)
+      (_F32, 64, 64, 64, "lrelu", False, (96, 192, 192))]
 
 
 @pytest.mark.parametrize("dtype,c1,c2,cout,act,residual,pix", STREAMED,
@@ -334,28 +521,23 @@ def test_edvr_on_card_matches_cpu(cuda):
                dcn_max_offset=4)
     cpu = EDVRNoUp(**cfg, device="cpu", generator=_gen(2)).eval()
     g = _gen(3)
-    with torch.no_grad():
-        for name, p in cpu.named_parameters():
-            if "conv_offset_mask" in name:
-                p.copy_(torch.randn(p.shape, generator=g))
+    _randomise_offsets(cpu, g, std=1.0)
     card = EDVRNoUp(**cfg, device=cuda).eval()
     card.load_state_dict(cpu.state_dict())
     x = torch.rand(1, 3, 32, 64, 3, generator=g)
-    n = (dcn_fwd.launches, conv3x3.launches)
+    before = _launches()
     with torch.inference_mode():
         ref = cpu(x)
         out = card(x.to(cuda)).cpu()
-    assert (dcn_fwd.launches - n[0], conv3x3.launches - n[1]) == (4, 19)
+    assert _since(before) == _FORWARD["edvr_noup"]
     assert torch.isfinite(out).all()
     assert np.abs((out - ref).numpy()).max() <= 2e-2
 
 
-@pytest.mark.parametrize("name,counts", [("TDAN", (4, 9, 6)),
-                                         ("EDVR", (4, 25, 7))])
-def test_tdan_and_edvr_x4_on_card_match_cpu(cuda, name, counts):
+@pytest.mark.parametrize("name", ["TDAN", "EDVR"])
+def test_tdan_and_edvr_x4_on_card_match_cpu(cuda, name):
     """Full width (nf 64, 8 groups), cut depth and size, f32: the card
-    (TF32 kernels) against the CPU; launches of dcn_fwd, the 64-out and
-    the other-width conv3x3."""
+    (TF32 kernels) against the CPU; the forward's launches."""
     from realvsr_tpu_torch.models.edvr import EDVR
     from realvsr_tpu_torch.models.tdan import TDAN
 
@@ -367,19 +549,15 @@ def test_tdan_and_edvr_x4_on_card_match_cpu(cuda, name, counts):
     cfg.update(groups=8, dcn_max_offset=4)
     cpu = cls(**cfg, device="cpu", generator=_gen(12)).eval()
     g = _gen(13)
-    with torch.no_grad():
-        for pname, p in cpu.named_parameters():
-            if "conv_offset_mask" in pname:
-                p.copy_(torch.randn(p.shape, generator=g) * 0.3)
+    _randomise_offsets(cpu, g, std=0.3)
     card = cls(**cfg, device=cuda).eval()
     card.load_state_dict(cpu.state_dict())
     x = torch.rand(1, cfg["nframes"], 32, 64, 3, generator=g)
-    n = (dcn_fwd.launches, conv3x3.launches, conv3x3_fused.launches)
+    before = _launches()
     with torch.inference_mode():
         ref = cpu(x)
         out = card(x.to(cuda)).cpu()
-    assert (dcn_fwd.launches - n[0], conv3x3.launches - n[1],
-            conv3x3_fused.launches - n[2]) == counts
+    assert _since(before) == _FORWARD["tdan" if name == "TDAN" else "edvr_x4"]
     assert out.shape == ref.shape and torch.isfinite(out).all()
     assert np.abs((out - ref).numpy()).max() <= 2e-2
 
@@ -388,9 +566,11 @@ def test_tdan_and_edvr_x4_on_card_match_cpu(cuda, name, counts):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape,max_offset,std", [
     ((1, 37, 45, 64), 8, 2.5),       # ragged tile edges, taps outside
+    ((1, 37, 45, 64), 4, 2.5),       # the deployment clamp's footprint
     ((2, 48, 64, 64), None, 2.5),
     ((2, 48, 64, 64), 2, 2.5),       # many offsets beyond the clamp
     ((1, 32, 40, 64), None, 0.0),    # on the grid: one-sided differences
+    ((1, 32, 40, 64), 8, 0.0),       # ... as a training step starts, ±8
     # corners outside the dx footprint: the global path (no clamp, and a
     # clamp wider than the footprint's radius of 8)
     ((1, 40, 72, 64), None, 12.0),
@@ -400,25 +580,7 @@ def test_dcn_bwd_kernel_matches_plain(cuda, dtype, shape, max_offset, std,
                                       om):
     x, off, mask, wgt, _ = _dcn_inputs(shape, dtype, cuda, seed=4, std=std)
     g = torch.randn(*shape[:3], 64, generator=_gen(5)).to(cuda, dtype)
-    n = dcn_bwd.launches
-    if om:
-        t = _om(off, mask)
-        out = dcn_bwd_om(x, t, wgt, g, 8, max_offset)
-        ref = dcn_bwd_om_plain(x, t, wgt, g, 8, max_offset)
-        names = ("dx", "dom", "dweight")
-        doff = out[1][..., :8 * 18]
-    else:
-        out = dcn_bwd(x, off, mask, wgt, g, 8, max_offset)
-        ref = dcn_bwd_plain(x, off, mask, wgt, g, 8, max_offset)
-        names = ("dx", "doffset", "dmask", "dweight")
-        doff = out[1]
-    torch.cuda.synchronize()
-    assert dcn_bwd.launches == n + 1
-    for name, o, r in zip(names, out, ref):
-        assert o.shape == r.shape and o.dtype == r.dtype, name
-        assert max_abs_err(o, r) <= grad_tolerance(r), name
-    if max_offset is not None:
-        assert not doff[off.abs() > max_offset].any()
+    _hold_bwd(x, off, mask, wgt, g, 8, max_offset, om)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -460,34 +622,23 @@ def test_train_step_on_card_matches_cpu(cuda):
     channels), cut depth, 64x64, batch 2, f32: the card (TF32 kernels)
     against the CPU from the same weights and batch; loss to 1e-3
     relative, each gradient to 5e-2 of its largest magnitude."""
-    import os
-
-    import yaml
-
     from realvsr_tpu_torch.data.synthetic import SyntheticVSRDataset
     from realvsr_tpu_torch.models.edvr import EDVRNoUp
     from realvsr_tpu_torch.train.state import create_train_state
     from realvsr_tpu_torch.train.wrappers import make_split_train_step
 
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    with open(os.path.join(repo, "configs", "train",
-                           "train_EDVR_woTSA_RealVSR_YCbCr_Split.yml")) as f:
-        opt = yaml.safe_load(f)
+    opt = _recipe_opt("train_EDVR_woTSA_RealVSR_YCbCr_Split.yml")
     opt.pop("augment")
     cfg = dict(nf=64, nframes=3, groups=8, front_RBs=1, back_RBs=1,
                dcn_max_offset=8)
     cpu = EDVRNoUp(**cfg, device="cpu", generator=_gen(7))
-    g = _gen(8)
-    with torch.no_grad():
-        for name, p in cpu.named_parameters():
-            if "conv_offset_mask" in name:
-                p.copy_(torch.randn(p.shape, generator=g) * 0.5)
+    _randomise_offsets(cpu, 8)
     ds = SyntheticVSRDataset(dict(N_frames=3, GT_size=64))
     items = [ds.get(i, np.random.default_rng(i)) for i in (1, 9)]
     batch = {k: torch.from_numpy(np.stack([it[k] for it in items]))
              for k in ("LQs", "GT")}
     grads, losses = {}, {}
-    n = (dcn_fwd.launches, dcn_bwd.launches, conv3x3.launches)
+    before = _launches()
     for dev in ("cpu", cuda):
         model = EDVRNoUp(**cfg, device=dev)
         model.load_state_dict(cpu.state_dict())
@@ -498,8 +649,7 @@ def test_train_step_on_card_matches_cpu(cuda):
         losses[str(dev)] = logs["l_pix"].item()
         grads[str(dev)] = {k: p.grad.float().cpu()
                            for k, p in model.named_parameters()}
-    assert (dcn_fwd.launches - n[0], dcn_bwd.launches - n[1],
-            conv3x3.launches - n[2]) == (4, 4, 19)
+    assert _since(before) == _step(_FORWARD["edvr_noup"])
     assert losses["cuda"] == pytest.approx(losses["cpu"], rel=1e-3)
     for k, ref in grads["cpu"].items():
         err = (grads["cuda"][k] - ref).abs().max().item()
@@ -516,85 +666,45 @@ def test_dcn_bwd_kernel_on_planes_narrower_than_a_tile(cuda, dtype, shape,
     offsets of std 2.5 px."""
     x, off, mask, wgt, _ = _dcn_inputs(shape, dtype, cuda, seed=6)
     g = torch.randn(*shape[:3], 64, generator=_gen(7)).to(cuda, dtype)
-    n = dcn_bwd.launches
-    if om:
-        t = _om(off, mask)
-        out = dcn_bwd_om(x, t, wgt, g, 8, 8)
-        ref = dcn_bwd_om_plain(x, t, wgt, g, 8, 8)
-        names = ("dx", "dom", "dweight")
-    else:
-        out = dcn_bwd(x, off, mask, wgt, g, 8, 8)
-        ref = dcn_bwd_plain(x, off, mask, wgt, g, 8, 8)
-        names = ("dx", "doffset", "dmask", "dweight")
-    torch.cuda.synchronize()
-    assert dcn_bwd.launches == n + 1
-    for name, o, r in zip(names, out, ref):
-        assert o.shape == r.shape and o.dtype == r.dtype, name
-        assert torch.isfinite(o).all(), name
-        assert max_abs_err(o, r) <= grad_tolerance(r), name
+    _hold_bwd(x, off, mask, wgt, g, 8, 8, om)
 
 
-@pytest.mark.parametrize("recipe,cuts,side,counts", [
-    ("train_TDAN_RealVSR_YCbCr_Split.yml", dict(nb_f=1, nb_b=1), 64,
-     (4, 4, 9, 6)),
-    ("train_EDVRx4_TSA_Vimeo90K.yml",
-     dict(front_RBs=1, back_RBs=1, nframes=5), 32, (4, 4, 25, 7)),
-], ids=["TDAN", "EDVRx4_TSA"])
-def test_tdan_and_edvr_x4_train_steps_on_card_match_cpu(cuda, recipe, cuts,
-                                                        side, counts):
-    """``chip_smoke.py``'s card-vs-CPU steps of the two families: the
-    recipe's network at full width and cut depth (TDAN nf 64, 1 + 1
-    ResBlocks, LQ 64x64; EDVR x4 + TSA nf 64, 8 groups, 1 + 1 ResBlocks, 5
-    frames, LQ 32x32), batch 2 of motion-synthetic frames, f32, the card
+@pytest.mark.parametrize("name,side", [("tdan", 64), ("edvr_x4", 32),
+                                       ("edvr_l", 32)],
+                         ids=["TDAN", "EDVRx4_TSA", "EDVR_L"])
+def test_tdan_and_edvr_x4_train_steps_on_card_match_cpu(cuda, name, side):
+    """Card-vs-CPU steps of the two families: the recipe's network at
+    full width and cut depth (TDAN nf 64, 1 + 1 ResBlocks, LQ 64x64; EDVR
+    x4 + TSA nf 64, 8 groups, 1 + 1 ResBlocks, 5 frames, LQ 32x32; EDVR-L,
+    the same at nf 128), batch 2 of motion-synthetic frames, f32, the card
     (TF32 kernels) against the CPU from the same weights (offset convs
     randomised); loss to 1e-3 relative, each gradient to 5e-2 of its
     largest magnitude plus the CPU's own change in it when the LQ input
-    moves by TF32's rounding (2^-11 relative); launches of dcn_fwd,
-    dcn_bwd, the 64-out and the other-width conv3x3.  TSA's spatial
-    attention (``sAtt_1``, ``sAtt_L1``: lrelu and 3x3 max pools after
-    them) is the closest to that bound (PERF.md §7)."""
-    import os
-
-    import yaml
-
-    from realvsr_tpu_torch.data.synthetic import SyntheticMotionVSRDataset
+    moves by TF32's rounding (2^-11 relative); the step's launches.  TSA's
+    spatial attention (``sAtt_1``, ``sAtt_L1``: lrelu and 3x3 max pools
+    after them) is the closest to that bound (PERF.md §7)."""
     from realvsr_tpu_torch.models import define_g
     from realvsr_tpu_torch.train.state import create_train_state
     from realvsr_tpu_torch.train.wrappers import make_split_train_step
 
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    with open(os.path.join(repo, "configs", "train", recipe)) as f:
-        opt = yaml.safe_load(f)
+    opt = _recipe_opt(*_MODELS[name])
     opt.pop("augment")
-    opt["network_G"].update(cuts)
-    scale, n_frames = opt["scale"], opt["network_G"]["nframes"]
     cpu = define_g(opt, device="cpu", dcn_max_offset=8, generator=_gen(12))
-    g = _gen(13)
-    with torch.no_grad():
-        for pname, p in cpu.named_parameters():
-            if "conv_offset_mask" in pname:
-                p.copy_(torch.randn(p.shape, generator=g) * 0.5)
-    ds = SyntheticMotionVSRDataset(dict(
-        N_frames=n_frames, GT_size=side * scale, scale=scale,
-        frame_h=side * scale + 32, frame_w=side * scale + 32))
-    items = [ds.get(i, np.random.default_rng(i)) for i in (3, 17)]
-    batch = {k: torch.from_numpy(np.stack([it[k] for it in items]))
-             for k in ("LQs", "GT")}
+    _randomise_offsets(cpu, 13)
+    batch = _batch(opt, side, "SyntheticMotion")
     grads, losses = {}, {}
     for dev in ("cpu", cuda):
         model = define_g(opt, device=dev, dcn_max_offset=8)
         model.load_state_dict(cpu.state_dict())
         state = create_train_state(model, opt)
-        n = (dcn_fwd.launches, dcn_bwd.launches, conv3x3.launches,
-             conv3x3_fused.launches)
+        before = _launches()
         _, logs = make_split_train_step(model, opt)(
             state, {k: v.to(dev) for k, v in batch.items()},
             torch.Generator(device=dev))
         losses[str(dev)] = logs["l_pix"].item()
         grads[str(dev)] = {k: p.grad.float().cpu()
                            for k, p in model.named_parameters()}
-    assert (dcn_fwd.launches - n[0], dcn_bwd.launches - n[1],
-            conv3x3.launches - n[2], conv3x3_fused.launches - n[3]) == counts
+    assert _since(before) == _step(_FORWARD[name])
     assert losses["cuda"] == pytest.approx(losses["cpu"], rel=1e-3)
     lq = batch["LQs"]
     noisy = dict(batch, LQs=lq * (1 + 2.0 ** -11 * torch.randn(
@@ -635,30 +745,8 @@ def test_dcn_narrow_kernels_match_plain(cuda, dtype, shape, act, max_offset,
                                         om):
     """The forward and backward at 16 channels in 4 groups, both forms."""
     x, off, mask, wgt, bias, g = _narrow_inputs(shape, dtype, cuda)
-    n = (dcn_fwd.launches, dcn_bwd.launches)
-    if om:
-        t = _om(off, mask)
-        out = dcn_fwd_om(x, t, wgt, bias, 4, act=act, max_offset=max_offset)
-        ref = dcn_fwd_om_plain(x, t, wgt, bias, 4, act, max_offset)
-        grads = dcn_bwd_om(x, t, wgt, g, 4, max_offset)
-        grefs = dcn_bwd_om_plain(x, t, wgt, g, 4, max_offset)
-        doff = grads[1][..., :4 * 18]
-    else:
-        out = dcn_fwd(x, off, mask, wgt, bias, 4, act=act,
-                      max_offset=max_offset)
-        ref = dcn_fwd_plain(x, off, mask, wgt, bias, 4, act, max_offset)
-        grads = dcn_bwd(x, off, mask, wgt, g, 4, max_offset)
-        grefs = dcn_bwd_plain(x, off, mask, wgt, g, 4, max_offset)
-        doff = grads[1]
-    torch.cuda.synchronize()
-    assert (dcn_fwd.launches - n[0], dcn_bwd.launches - n[1]) == (1, 1)
-    assert out.shape == ref.shape and out.dtype == dtype
-    assert max_abs_err(out, ref) <= tolerance(ref)
-    for o, r in zip(grads, grefs):
-        assert o.shape == r.shape and o.dtype == r.dtype
-        assert max_abs_err(o, r) <= grad_tolerance(r)
-    if max_offset is not None:
-        assert not doff[off.abs() > max_offset].any()
+    _hold_fwd(x, off, mask, wgt, bias, 4, act, max_offset, om)
+    _hold_bwd(x, off, mask, wgt, g, 4, max_offset, om)
 
 
 def test_dcn_rejects_other_widths_without_fallback(cuda):
@@ -741,31 +829,30 @@ def test_dcn_other_widths_match_plain(cuda, c, dg, max_offset, dtype, om):
     ragged shape of several tiles, one launch each."""
     x, off, mask, wgt, bias, g = _width_inputs((2, 21, 45, c), dg, dtype,
                                                cuda, seed=c + dg)
-    n = (dcn_fwd.launches, dcn_bwd.launches)
-    if om:
-        t = _om(off, mask)
-        out = dcn_fwd_om(x, t, wgt, bias, dg, act="lrelu",
-                         max_offset=max_offset)
-        ref = dcn_fwd_om_plain(x, t, wgt, bias, dg, "lrelu", max_offset)
-        grads = dcn_bwd_om(x, t, wgt, g, dg, max_offset)
-        grefs = dcn_bwd_om_plain(x, t, wgt, g, dg, max_offset)
-        doff = grads[1][..., :dg * 18]
-    else:
-        out = dcn_fwd(x, off, mask, wgt, bias, dg, act="lrelu",
-                      max_offset=max_offset)
-        ref = dcn_fwd_plain(x, off, mask, wgt, bias, dg, "lrelu", max_offset)
-        grads = dcn_bwd(x, off, mask, wgt, g, dg, max_offset)
-        grefs = dcn_bwd_plain(x, off, mask, wgt, g, dg, max_offset)
-        doff = grads[1]
-    torch.cuda.synchronize()
-    assert (dcn_fwd.launches - n[0], dcn_bwd.launches - n[1]) == (1, 1)
-    assert out.shape == ref.shape and out.dtype == dtype
-    assert max_abs_err(out, ref) <= tolerance(ref)
-    for o, r in zip(grads, grefs):
-        assert o.shape == r.shape and o.dtype == r.dtype
-        assert max_abs_err(o, r) <= grad_tolerance(r)
-    if max_offset is not None:
-        assert not doff[off.abs() > max_offset].any()
+    _hold_fwd(x, off, mask, wgt, bias, dg, "lrelu", max_offset, om)
+    _hold_bwd(x, off, mask, wgt, g, dg, max_offset, om)
+
+
+# the benchmark cells' own DCN planes (BENCHMARK.json): the flagship's L1
+# restoring (3 frames of 1024x512, ±4) and in a batch-32 training step (96
+# frames of 192x192, ±8); EDVR-L's L1 restoring (7 frames of 448x256, ±4)
+# and in a training sample (7 frames of 64x64, ±8)
+CELL_DCN = [((3, 512, 1024, 64), 4), ((96, 192, 192, 64), 8),
+            ((7, 256, 448, 128), 4), ((7, 64, 64, 128), 8)]
+
+
+@pytest.mark.parametrize("om", [False, True], ids=["separate", "om"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,max_offset", CELL_DCN, ids=[
+    "edvr_noup_restore", "edvr_noup_train", "edvr_l_restore", "edvr_l_train"])
+def test_dcn_at_the_cells_planes_matches_plain(cuda, shape, max_offset,
+                                               dtype, om):
+    """Both DCN kernels (64 or 128 channels in 8 groups) at each cell's
+    planes, both forms, one launch each, against their plain versions."""
+    x, off, mask, wgt, bias, g = _width_inputs(shape, 8, dtype, cuda,
+                                               seed=31)
+    _hold_fwd(x, off, mask, wgt, bias, 8, "lrelu", max_offset, om)
+    _hold_bwd(x, off, mask, wgt, g, 8, max_offset, om)
 
 
 @pytest.mark.parametrize("om", [False, True], ids=["separate", "om"])
@@ -777,18 +864,7 @@ def test_dcn_fwd_128_many_tiles_per_block(cuda, dtype, om):
     sampling."""
     x, off, mask, wgt, bias, _ = _width_inputs((3, 61, 300, 128), 8, dtype,
                                                cuda, seed=17)
-    n = dcn_fwd.launches
-    if om:
-        t = _om(off, mask)
-        out = dcn_fwd_om(x, t, wgt, bias, 8, act="relu", max_offset=4)
-        ref = dcn_fwd_om_plain(x, t, wgt, bias, 8, "relu", 4)
-    else:
-        out = dcn_fwd(x, off, mask, wgt, bias, 8, act="relu", max_offset=4)
-        ref = dcn_fwd_plain(x, off, mask, wgt, bias, 8, "relu", 4)
-    torch.cuda.synchronize()
-    assert dcn_fwd.launches == n + 1
-    assert out.shape == ref.shape and out.dtype == dtype
-    assert max_abs_err(out, ref) <= tolerance(ref)
+    _hold_fwd(x, off, mask, wgt, bias, 8, "relu", 4, om)
 
 
 # the generalised dcn_narrow.cu over the TPU kernel's domain: (cin, cout,
@@ -965,11 +1041,7 @@ def test_dcn_bwd_128_footprint_edges(cuda, dtype, max_offset, std):
     with every position on the grid (one-sided differences)."""
     x, off, mask, wgt, _, g = _width_inputs((1, 40, 72, 128), 8, dtype, cuda,
                                             seed=9, std=std)
-    out = dcn_bwd(x, off, mask, wgt, g, 8, max_offset)
-    ref = dcn_bwd_plain(x, off, mask, wgt, g, 8, max_offset)
-    torch.cuda.synchronize()
-    for o, r in zip(out, ref):
-        assert max_abs_err(o, r) <= grad_tolerance(r)
+    _hold_bwd(x, off, mask, wgt, g, 8, max_offset, False)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1071,18 +1143,6 @@ def test_lpips_and_niqe_on_card_match_cpu(cuda):
     np.testing.assert_allclose(fc.cpu().numpy(), fh.numpy(), rtol=1e-6)
 
 
-def _recipe_opt(name, cuts=None):
-    import os
-
-    import yaml
-
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    with open(os.path.join(repo, "configs", "train", name)) as f:
-        opt = yaml.safe_load(f)
-    opt["network_G"].update(cuts or {})
-    return opt
-
-
 def _within_spread(ref, got, noisy):
     """Each tensor of ``got`` within 5e-2 of the largest magnitude of its
     ``ref`` plus ``noisy``'s distance from ``ref`` (the CPU's own change
@@ -1102,35 +1162,23 @@ def _within_spread(ref, got, noisy):
         assert err <= 5e-2 * scale + spread, k
 
 
-@pytest.mark.parametrize("recipe,cuts,counts", [
-    ("train_TOF_RealVSR_YCbCr_Split.yml", dict(nb=1), (3, 1)),
-    ("train_FSTRN_RealVSR_YCbCr_Split.yml", {}, (0, 0)),
-    ("train_RCAN_RealVSR_YCbCr_Split.yml", dict(num_group=1, num_block=1),
-     (4, 1)),
-], ids=["TOF", "FSTRN", "RCAN"])
-def test_tof_fstrn_rcan_train_steps_on_card_match_cpu(cuda, recipe, cuts,
-                                                      counts):
-    """``chip_smoke.py``'s card-vs-CPU Split steps of the new generators:
-    the recipe's network at full width and cut depth (TOF nf 64, 1 ResBlock;
+@pytest.mark.parametrize("name", ["tof", "fstrn", "rcan"],
+                         ids=["TOF", "FSTRN", "RCAN"])
+def test_tof_fstrn_rcan_train_steps_on_card_match_cpu(cuda, name):
+    """Card-vs-CPU Split steps of the other generators: the recipe's
+    network at full width and cut depth (TOF nf 64, 1 ResBlock;
     FSTRN as given; RCAN 1 group of 1 RCAB), LQ 64x64, batch 2 of
     motion-synthetic frames, f32; loss to 1e-3 relative, each gradient to
     5e-2 of its largest plus the CPU's own change under 2^-11 input noise;
-    the 64-out and other-width conv3x3 launches of the step (the backward
-    runs cuDNN; FSTRN's 3-D convs are all cuDNN)."""
-    from realvsr_tpu_torch.data.synthetic import SyntheticMotionVSRDataset
+    the step's launches (the backward runs cuDNN; FSTRN's 3-D convs are
+    all cuDNN)."""
     from realvsr_tpu_torch.models import define_g
     from realvsr_tpu_torch.train.state import create_train_state
     from realvsr_tpu_torch.train.wrappers import make_split_train_step
 
-    opt = _recipe_opt(recipe, cuts)
+    opt = _recipe_opt(*_MODELS[name])
     opt.pop("augment")
-    net = opt["network_G"]
-    ds = SyntheticMotionVSRDataset(dict(
-        N_frames=net.get("nframes") or net["num_frames"], GT_size=64,
-        scale=1, frame_h=96, frame_w=96))
-    items = [ds.get(i, np.random.default_rng(i)) for i in (3, 17)]
-    batch = {k: torch.from_numpy(np.stack([it[k] for it in items]))
-             for k in ("LQs", "GT")}
+    batch = _batch(opt, 64, "SyntheticMotion")
     ref = define_g(opt, device="cpu", generator=_gen(12))
 
     def step(dev, b):
@@ -1144,10 +1192,9 @@ def test_tof_fstrn_rcan_train_steps_on_card_match_cpu(cuda, recipe, cuts,
                                       for k, p in model.named_parameters()}
 
     loss, grads = step("cpu", batch)
-    n = (conv3x3.launches, conv3x3_fused.launches)
+    before = _launches()
     card_loss, card = step(cuda, batch)
-    assert (conv3x3.launches - n[0], conv3x3_fused.launches - n[1]) \
-        == counts
+    assert _since(before) == _FORWARD[name]
     assert card_loss == pytest.approx(loss, rel=1e-3)
     lq = batch["LQs"]
     _, noisy = step("cpu", dict(batch, LQs=lq * (1 + 2.0 ** -11 * torch.randn(
@@ -1156,14 +1203,13 @@ def test_tof_fstrn_rcan_train_steps_on_card_match_cpu(cuda, recipe, cuts,
 
 
 def test_gan_step_on_card_matches_cpu(cuda):
-    """``chip_smoke.py``'s card-vs-CPU GAN-Split step: the GAN recipe's G
+    """The card-vs-CPU GAN-Split step: the GAN recipe's G
     (EDVR_NoUp, nf 64, 8 groups, 5 + 10 ResBlocks, offset convs randomised)
     and D (MultiscaleDiscriminator_v4, nf 64) on a Synthetic batch of 2 at
     64x64, f32, augmentation off: losses to 1e-3 relative; each gradient of
     G and D and each of D's running statistics after the step to 5e-2 of
     its largest plus the CPU's own change under 2^-11 input noise; the
     Split step's kernel launches (D runs none)."""
-    from realvsr_tpu_torch.data.synthetic import SyntheticVSRDataset
     from realvsr_tpu_torch.models import define_d, define_g
     from realvsr_tpu_torch.train.gan import (create_gan_train_state,
                                              make_gan_split_train_step)
@@ -1171,16 +1217,9 @@ def test_gan_step_on_card_matches_cpu(cuda):
     opt = _recipe_opt("train_EDVR-GAN_woTSA_RealVSR_YCbCr_Split.yml")
     opt["augment"] = None
     ref_g = define_g(opt, device="cpu", dcn_max_offset=8, generator=_gen(12))
-    g = _gen(13)
-    with torch.no_grad():
-        for pname, p in ref_g.named_parameters():
-            if "conv_offset_mask" in pname:
-                p.copy_(torch.randn(p.shape, generator=g) * 0.5)
+    _randomise_offsets(ref_g, 13)
     ref_d = define_d(opt, device="cpu", generator=_gen(14))
-    ds = SyntheticVSRDataset(dict(N_frames=3, GT_size=64))
-    items = [ds.get(i, np.random.default_rng(i)) for i in (3, 17)]
-    batch = {k: torch.from_numpy(np.stack([it[k] for it in items]))
-             for k in ("LQs", "GT")}
+    batch = _batch(opt, 64, "Synthetic")
 
     def step(dev, b):
         gm = define_g(opt, device=dev, dcn_max_offset=8)
@@ -1200,12 +1239,9 @@ def test_gan_step_on_card_matches_cpu(cuda):
                 {k: v.float().cpu() for k, v in vals.items()})
 
     losses, ref = step("cpu", batch)
-    n = (dcn_fwd.launches, dcn_bwd.launches, conv3x3.launches,
-         conv3x3_fused.launches)
+    before = _launches()
     card_losses, card = step(cuda, batch)
-    assert (dcn_fwd.launches - n[0], dcn_bwd.launches - n[1],
-            conv3x3.launches - n[2], conv3x3_fused.launches - n[3]) \
-        == (4, 4, 45, 5)
+    assert _since(before) == _step(_RECIPE_FORWARD["edvr_noup"])
     for k, v in losses.items():
         assert card_losses[k] == pytest.approx(v, rel=1e-3), k
     lq = batch["LQs"]
@@ -1233,11 +1269,7 @@ def test_two_rank_split_step_on_card_matches_one_process(cuda, tmp_path):
     opt["augment"] = None
     opt["network_G"].update(nf=16, groups=4, front_RBs=1, back_RBs=1)
     ref = define_g(opt, device="cpu", dcn_max_offset=8, generator=_gen(0))
-    g = _gen(1)
-    with torch.no_grad():
-        for pname, p in ref.named_parameters():
-            if "conv_offset_mask" in pname:
-                p.copy_(torch.randn(p.shape, generator=g) * 0.5)
+    _randomise_offsets(ref, 1)
     torch.save({"G": ref.state_dict()}, tmp_path / "init.pt")
     rng = np.random.default_rng(2)
     batch = {k: rng.random((4, 3, 48, 48, 3)).astype(np.float32)
@@ -1280,11 +1312,7 @@ def test_shard_forward_on_card_matches_unsharded(cuda):
     model = EDVRNoUp(nf=16, nc=3, nframes=3, groups=4, front_RBs=1,
                      back_RBs=1, w_TSA=False, dcn_max_offset=4, device=cuda,
                      generator=_gen(0)).eval()
-    g = _gen(1)
-    with torch.no_grad():
-        for pname, p in model.named_parameters():
-            if "conv_offset_mask" in pname:
-                p.copy_(torch.randn(p.shape, generator=g).to(cuda) * 0.5)
+    _randomise_offsets(model, 1)
     x = torch.rand(1, 3, 416, 64, 3, generator=_gen(2)).to(cuda)
     halo = default_halo(model)
     with torch.inference_mode():
@@ -1402,8 +1430,8 @@ def test_v2_discriminator_input_grad_on_card_matches_cpu(cuda, monkeypatch,
       inputs within 5e-5 of float64's, layer by layer, as a share of the
       layer's largest (readings 2.6e-6 to 8.3e-6); and a flip only at an
       input within that of 0.  Card against CPU, as they come, within the
-      GAN step's card-vs-CPU bound, 5e-2 of the largest (``chip_smoke.py``
-      phase 8)."""
+      GAN step's card-vs-CPU bound, 5e-2 of the largest
+      (``test_gan_step_on_card_matches_cpu``)."""
     train = mode == "train"
     g = _gen(32)
     x = torch.rand(2, 64, 64, 3, generator=g)
@@ -1701,18 +1729,8 @@ def test_dcn_at_basicvsrpp_alignment_exact_offsets(cuda, dtype, om):
                                                cout=64)
     off = (off.float() + torch.tensor([13.5, -17.25], device=cuda).repeat(
         16 * 9)).to(dtype)
-    n = dcn_fwd.launches
-    if om:
-        t = _om(off, mask)
-        out = dcn_fwd_om(x, t, wgt, bias, 16)
-        ref = dcn_fwd_om_plain(x, t, wgt, bias, 16)
-    else:
-        out = dcn_fwd(x, off, mask, wgt, bias, 16)
-        ref = dcn_fwd_plain(x, off, mask, wgt, bias, 16)
-    torch.cuda.synchronize()
-    assert dcn_fwd.launches - n == 1
-    assert out.shape == ref.shape == (1, 180, 320, 64)
-    assert max_abs_err(out, ref) <= tolerance(ref)
+    out = _hold_fwd(x, off, mask, wgt, bias, 16, None, None, om)
+    assert out.shape == (1, 180, 320, 64)
 
 
 def test_recurrent_restore_never_waits_on_the_host_while_propagating(cuda):
@@ -1856,3 +1874,1125 @@ def _resize_bilinear_np(frame, scale):
     x = torch.from_numpy(frame)[None].permute(0, 3, 1, 2)
     return F.interpolate(x, scale_factor=scale, mode="bilinear",
                          align_corners=False)[0].permute(1, 2, 0).numpy()
+
+
+# ---- The build, the models through the port's entries and tools ----------
+
+def _ptxas_rows(log):
+    """(function, spill store bytes, spill load bytes) of every function in
+    an ``nvcc -Xptxas -v`` log."""
+    rows, name = [], None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[1].strip()
+        elif "spill stores" in line:
+            parts = line.replace(",", "").split()
+            rows.append((name, int(parts[parts.index("stores") - 3]),
+                         int(parts[parts.index("loads") - 3])))
+    return rows
+
+
+def test_ptxas_rows_read_every_function():
+    """The spill test's reading of ptxas's lines (no card needed)."""
+    log = ("ptxas info    : Compiling entry function '_Z1kv' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z1kv\n"
+           "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 168 registers, used 1 barriers\n"
+           "ptxas info    : Function properties for _Z3devv\n"
+           "    16 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\n")
+    assert _ptxas_rows(log) == [("_Z1kv", 8, 4), ("_Z3devv", 0, 0)]
+
+
+def test_kernel_sources_build_without_spills(cuda, tmp_path):
+    """Every ``csrc/*.cu`` built once, in parallel, with the port's nvcc
+    flags (``-Xptxas -v`` among them) into a temporary directory: ptxas
+    reports its functions, and no spill store or load in any of them."""
+    import subprocess
+
+    from realvsr_tpu_torch.ops.kernels import _build
+
+    procs = {src.stem: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+         str(tmp_path / f"{src.stem}.so"), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src in sorted(_build.CSRC.glob("*.cu"))}
+    assert {"conv3x3", "dcn_fwd", "dcn_bwd", "dcn_narrow"} <= procs.keys()
+    for name, proc in procs.items():
+        log = proc.communicate(timeout=1200)[0]
+        assert proc.returncode == 0, log[-4000:]
+        rows = _ptxas_rows(log)
+        print(f"{name}.cu: {len(rows)} functions")
+        assert rows, name
+        assert not [r for r in rows if r[1] or r[2]], (name, rows)
+
+
+def _model(name, dev, dtype=torch.float32, seed=0, max_offset=4):
+    """(options, model) of ``_MODELS[name]``: seeded weights, DCN offsets
+    clamped to ±``max_offset`` (the deployment's ±4 by default)."""
+    from realvsr_tpu_torch.models import define_g
+
+    recipe, cuts = _MODELS[name]
+    opt = _recipe_opt(recipe, cuts)
+    return opt, define_g(opt, device=dev, dtype=dtype, generator=_gen(seed),
+                         dcn_max_offset=max_offset)
+
+
+def _write_clip(root, frames, h, w, seed):
+    """A seeded clip of smooth texture moving 3 px a frame as PNGs under
+    ``root/000``."""
+    import os
+
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    base = cv2.resize(rng.random((h // 8, w // 8 + 8, 3)).astype(np.float32),
+                      (w + 3 * frames + 8, h),
+                      interpolation=cv2.INTER_CUBIC)
+    os.makedirs(os.path.join(root, "000"))
+    for t in range(frames):
+        img = np.clip(base[:, 3 * t:3 * t + w] * 255, 0, 255).round()
+        cv2.imwrite(os.path.join(root, "000", f"{t:05d}.png"),
+                    img.astype(np.uint8))
+    return root
+
+
+@pytest.mark.parametrize("name", list(_MODELS))
+def test_models_restore_on_card_as_on_cpu(cuda, tmp_path, name):
+    """Each model at its recipe's widths (cut depth; seeded weights, DCN
+    offsets of a few pixels, ±4): a 5-frame 64x64 PNG clip through
+    ``evaluate_wo_gt`` in bf16 on the card, each window's launches held to
+    the model's routing and every frame written at the output's size; then
+    one window's forward on the card in f32 (TF32 kernels) and in bf16
+    against the CPU in f32, within 2e-2 and 5e-2 of the output's largest
+    magnitude (8-bit mantissas through the same depth)."""
+    import cv2
+
+    from realvsr_tpu_torch.eval.test_wo_gt import evaluate_wo_gt
+
+    opt, cpu = _model(name, "cpu", seed=40)
+    _randomise_offsets(cpu, 41)
+    net = opt["network_G"]
+    n, scale = net.get("nframes") or net["num_frames"], opt["scale"] or 1
+    cards = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cards[dtype] = _model(name, cuda, dtype)[1].eval()
+        cards[dtype].load_state_dict(cpu.state_dict())
+    clip = _write_clip(str(tmp_path / "lq"), 5, 64, 64, seed=42)
+    before = _launches()
+    evaluate_wo_gt(cards[torch.bfloat16], None, clip, n_frames=n,
+                   save_folder=str(tmp_path / "out"))
+    assert _since(before) == {k: 5 * v for k, v in _FORWARD[name].items()}
+    saved = sorted((tmp_path / "out" / "000").iterdir())
+    assert len(saved) == 5
+    for f in saved:
+        assert cv2.imread(str(f)).shape == (64 * scale, 64 * scale, 3)
+    x = torch.rand(1, n, 64, 64, 3, generator=_gen(43))
+    with torch.inference_mode():
+        ref = cpu.eval()(x)
+        top = ref.abs().max().item()
+        for dtype, rel in ((torch.float32, 2e-2), (torch.bfloat16, 5e-2)):
+            out = cards[dtype](x.to(cuda, dtype)).float().cpu()
+            err = (out - ref).abs().max().item()
+            print(f"{name} {dtype}: {err} of {top}")
+            assert out.shape == ref.shape and torch.isfinite(out).all()
+            assert err <= rel * top, dtype
+
+
+def _hold_close(out, ref, rel=1e-2):
+    """``out`` within ``rel`` of ``ref``'s largest magnitude (both f32 on
+    the host)."""
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    err, top = (out - ref).abs().max().item(), ref.abs().max().item()
+    assert err <= rel * top, (err, top)
+
+
+@pytest.mark.parametrize("name", ["edvr_noup", "edvr_x4"])
+def test_streaming_entries_on_card(cuda, name):
+    """``StreamingRunner`` on the card (bf16, full width, cut depth,
+    offsets of a few pixels): a frame's pyramid launches the front
+    ResBlocks' and fea_L2_conv2 / fea_L3_conv2's convs, and with one fuse
+    a window's kernels; ``run`` launches one pyramid a frame and one fuse
+    a window and equals the sliding window of ``make_forward``;
+    ``run_lazy`` equals ``run``; at 3 frames ``run_scan`` launches as
+    ``run`` and equals it, and ``run_scan_clips`` equals ``run_scan`` of
+    each clip; each within 1e-2 of the output's largest magnitude."""
+    from realvsr_tpu_torch.eval.sliding_window import (make_forward,
+                                                       sliding_window_infer)
+    from realvsr_tpu_torch.eval.streaming import StreamingRunner
+
+    _, model = _model(name, "cpu", seed=44)
+    _randomise_offsets(model, 45)
+    model = model.to(cuda, torch.bfloat16)
+    model.dtype = torch.bfloat16
+    n = model.nframes
+    frames = np.random.default_rng(46).random((6, 32, 64, 3)).astype(
+        np.float32)
+    t = frames.shape[0]
+    ref = torch.stack([torch.from_numpy(o) for _, o in sliding_window_infer(
+        make_forward(model), frames, n, device=cuda)])
+    runner = StreamingRunner(model, device=cuda)
+    one = runner._frames(frames[:1])
+    with torch.inference_mode():
+        before = _launches()
+        pyr = runner._pyramid(one)
+        pyramid = _since(before)
+        before = _launches()
+        runner._fuse((pyr,) * n, one)
+        fuse = _since(before)
+    assert pyramid == _counts(conv=4)
+    assert {k: v + pyramid[k] for k, v in fuse.items()} == _FORWARD[name]
+    window = {k: t * (v + pyramid[k]) for k, v in fuse.items()}
+    before = _launches()
+    out = runner.run(frames)
+    assert _since(before) == window
+    out = out.float().cpu()
+    _hold_close(out, ref)
+    _hold_close(torch.stack(list(runner.run_lazy(frames))).float().cpu(),
+                out)
+    if n != 3:
+        return
+    before = _launches()
+    scan = runner.run_scan(frames)
+    assert _since(before) == window
+    _hold_close(scan.float().cpu(), out)
+    clips = np.stack([frames, frames[::-1]])
+    both = runner.run_scan_clips(clips).float().cpu()
+    for b in range(2):
+        _hold_close(both[b], runner.run_scan(clips[b]).float().cpu())
+
+
+def _flagship(cuda, dtype=torch.bfloat16, max_offset=4, seed=47, std=0.5):
+    """EDVR_NoUp at its widths, 1 + 1 ResBlocks, offsets randomised."""
+    _, model = _model("edvr_noup", "cpu", seed=seed, max_offset=max_offset)
+    _randomise_offsets(model, seed + 1, std)
+    model = model.to(cuda, dtype).eval()
+    model.dtype = dtype
+    return model
+
+
+def test_tiled_forward_matches_full_frame_beyond_receptive_field_on_card(
+        cuda):
+    """The flagship (bf16, cut depth) on a 448x640 window in 288x384 tiles,
+    overlap 32: ``make_batched_tiled_forward`` launches one window's
+    kernels for all four tiles and equals ``make_tiled_forward``'s loop;
+    both equal the full frame's forward on the pixels farther than
+    ``receptive_field_rows`` from every inner tile edge, within 1e-2 of the
+    largest magnitude."""
+    from realvsr_tpu_torch.eval.sliding_window import make_forward
+    from realvsr_tpu_torch.eval.tiled import (make_batched_tiled_forward,
+                                              make_tiled_forward,
+                                              receptive_field_rows,
+                                              tile_grid)
+
+    model = _flagship(cuda)
+    hd, tile, overlap = (448, 640), (288, 384), 32
+    window = torch.rand(3, *hd, 3, generator=_gen(49)).to(cuda)
+    batched = make_batched_tiled_forward(model, tile_hw=tile,
+                                         overlap=overlap, device=cuda)
+    before = _launches()
+    out = batched(window)
+    assert _since(before) == _FORWARD["edvr_noup"]
+    out = out.float().cpu()
+    loop = make_tiled_forward(model, tile_hw=tile, overlap=overlap,
+                              device=cuda)
+    _hold_close(out, loop(window).float().cpu())
+    full = make_forward(model)(window).float().cpu()
+    rf = receptive_field_rows(1, 1, 4)
+    (th, tw), tiles = tile_grid(*hd, tile, overlap)
+    assert len(tiles) == 4
+    keep = torch.zeros(hd, dtype=torch.bool)
+    for ty, tx, (vy0, vy1, vx0, vx1) in tiles:
+        ys = torch.arange(vy0, vy1)[:, None]
+        xs = torch.arange(vx0, vx1)[None, :]
+        far = torch.ones(vy1 - vy0, vx1 - vx0, dtype=torch.bool)
+        if ty > 0:
+            far &= ys - ty >= rf
+        if ty + th < hd[0]:
+            far &= ty + th - 1 - ys >= rf
+        if tx > 0:
+            far &= xs - tx >= rf
+        if tx + tw < hd[1]:
+            far &= tx + tw - 1 - xs >= rf
+        keep[vy0:vy1, vx0:vx1] = far
+    print(f"receptive field {rf} rows: {int(keep.sum())} of {keep.numel()}")
+    assert keep.sum() >= keep.numel() // 4
+    _hold_close(out[keep], full[keep])
+
+
+def test_flip_test_on_card_averages_the_four_flipped_forwards(cuda):
+    """The test CLIs' restorer with ``--flip_test`` on the card (the
+    flagship, bf16, cut depth): frame 1 equals the mean of the four flipped
+    forwards of its window, within 1e-2 of the largest magnitude."""
+    from realvsr_tpu_torch.eval.sliding_window import make_forward
+    from realvsr_tpu_torch.tools._cli import parse_args, restorer
+
+    model = _flagship(cuda)
+    frames = np.random.default_rng(50).random((4, 32, 64, 3)).astype(
+        np.float32)
+    restore = restorer(parse_args(["-opt", "test.yml", "--flip_test"], ""),
+                       {"datasets": {"test": {}}, "network_G": {"nframes": 3}},
+                       model)
+    flipped = dict(restore(frames))[1]
+    forward = make_forward(model)
+    w3 = torch.from_numpy(frames[:3]).to(cuda)
+    with torch.inference_mode():
+        mean = sum(forward(w3.flip(d)).float().flip(d) if d else
+                   forward(w3).float() for d in ((), (-2,), (-3,), (-3, -2)))
+    _hold_close(torch.from_numpy(flipped), mean.cpu() / 4)
+
+
+def _write_libsvm(tmp_path):
+    """A libsvm model (3 seeded support vectors) and range file in the
+    BRISQUE release's format (the card's machine has no scikit-learn to
+    fit one)."""
+    rng = np.random.default_rng(42)
+    sv, coef = rng.random((3, 36)), rng.normal(0, 1, 3)
+    lines = ["svm_type epsilon_svr", "kernel_type rbf", "gamma 0.05",
+             "nr_class 2", "total_sv 3", "rho -0.3", "SV"]
+    lines += [" ".join([f"{c:.8f}"] + [f"{j + 1}:{v[j]:.8f}"
+                                        for j in range(36)])
+              for c, v in zip(coef, sv)]
+    model, ranges = tmp_path / "allmodel", tmp_path / "allrange"
+    model.write_text("\n".join(lines) + "\n")
+    ranges.write_text("\n".join(["-1 1"] + [f"{j + 1} {-1.0 - j / 36} "
+                                            f"{3.0 + j}" for j in range(36)])
+                      + "\n")
+    return str(model), str(ranges)
+
+
+def test_dists_niqe_model_and_brisque_on_card_match_cpu(cuda, tmp_path):
+    """DISTS (seeded random VGG16) of two 64x96 frames against noisy copies,
+    card vs CPU in f32 within 1e-3 relative; on 4 PNG frames of 192x288, a
+    NIQE model fitted on the card (``fit_niqe_model``, 48-pixel blocks)
+    against the CPU's, its mean within 1e-6 of its largest; BRISQUE's
+    features within 1e-6 of their largest; the NIQE and BRISQUE (a libsvm
+    file written here) scores within 1e-4 relative."""
+    import os
+
+    from realvsr_tpu_torch.data.imageio import read_gray
+    from realvsr_tpu_torch.eval import brisque, niqe, perceptual
+
+    rng = np.random.default_rng(51)
+    x = rng.random((2, 64, 96, 3)).astype(np.float32)
+    y = np.clip(x + rng.normal(0, 0.05, x.shape), 0, 1).astype(np.float32)
+    card = perceptual.dists(perceptual.init_lpips_params(
+        with_dists=True, device=cuda), x, y).cpu()
+    cpu = perceptual.dists(perceptual.init_lpips_params(
+        with_dists=True, device="cpu"), x, y)
+    assert ((card - cpu).abs() / cpu.abs()).max().item() <= 1e-3
+    root = _write_clip(str(tmp_path / "frames"), 4, 192, 288, seed=52)
+    fitted = {dev: niqe.fit_niqe_model(root, block_size=48, device=dev)
+              for dev in (cuda, "cpu")}
+    mu = fitted["cpu"]["mu"]
+    assert np.abs(fitted[cuda]["mu"] - mu).max() <= 1e-6 * np.abs(mu).max()
+    img = read_gray(os.path.join(root, "000", "00002.png"))
+    feats = (brisque.brisque_features(img, cuda).cpu(),
+             brisque.brisque_features(img, "cpu"))
+    assert ((feats[0] - feats[1]).abs().max()
+            <= 1e-6 * feats[1].abs().max())
+    svm = brisque.load_libsvm_model(*_write_libsvm(tmp_path))
+    for score in (lambda dev: niqe.niqe_score(img, fitted["cpu"], device=dev),
+                  lambda dev: brisque.brisque_score(img, svm, device=dev)):
+        on_card, on_cpu = score(cuda), score("cpu")
+        assert abs(on_card / on_cpu - 1) <= 1e-4, (on_card, on_cpu)
+
+
+def test_flow_warp_and_trilinear_on_card_match_cpu(cuda):
+    """``ops/warp.flow_warp`` (both paddings, flows of std 3 px, many past
+    the edges) and FSTRN's trilinear cross-space residual (x4, half-pixel
+    centres) in f32, card against CPU within 1e-5 of the output's largest
+    magnitude."""
+    from realvsr_tpu_torch.ops.warp import flow_warp
+
+    g = _gen(53)
+    x = torch.randn(4, 96, 128, 3, generator=g)
+    flow = torch.randn(4, 96, 128, 2, generator=g) * 3
+    vol = torch.rand(2, 3, 3, 48, 64, generator=g)
+    cases = [(lambda a, b, p=p: flow_warp(a, b, p), (x, flow))
+             for p in ("zeros", "border")]
+    cases.append((lambda v: F.interpolate(v, size=(3, 192, 256),
+                                          mode="trilinear",
+                                          align_corners=False), (vol,)))
+    for fn, args in cases:
+        ref = fn(*args)
+        out = fn(*[a.to(cuda) for a in args]).cpu()
+        assert out.shape == ref.shape
+        assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def test_general_dcn_surface_on_card_matches_plain(cuda):
+    """The general DCN surface as a user calls it, bf16 on 2 frames of
+    21x37: DCNPacks at 64 -> 32 (PCD's mode) and 256 -> 256 (offsets from
+    x itself) and ``DeformConvModule`` (DCNv1, 64 -> 64 in 8 groups) at p1
+    launch ``dcn_narrow.cu`` each way, a DCNPack at kernel size 5 and
+    ``DeformConvModule`` at p0 run the plain op: 3 forward and 3 backward
+    launches, the two 3x3 offset convs on conv3x3_fused.  Each kernel
+    module's output and gradients (inputs, parameters) against the plain
+    op on the same card inputs and cotangents, check.py's tolerances."""
+    from realvsr_tpu_torch.models.common import (DCNPack, DeformConvModule,
+                                                 reset_parameters)
+    from realvsr_tpu_torch.ops.deform_conv import split_om
+
+    g, bf = _gen(54), torch.bfloat16
+    mods = [DCNPack(64, 32, 8), DCNPack(256, 256, 8, extra_offset_mask=False),
+            DeformConvModule(64, 64, 3, padding=1, deformable_groups=8),
+            DCNPack(64, 64, 8, kernel_size=5, padding=2,
+                    extra_offset_mask=False),
+            DeformConvModule(64, 64, 3, padding=0, deformable_groups=8)]
+    for m in mods:
+        reset_parameters(torch.nn.Sequential(m), g)
+        if isinstance(m, DCNPack):
+            _randomise_offsets(m, 55, std=0.1)
+        m.to(cuda, bf)
+    b, h, w = 2, 21, 37
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(cuda, bf)
+
+    x64, x256 = rand(b, h, w, 64), rand(b, h, w, 256)
+    calls = [(mods[0], (x64, x64), "lrelu"), (mods[1], (x256,), None),
+             (mods[2], (x64, rand(b, h, w, 8 * 18, scale=2.0)), None),
+             (mods[3], (x64,), None),
+             (mods[4], (x64, rand(b, h - 2, w - 2, 8 * 18, scale=2.0)), None)]
+    cots = [torch.randn(b, h - 2 * (i == 4), w - 2 * (i == 4),
+                        m.weight.shape[0], generator=g).to(cuda)
+            for i, (m, _, _) in enumerate(calls)]
+
+    def run(forward):
+        res = []
+        for (m, ins, act), cot in zip(calls, cots):
+            m.zero_grad(set_to_none=True)
+            leaves = [t.detach().clone().requires_grad_() for t in ins]
+            y = forward(m, leaves, act)
+            (y.float() * cot).sum().backward()
+            res.append([y.detach()] + [t.grad for t in leaves]
+                       + [p.grad for p in m.parameters()])
+        return res
+
+    def modules(m, leaves, act):
+        return m(*leaves, act=act) if isinstance(m, DCNPack) else m(*leaves)
+
+    def plain(m, leaves, act):
+        if isinstance(m, DeformConvModule):
+            return modulated_deform_conv_plain(
+                leaves[0], leaves[1], None, m.weight, None, m.stride,
+                m.padding, m.dilation, m.deformable_groups, groups=m.groups)
+        return modulated_deform_conv_plain(
+            leaves[0], *split_om(m.conv_offset_mask(leaves[-1]),
+                                 m.deformable_groups),
+            m.weight, m.bias, m.stride, m.padding, m.dilation,
+            m.deformable_groups, m.max_offset, act, m.groups)
+
+    before = _launches()
+    got = run(modules)
+    assert _since(before) == _counts(dcn=3, fused=2, bwd=3)
+    assert all(torch.isfinite(t).all() for r in got for t in r)
+    for o, r in zip(got[:3], run(plain)[:3]):
+        assert max_abs_err(o[0], r[0]) <= tolerance(r[0])
+        for a, e in zip(o[1:], r[1:]):
+            assert max_abs_err(a, e) <= grad_tolerance(e)
+
+
+def _batch(opt, side, mode, n_items=2, seed=3):
+    """``n_items`` clips of the ``mode`` train set at LQ ``side`` x
+    ``side`` for ``opt``'s network: {"LQs", "GT"} on the host."""
+    from realvsr_tpu_torch.data.synthetic import (SyntheticMotionVSRDataset,
+                                                  SyntheticVSRDataset)
+
+    net, scale = opt["network_G"], opt["scale"] or 1
+    n = net.get("nframes") or net["num_frames"]
+    if mode == "SyntheticMotion":
+        gt = side * scale
+        ds = SyntheticMotionVSRDataset(dict(N_frames=n, GT_size=gt,
+                                            scale=scale, frame_h=gt + 32,
+                                            frame_w=gt + 32))
+    else:
+        ds = SyntheticVSRDataset(dict(N_frames=n, GT_size=side))
+    items = [ds.get(i, np.random.default_rng(i))
+             for i in range(seed, seed + 14 * n_items, 14)]
+    return {k: torch.from_numpy(np.stack([it[k] for it in items]))
+            for k in ("LQs", "GT")}
+
+
+@pytest.mark.parametrize("recipe,cuts,mode,counts", [
+    ("debug_EDVR_woTSA_Split_synthetic.yml", {}, "Synthetic",
+     _DEBUG_STEP),
+    ("train_EDVR_woTSA_RealVSR_YCbCr_Combine.yml",
+     dict(front_RBs=1, back_RBs=1), "Synthetic", _step(_FORWARD["edvr_noup"])),
+    ("train_EDVR_woTSA_Vimeo90K.yml", dict(front_RBs=1, back_RBs=1),
+     "SyntheticMotion", _step(_FORWARD["edvr_noup"])),
+], ids=["debug_nf16_Split", "Combine", "AllPair"])
+def test_wrapper_train_steps_on_card_match_cpu(cuda, recipe, cuts, mode,
+                                               counts):
+    """One step through ``make_train_step``'s dispatch on the recipe's
+    ``model`` (Split at the nf 16 debug width: the narrow DCN and the conv
+    on 32-byte chunks; Combine; the bare AllPair) at its network's widths
+    (EDVR_NoUp cut to 1 + 1 ResBlocks), batch 2 at 64x64, f32, ±8, offsets
+    randomised: the card (TF32 kernels) against the CPU from the same
+    weights and batch, loss to 1e-3 relative, each gradient to 5e-2 of its
+    largest magnitude; the card step's launches."""
+    from realvsr_tpu_torch.models import define_g
+    from realvsr_tpu_torch.train.state import create_train_state
+    from realvsr_tpu_torch.train.wrappers import make_train_step
+
+    opt = _recipe_opt(recipe, cuts)
+    opt["augment"] = None
+    ref = define_g(opt, device="cpu", dcn_max_offset=8, generator=_gen(12))
+    _randomise_offsets(ref, 13)
+    batch = _batch(opt, 64, mode)
+    grads, losses = {}, {}
+    for dev in ("cpu", cuda):
+        model = define_g(opt, device=dev, dcn_max_offset=8)
+        model.load_state_dict(ref.state_dict())
+        before = _launches()
+        _, logs = make_train_step(model, opt)(
+            create_train_state(model, opt),
+            {k: v.to(dev) for k, v in batch.items()},
+            torch.Generator(device=dev))
+        losses[str(dev)] = logs.get("l_tot", logs["l_pix"]).item()
+        grads[str(dev)] = {k: p.grad.float().cpu()
+                           for k, p in model.named_parameters()}
+    assert _since(before) == counts
+    assert losses["cuda"] == pytest.approx(losses["cpu"], rel=1e-3)
+    for k, r in grads["cpu"].items():
+        err = (grads["cuda"][k] - r).abs().max().item()
+        assert err <= 5e-2 * r.abs().max().item(), k
+
+
+def test_ft_tsa_only_step_on_card_updates_tsa_alone(cuda):
+    """EDVR x4 + TSA's Split step (nf 64, 8 groups, 1 + 1 ResBlocks, 5
+    frames, LQ 32x32, batch 2 of motion-synthetic frames, f32, ±8) with
+    ``ft_tsa_only`` (2: the first update trains ``tsa_fusion`` alone): on
+    the card every other parameter stays bit-unchanged and every
+    ``tsa_fusion`` one moves, to the CPU's update within 2 LR (Adam's first
+    update is LR * g / (|g| + eps): a small gradient's sign may differ)
+    plus 1e-6 of their largest."""
+    from realvsr_tpu_torch.models import define_g
+    from realvsr_tpu_torch.train.state import create_train_state
+    from realvsr_tpu_torch.train.wrappers import make_train_step
+
+    opt = _recipe_opt(*_MODELS["edvr_x4"])
+    opt["augment"] = None
+    opt["train"]["ft_tsa_only"] = 2
+    init = define_g(opt, device="cpu", dcn_max_offset=8, generator=_gen(12))
+    _randomise_offsets(init, 13)
+    batch = _batch(opt, 32, "SyntheticMotion")
+    after = {}
+    for dev in ("cpu", cuda):
+        model = define_g(opt, device=dev, dcn_max_offset=8)
+        model.load_state_dict(init.state_dict())
+        make_train_step(model, opt)(
+            create_train_state(model, opt),
+            {k: v.to(dev) for k, v in batch.items()},
+            torch.Generator(device=dev))
+        after[str(dev)] = {k: p.detach().float().cpu()
+                           for k, p in model.named_parameters()}
+    start = init.state_dict()
+    tsa = [k for k in after["cuda"] if "tsa_fusion" in k]
+    assert tsa
+    for k, v in after["cuda"].items():
+        assert torch.equal(v, start[k]) != (k in tsa), k
+    lr = float(opt["train"]["lr_G"])
+    tol = 2.0001 * lr + 1e-6 * max(after["cpu"][k].abs().max().item()
+                                   for k in tsa)
+    for k in tsa:
+        assert (after["cuda"][k] - after["cpu"][k]).abs().max() <= tol, k
+
+
+def test_tof_gan_step_on_card_matches_cpu(cuda):
+    """A GAN-Split step of ``train_TOF-GAN_RealVSR_YCbCr_Split.yml``: G
+    (TOF, nf 64, 1 ResBlock; SpyNet's BatchNorms) and D
+    (MultiscaleDiscriminator_v4, nf 64) on a motion-synthetic batch of 2
+    at 64x64, f32, augmentation off: losses to 1e-3 relative; each
+    gradient of G and D and each running statistic of either after the
+    step to 5e-2 of its largest plus the CPU's own change under 2^-11
+    input noise; the step's conv3x3 launches (D runs none)."""
+    from realvsr_tpu_torch.models import define_d, define_g
+    from realvsr_tpu_torch.train.gan import (create_gan_train_state,
+                                             make_gan_split_train_step)
+
+    opt = _recipe_opt("train_TOF-GAN_RealVSR_YCbCr_Split.yml", dict(nb=1))
+    opt["augment"] = None
+    ref_g = define_g(opt, device="cpu", generator=_gen(12))
+    ref_d = define_d(opt, device="cpu", generator=_gen(14))
+    batch = _batch(opt, 64, "SyntheticMotion")
+
+    def step(dev, b):
+        gm = define_g(opt, device=dev)
+        gm.load_state_dict(ref_g.state_dict())
+        dm = define_d(opt, device=dev)
+        dm.load_state_dict(ref_d.state_dict())
+        _, logs = make_gan_split_train_step(gm, opt)(
+            create_gan_train_state(gm, dm, opt),
+            {k: v.to(dev) for k, v in b.items()},
+            torch.Generator(device=dev))
+        vals = {}
+        for n, m in (("G", gm), ("D", dm)):
+            vals.update({f"{n}.{k}": p.grad for k, p in m.named_parameters()})
+            vals.update({f"{n}.{k}": t for k, t in m.named_buffers()
+                         if "running" in k})
+        return ({k: logs[k].item() for k in ("l_g_total", "l_d_real",
+                                             "l_d_fake")},
+                {k: v.float().cpu() for k, v in vals.items()})
+
+    losses, ref = step("cpu", batch)
+    before = _launches()
+    card_losses, card = step(cuda, batch)
+    assert _since(before) == _FORWARD["tof"]
+    for k, v in losses.items():
+        assert card_losses[k] == pytest.approx(v, rel=1e-3), k
+    lq = batch["LQs"]
+    _, noisy = step("cpu", dict(batch, LQs=lq * (1 + 2.0 ** -11 * torch.randn(
+        lq.shape, generator=_gen(16)))))
+    _within_spread(ref, card, noisy)
+
+
+_EDVR_L = dict(nf=128, back_RBs=40)
+# (config, train set in place of the config's (None: its own), mixed
+# precision (None: the config's), network changes, launches a step): the
+# debug configs (nf 16: the narrow kernels) and the motion smoke configs as
+# the training command line runs them, with validation and checkpoints;
+# the published recipes' networks in f32 and bf16 on synthetic data
+_TRAINER_RUNS = [
+    ("debug_EDVR_woTSA_Split_synthetic.yml", None, None, {},
+     _DEBUG_STEP),
+    ("debug_EDVR-GAN_Split_synthetic.yml", None, None, {},
+     _DEBUG_STEP),
+    ("smoke_TDAN_motion.yml", None, None, {}, _step(_RECIPE_FORWARD["tdan"])),
+    ("smoke_EDVRx4_motion.yml", None, None, {},
+     _step(_RECIPE_FORWARD["edvr_x4"])),
+    ("smoke_TOF_motion.yml", None, None, {}, _RECIPE_FORWARD["tof"]),
+    ("smoke_FSTRN_motion.yml", None, None, {}, _RECIPE_FORWARD["fstrn"]),
+    ("smoke_RCAN_motion.yml", None, None, {}, _RECIPE_FORWARD["rcan"]),
+] + [(cfg, mode, bf16, net, counts) for bf16 in (False, True)
+     for cfg, mode, net, counts in (
+    ("train_EDVR_woTSA_RealVSR_YCbCr_Split.yml", "Synthetic", {},
+     _step(_RECIPE_FORWARD["edvr_noup"])),
+    ("train_EDVR-GAN_woTSA_RealVSR_YCbCr_Split.yml", "Synthetic", {},
+     _step(_RECIPE_FORWARD["edvr_noup"])),
+    ("train_EDVR_woTSA_RealVSR_YCbCr_Combine.yml", "Synthetic", {},
+     _step(_RECIPE_FORWARD["edvr_noup"])),
+    ("train_EDVR_woTSA_Vimeo90K.yml", "SyntheticMotion", {},
+     _step(_RECIPE_FORWARD["edvr_noup"])),
+    ("train_TDAN_RealVSR_YCbCr_Split.yml", "SyntheticMotion", {},
+     _step(_RECIPE_FORWARD["tdan"])),
+    ("train_EDVRx4_TSA_Vimeo90K.yml", "SyntheticMotion", {},
+     _step(_RECIPE_FORWARD["edvr_x4"])),
+    ("train_EDVRx4_TSA_Vimeo90K.yml", "SyntheticMotion", _EDVR_L,
+     _step(_RECIPE_FORWARD["edvr_l"])),
+    ("train_TOF_RealVSR_YCbCr_Split.yml", "SyntheticMotion", {},
+     _RECIPE_FORWARD["tof"]),
+    ("train_TOF-GAN_RealVSR_YCbCr_Split.yml", "SyntheticMotion", {},
+     _RECIPE_FORWARD["tof"]),
+    ("train_FSTRN_RealVSR_YCbCr_Split.yml", "SyntheticMotion", {},
+     _RECIPE_FORWARD["fstrn"]),
+    ("train_RCAN_RealVSR_YCbCr_Split.yml", "SyntheticMotion", {},
+     _RECIPE_FORWARD["rcan"]))]
+
+
+def _trainer_opt(path, root, mode, bf16, net, niter):
+    """``configs/train/<path>`` parsed as the training command line parses
+    it, then cut: ``niter`` iterations at batch 2 of a small train set;
+    with ``mode`` that train set at the recipe's frames and a 64-pixel LQ
+    crop, no validation and the recipe's augmentation unless it swaps
+    patches of GT and LQ at x4 (cutblur raises there); else the config's
+    own data, validated and checkpointed every 2 iterations."""
+    import os
+
+    from realvsr_tpu_torch.core.config import parse
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    opt = parse(os.path.join(repo, "configs", "train", path), is_train=True,
+                root=root)
+    opt["network_G"].update(net)
+    train = opt["datasets"]["train"]
+    n, scale = train["N_frames"], opt["scale"] or 1
+    if mode:
+        train = opt["datasets"]["train"] = dict(
+            name=f"{mode}_Train", mode=mode, phase="train", scale=scale,
+            N_frames=n, GT_size=64 * scale, n_workers=2, dataset_ratio=2)
+        if mode == "SyntheticMotion":
+            train.update(frame_h=64 * scale + 32, frame_w=64 * scale + 32)
+        opt["train"].update(val_freq=None, mixed_precision=bf16)
+        opt["logger"]["save_checkpoint_freq"] = 10 ** 9
+        opt["path"]["pretrain_model_G"] = None
+        if scale > 1:
+            opt["augment"] = None
+    else:
+        opt["train"]["val_freq"] = 2
+        opt["logger"]["save_checkpoint_freq"] = 2
+        if train["mode"] == "SyntheticMotion":
+            train.update(frame_h=train["GT_size"] + 32,
+                         frame_w=train["GT_size"] + 32)
+    train.update(batch_size=2, num_seqs=2, frames_per_seq=n + 1)
+    opt["train"]["niter"] = niter
+    opt["logger"]["print_freq"] = 2
+    return opt
+
+
+def _run_trainer(opt):
+    """``opt`` through the port's Trainer on the card at the training
+    command line's DCN clamp, offsets randomised; returns (the Trainer,
+    each step's (launches, logs), the validations' (step, PSNR), every
+    parameter of G and D before the run)."""
+    from realvsr_tpu_torch.tools.train import DCN_MAX_OFFSET
+    from realvsr_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(opt, device="cuda", dcn_max_offset=DCN_MAX_OFFSET)
+    _randomise_offsets(trainer.model, 11)
+    named = {f"{n}.{k}": p for n, net in (("G", trainer.model),
+                                          ("D", trainer.model_d))
+             if net is not None for k, p in net.named_parameters()}
+    before = {k: p.detach().clone() for k, p in named.items()}
+    steps, vals = [], []
+    inner_step, inner_val = trainer.train_step, trainer.validate
+
+    def step(state, batch, gen):
+        n0 = _launches()
+        state, logs = inner_step(state, batch, gen)
+        steps.append((_since(n0), logs))
+        return state, logs
+
+    def validate(at):
+        vals.append((at, inner_val(at)))
+        return vals[-1][1]
+
+    trainer.train_step, trainer.validate = step, validate
+    trainer.train()
+    return trainer, steps, vals, {k: (v, named[k]) for k, v in before.items()}
+
+
+@pytest.mark.parametrize(
+    "config,mode,bf16,net,per_step", _TRAINER_RUNS,
+    ids=[f"{c[:-4]}{'_L' if n else ''}"
+         f"{'' if m is None else '_bf16' if b else '_f32'}"
+         for c, m, b, n, _ in _TRAINER_RUNS])
+def test_trainer_runs_on_card(cuda, tmp_path, config, mode, bf16, net,
+                              per_step):
+    """The port's ``Trainer`` on the card (±8, offsets randomised), 4
+    iterations at batch 2: each step launches the model's kernels as its
+    routing gives them (the GAN's D runs none), its losses are finite, the
+    GAN recipes never gate G off, every parameter of G and D moves; the
+    debug and smoke configs validate (finite PSNR) and write G (and D)
+    at 2, 4 and the end, and the GAN debug config resumes from step 2's
+    state (G, D, both optimizers and schedulers) on to step 4."""
+    import math
+    import os
+
+    from realvsr_tpu_torch.train.trainer import Trainer
+
+    opt = _trainer_opt(config, str(tmp_path), mode, bf16, net, niter=4)
+    trainer, steps, vals, params = _run_trainer(opt)
+    assert len(steps) == 4
+    for launches, logs in steps:
+        assert launches == per_step
+        assert all(torch.isfinite(v).all() for v in logs.values()), logs
+        if mode and trainer.is_gan:
+            assert logs["g_active"].item() == 1.0
+    assert not [k for k, (a, p) in params.items() if torch.equal(a, p)]
+    nets = "GD" if trainer.is_gan else "G"
+    models = set(os.listdir(opt["path"]["models"]))
+    assert {f"latest_{n}.pth" for n in nets} <= models
+    if mode:
+        return
+    assert [a for a, _ in vals] == [2, 4]
+    assert all(math.isfinite(p) for _, p in vals)
+    assert {f"{s}_{n}.pth" for s in (2, 4) for n in nets} <= models
+    if not trainer.is_gan:
+        return
+    opt = _trainer_opt(config, str(tmp_path), mode, bf16, net, niter=4)
+    opt["path"]["resume_state"] = os.path.join(
+        opt["path"]["training_state"], "2.state")
+    resumed = Trainer(opt, device="cuda", dcn_max_offset=8.0)
+    assert resumed.state.step == 2
+    assert [s.last_epoch for s in resumed.state.schedulers] == [2, 2]
+    d2 = torch.load(os.path.join(opt["path"]["models"], "2_D.pth"),
+                    weights_only=True)
+    for k, v in resumed.model_d.state_dict().items():
+        assert torch.equal(v.cpu(), d2[k]), k
+    assert resumed.train().step == 4
+
+
+def test_one_nccl_rank_split_step_and_trainer_on_card(cuda, tmp_path):
+    """One rank over NCCL (torchrun's environment, world 1;
+    ``tests/torch_parallel_worker.py``): a Split step of EDVR_NoUp (nf 64,
+    8 groups, 1 + 1 ResBlocks, ±8, offsets randomised) on a global batch of
+    4 at 48x48 against one process's step on the card, each gradient within
+    5e-2 of its largest and each parameter within 2 LR; then the nf 16
+    debug config's Trainer on that rank to its last step, rank 0 writing
+    the checkpoints."""
+    import json
+
+    import yaml
+
+    from torch_parallel_worker import launch, wait
+
+    from realvsr_tpu_torch.models import define_g
+    from realvsr_tpu_torch.train.state import create_train_state
+    from realvsr_tpu_torch.train.wrappers import make_train_step
+
+    opt = _recipe_opt(*_MODELS["edvr_noup"])
+    opt["augment"] = None
+    ref = define_g(opt, device="cpu", dcn_max_offset=8, generator=_gen(0))
+    _randomise_offsets(ref, 1)
+    torch.save({"G": ref.state_dict()}, tmp_path / "init.pt")
+    rng = np.random.default_rng(2)
+    batch = {k: rng.random((4, 3, 48, 48, 3)).astype(np.float32)
+             for k in ("LQs", "GT")}
+    np.savez(tmp_path / "batch.npz", **batch)
+    wait(launch(tmp_path, "step", dict(
+        opt=opt, init=str(tmp_path / "init.pt"), max_offset=8,
+        batch=str(tmp_path / "batch.npz"), out=str(tmp_path / "step"),
+        device="cuda", backend="nccl"), world=1))
+    model = define_g(opt, device=cuda, dcn_max_offset=8)
+    model.load_state_dict(ref.state_dict())
+    make_train_step(model, opt)(create_train_state(model, opt),
+                                {k: torch.from_numpy(v).to(cuda)
+                                 for k, v in batch.items()},
+                                torch.Generator(device=cuda))
+    rank = torch.load(tmp_path / "step.0.pt")
+    lr = float(opt["train"]["lr_G"])
+    for k, p in model.named_parameters():
+        g = p.grad.float().cpu()
+        err = (rank["grads"][f"G.{k}"].float() - g).abs().max().item()
+        assert err <= 5e-2 * g.abs().max().clamp_min(1e-30).item(), k
+        assert ((rank["params"][f"G.{k}"].float() - p.detach().float().cpu())
+                .abs().max().item() <= 2.0001 * lr), k
+    debug = _recipe_opt("debug_EDVR_woTSA_Split_synthetic.yml")
+    debug["train"]["niter"] = 8
+    (tmp_path / "debug.yml").write_text(yaml.safe_dump(debug))
+    wait(launch(tmp_path, "train", dict(
+        opt=str(tmp_path / "debug.yml"), root=str(tmp_path / "run"),
+        out=str(tmp_path / "train"), device="cuda", backend="nccl"),
+        world=1))
+    res = json.loads((tmp_path / "train.0.json").read_text())
+    # the loop's counter ends one past the last step, as on the CPU
+    assert res["step"] == 9 and "save_network" in res["saves"]
+
+
+# the largest a gradient that is zero in exact arithmetic may read, of its
+# model's largest gradient
+_ZERO_GRAD = 1e-3
+
+
+def test_two_rank_gan_step_on_card_matches_one_process(cuda, tmp_path,
+                                                       monkeypatch):
+    """Two ``gloo`` ranks sharing the card take one GAN-Split step of the
+    GAN recipe (``ragan``, D's BatchNorms; G at nf 64, 8 groups, 1 + 1
+    ResBlocks, ±8, offsets randomised; D at nf 64) on their halves of a
+    global batch of 4 at 64x64: their parameters and D's running
+    statistics are bit-identical, and G's and D's gradients and D's running
+    statistics equal one process's step of the whole batch on the card
+    within 1e-2 of each tensor's largest plus twice that process's own
+    change when the batch is reordered (rounding alone, as
+    ``test_torch_parallel.py`` holds the CPU's ranks).  The gradients that
+    are zero in exact arithmetic, of a conv bias that feeds a BatchNorm
+    (the mean removes it) and of D's output biases (the relativistic loss
+    takes the other batch's mean logit off each), are rounding on both
+    sides: each is held under ``_ZERO_GRAD`` of its model's largest
+    gradient instead.  The one process takes the BatchNorm
+    statistics with the ranks' formula (``_global_batch_norm``) rather
+    than cuDNN's: the two round apart, and a LeakyReLU input that rounds
+    to the other side of 0 moves D's output conv's gradient by ~1e-2 of
+    its largest (``test_v2_discriminator_input_grad_on_card_matches_cpu``).
+    """
+    from torch_parallel_worker import launch, wait
+
+    from realvsr_tpu_torch.models import common, define_d, define_g
+    from realvsr_tpu_torch.train.gan import create_gan_train_state
+    from realvsr_tpu_torch.train.wrappers import make_train_step
+
+    opt = _recipe_opt("train_EDVR-GAN_woTSA_RealVSR_YCbCr_Split.yml",
+                      dict(front_RBs=1, back_RBs=1))
+    opt["augment"] = None
+    g = define_g(opt, device="cpu", dcn_max_offset=8, generator=_gen(12))
+    _randomise_offsets(g, 13)
+    d = define_d(opt, device="cpu", generator=_gen(14))
+    init = {"G": g.state_dict(), "D": d.state_dict()}
+    torch.save(init, tmp_path / "init.pt")
+    batch = {k: v.numpy() for k, v in _batch(opt, 64, "Synthetic",
+                                             n_items=4).items()}
+    np.savez(tmp_path / "batch.npz", **batch)
+    procs = launch(tmp_path, "step", dict(
+        opt=opt, init=str(tmp_path / "init.pt"), max_offset=8,
+        batch=str(tmp_path / "batch.npz"), out=str(tmp_path / "gan"),
+        device="cuda"))
+    wait(procs)
+
+    def one_process(order):
+        gm = define_g(opt, device=cuda, dcn_max_offset=8)
+        gm.load_state_dict(init["G"])
+        dm = define_d(opt, device=cuda)
+        dm.load_state_dict(init["D"])
+        make_train_step(gm, opt)(create_gan_train_state(gm, dm, opt),
+                                 {k: torch.from_numpy(v[order]).to(cuda)
+                                  for k, v in batch.items()},
+                                 torch.Generator(device=cuda))
+        out = {f"G.{k}": p.grad for k, p in gm.named_parameters()}
+        out.update({f"D.{k}": p.grad for k, p in dm.named_parameters()})
+        out.update({f"D.{k}": t for k, t in dm.named_buffers()
+                    if "running" in k})
+        return {k: v.float().cpu() for k, v in out.items()}
+
+    # a world of one with the ranks' BatchNorm (its sums reduce to
+    # themselves)
+    monkeypatch.setattr(common, "world_size", lambda: 2)
+    one, reordered = one_process([0, 1, 2, 3]), one_process([2, 3, 0, 1])
+    ranks = [torch.load(tmp_path / f"gan.{r}.pt") for r in range(2)]
+    for part in ("params", "stats"):
+        for k, v in ranks[0][part].items():
+            assert torch.equal(v, ranks[1][part][k]), k
+    got = dict(ranks[0]["grads"], **ranks[0]["stats"])
+    tops = {}
+    for k, v in one.items():
+        m = k.split(".")[0]
+        tops[m] = max(tops.get(m, 0.0), v.abs().max().item())
+    for k, v in one.items():
+        pre, _, leaf = k.rpartition(".")
+        if k.endswith("conv_out.bias") or (
+                leaf == "bias" and ".conv" in pre
+                and pre.replace(".conv", ".bn") + ".weight" in one):
+            top = tops[k.split(".")[0]]
+            sides = (got[k].abs().max().item(), v.abs().max().item())
+            print(f"{k}: ranks {sides[0] / top:.3e}, one process "
+                  f"{sides[1] / top:.3e} of the model's largest")
+            assert max(sides) <= _ZERO_GRAD * top, k
+            continue
+        err = (got[k].float() - v).abs().max().item()
+        spread = (reordered[k] - v).abs().max().item()
+        assert err <= 1e-2 * v.abs().max().clamp_min(1e-30).item() \
+            + 2 * spread, k
+
+
+def test_two_rank_spatial_sharded_forward_on_card_matches_full_frame(
+        cuda, tmp_path):
+    """``eval/spatial.py::spatial_sharded_forward`` of EDVR_NoUp (nf 64, 8
+    groups, 1 + 1 ResBlocks, ±4, offsets randomised, f32) on two ``gloo``
+    ranks sharing the card, default halo, at 416x64: each rank launches one
+    forward's kernels on its rows, both return the full frame, within 1e-3
+    of its largest of the unsharded forward on the card (cuDNN's strided
+    convs may pick other algorithms for the shard windows)."""
+    import json
+
+    from torch_parallel_worker import launch, wait
+
+    from realvsr_tpu_torch.eval.spatial import default_halo
+
+    opt, model = _model("edvr_noup", "cpu", seed=56)
+    _randomise_offsets(model, 57)
+    torch.save({"G": model.state_dict()}, tmp_path / "init.pt")
+    window = torch.rand(1, 3, 416, 64, 3, generator=_gen(58))
+    np.savez(tmp_path / "window.npz", window=window.numpy())
+    model = model.to(cuda).eval()
+    halo = default_halo(model)
+    wait(launch(tmp_path, "spatial", dict(
+        opt=opt, init=str(tmp_path / "init.pt"), max_offset=4, halo=halo,
+        batch=str(tmp_path / "window.npz"), out=str(tmp_path / "sp"),
+        device="cuda", backend="gloo")))
+    with torch.inference_mode():
+        full = model(window.to(cuda)).cpu()
+    outs = [torch.load(tmp_path / f"sp.{r}.pt") for r in range(2)]
+    assert torch.equal(outs[0], outs[1])
+    assert outs[0].shape == full.shape
+    assert (outs[0] - full).abs().max() <= 1e-3 * full.abs().max()
+    want = {k: _FORWARD["edvr_noup"][k]
+            for k in ("dcn_fwd", "conv3x3", "conv3x3_fused")}
+    for r in range(2):
+        assert json.loads((tmp_path / f"sp.{r}.json").read_text()) == want
+
+
+def test_dcn_clamp_check_on_card(cuda):
+    """``tools/validate_dcn_clamp.validate`` of the exact flagship (f32,
+    cut depth, offset convs of std 3: offsets past ±8) on a 3-frame 64x128
+    window at ±4 and ±8: one exact forward (4 ``dcn_fwd``) and one
+    block-API forward a radius (4 ``dcn_block`` each), every conv on its
+    kernel; the PSNRs finite."""
+    import math
+
+    from realvsr_tpu_torch.tools.validate_dcn_clamp import validate
+
+    model = _flagship(cuda, torch.float32, max_offset=None, std=3.0)
+    window = torch.rand(1, 3, 64, 128, 3, generator=_gen(59)).to(cuda)
+    before = _launches()
+    res = validate(model, window, (4, 8))
+    fwd = _FORWARD["edvr_noup"]
+    assert _since(before) == _counts(4, 3 * fwd["conv3x3"],
+                                     3 * fwd["conv3x3_fused"], block=8)
+    assert all(math.isfinite(v) for v in res["psnr_db"].values())
+
+
+@pytest.mark.parametrize("config", ["test_EDVR_woTSA_RealVSR_wi_GT.yml",
+                                    "test_synthetic_motion_wi_GT.yml"],
+                         ids=["realvsr", "synthetic_motion"])
+def test_test_wi_gt_cli_on_card_matches_cpu(cuda, tmp_path, monkeypatch,
+                                            config):
+    """``tools/test_wi_gt.py`` (its ``main``, as the command line runs it)
+    with the config's network (EDVR_NoUp, nf 64, cut to 1 + 1 ResBlocks)
+    and seeded weights (offsets of a few pixels) saved as its
+    ``pretrain_model_G``, on a 3-frame 64x128 GT / LQ clip from
+    ``dump_synthetic_testset``: in bf16 at ±4 each window launches the
+    model's kernels and the PSNR and SSIM are finite; in f32 the card's
+    PSNR and SSIM equal the CPU's within 1e-2 dB and 1e-3."""
+    import math
+    import os
+
+    import yaml
+
+    from realvsr_tpu_torch.core.config import parse
+    from realvsr_tpu_torch.models import define_g
+    from realvsr_tpu_torch.tools import _cli, test_wi_gt
+    from realvsr_tpu_torch.tools.dump_synthetic_testset import dump
+
+    # results (the log) under tmp_path instead of the checkout
+    monkeypatch.setattr(_cli, "parse", lambda path, is_train: parse(
+        path, is_train=is_train, root=str(tmp_path)))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "configs", "test", config)) as f:
+        opt = yaml.safe_load(f)
+    opt["network_G"].update(front_RBs=1, back_RBs=1)
+    model = define_g(opt, device="cpu", generator=_gen(60))
+    _randomise_offsets(model, 61)
+    torch.save(model.state_dict(), tmp_path / "G.pth")
+    data = str(tmp_path / "data")
+    dump(data, num_seqs=1, frames=3, height=64, width=128)
+    opt["datasets"]["test"].update(dataroot_LQ=os.path.join(data, "LQ"),
+                                   dataroot_GT=os.path.join(data, "GT"))
+    opt["path"]["pretrain_model_G"] = str(tmp_path / "G.pth")
+    yml = tmp_path / "test.yml"
+    yml.write_text(yaml.safe_dump(opt))
+
+    def run(*argv):
+        return test_wi_gt.main(["-opt", str(yml), *argv])
+
+    before = _launches()
+    res = run("--device", "cuda", "--dtype", "bfloat16", "--max_offset", "4")
+    assert _since(before) == {k: 3 * v
+                              for k, v in _FORWARD["edvr_noup"].items()}
+    assert all(math.isfinite(res[k]) for k in ("psnr", "ssim"))
+    card = run("--device", "cuda", "--dtype", "float32")
+    cpu = run("--device", "cpu", "--dtype", "float32")
+    assert abs(card["psnr"] - cpu["psnr"]) <= 1e-2
+    assert abs(card["ssim"] - cpu["ssim"]) <= 1e-3
+
+
+# ---- The benchmark cells' own runs (BENCHMARK.json, portbench/) ----------
+
+def _cell(config, traffic):
+    """(configuration, traffic) of a benchmark cell, as ``portbench/``
+    reads them."""
+    import json
+
+    with open(f"portbench/configs/{config}.json") as f, \
+            open(f"portbench/traffic/{traffic}.json") as g:
+        return json.load(f), json.load(g)
+
+
+@pytest.mark.parametrize("config", ["edvr_noup", "edvr_l"])
+def test_restore_cell_launches_at_full_size(cuda, config):
+    """The restore entry (``tools/_cli.py::restorer``) as the cell
+    ``<config>.restore_clips`` builds it: the configuration's network
+    whole on its seeded weights (``portbench/weights.py``), bf16, ±4, on
+    one of the cell's clips (50 frames at its frame size): from just
+    before the clip to its last frame it launches 50 windows of the
+    recipe's forward (``_RECIPE_FORWARD``), and hands every frame back in
+    order, finite, at the output's size."""
+    import argparse
+
+    from portbench.drivers.restore import make_clips
+    from portbench.reference import family
+    from portbench.weights import make_params
+    from realvsr_tpu_torch.models import define_g
+    from realvsr_tpu_torch.tools import _cli
+
+    cfg, tr = _cell(config, "restore_clips")
+    net, bf = cfg["network_G"], torch.bfloat16
+    opt = {"network_G": net, "scale": cfg["scale"],
+           "datasets": {"test": {"padding": "replicate"}}}
+    model = define_g(opt, device=cuda, dtype=bf, dcn_max_offset=4)
+    model.load_state_dict(make_params(family(cfg["reference"]).param_specs(
+        net), 0, cuda, bf, cfg["offset_gain"]), strict=True)
+    restore = _cli.restorer(argparse.Namespace(
+        streaming=False, flip_test=False, tile=None, overlap=0), opt, model)
+    (h, w), s = cfg["restore_size"], cfg["scale"]
+    clip = make_clips(2, dict(tr, clips=1), h, w, cuda)[0]
+    t = tr["frames_per_clip"]
+    before = _launches()
+    got = list(restore(clip))
+    assert _since(before) == {k: t * v for k, v in
+                              _RECIPE_FORWARD[config].items()}
+    assert [i for i, _ in got] == list(range(t))
+    for _, out in got:
+        assert out.shape == (h * s, w * s, 3) and np.isfinite(out).all()
+
+
+def test_recurrent_restore_cell_launches_at_full_size(cuda):
+    """The recurrent restore entry as the cell
+    ``basicvsrpp.restore_reds4`` builds it: BasicVSR++ whole on the cell's
+    seeded weights and gains, bf16, exact offsets, on one of its clips (100
+    frames at 320x180).  A second restore of the clip (its size's graphs
+    captured by the first) launches: ``feat_extract``'s 10 ResBlock convs;
+    a branch's first step eagerly (its backbone: the input conv and 14
+    ResBlock convs), its second (two 64-wide offset convs, the 64 -> 432
+    one, the DCN, the backbone), and the DCN alone at each later step (its
+    offset convs and backbone replayed); each frame's reconstruction (12
+    convs at 64 outputs, the two pixel-shuffle convs and conv_last).  The
+    frames equal the model's eager ``forward`` bit for bit, at the output's
+    size."""
+    import argparse
+
+    from portbench.drivers.restore import make_clips
+    from realvsr_tpu_torch.tools import _cli
+
+    cfg, tr = _cell("basicvsrpp", "restore_reds4")
+    model = _basicvsrpp(cuda, num_blocks=cfg["network_G"]["num_blocks"],
+                        seed=0)
+    model.dtype = torch.bfloat16
+    opt = {"network_G": cfg["network_G"], "scale": cfg["scale"],
+           "datasets": {"test": {}}}
+    restore = _cli.restorer(argparse.Namespace(
+        streaming=False, flip_test=False, tile=None, overlap=0), opt, model)
+    (h, w), t = cfg["restore_size"], tr["frames_per_clip"]
+    clip = make_clips(2, dict(tr, clips=1), h, w, cuda)[0]
+    first = [out for _, out in restore(clip)]
+    before = _launches()
+    got = list(restore(clip))
+    assert _since(before) == _counts(dcn=4 * (t - 1),
+                                     conv=10 + 4 * (15 + 17) + 12 * t,
+                                     fused=4 + 3 * t)
+    assert [i for i, _ in got] == list(range(t))
+    for (_, out), again, want in zip(got, first, _eager(model, clip, cuda)):
+        assert out.shape == (4 * h, 4 * w, 3)
+        assert np.array_equal(out, want) and np.array_equal(again, want)
+
+
+def test_trainer_at_the_training_cells_batch_on_card(cuda, tmp_path):
+    """The ``Trainer`` as the cell ``edvr_noup.train_split`` builds it
+    (``portbench/drivers/train.py::trainer_opt``: the Split recipe at batch
+    32 of 192x192 3-frame crops, f32, ±8, the cell's seeded weights) on its
+    stand-in synthetic set: each of an epoch's 2 steps launches one
+    forward's and one DCN backward's kernels at the recipe's depth, with
+    finite losses, and every parameter moves."""
+    from portbench.drivers.train import trainer_opt
+    from portbench.reference import family
+    from portbench.weights import make_params
+    from realvsr_tpu_torch.train.trainer import Trainer
+
+    cfg, tr = _cell("edvr_noup", "train_split")
+    trainer = Trainer(trainer_opt(cfg, tr, 0, str(tmp_path)), device=cuda,
+                      dcn_max_offset=tr["dcn_max_offset"])
+    params = make_params(family(cfg["reference"]).param_specs(
+        cfg["network_G"]), 0, cuda, torch.float32, cfg["offset_gain"])
+    trainer.model.load_state_dict(params, strict=True)
+    batches = list(trainer.train_loader.epoch_iter(0))
+    assert len(batches) == 2
+    for batch in batches:
+        before = _launches()
+        trainer.state, logs = trainer.train_step(
+            trainer.state, {k: torch.from_numpy(batch[k]).to(cuda)
+                            for k in ("LQs", "GT")}, trainer.gen)
+        assert _since(before) == _step(_RECIPE_FORWARD["edvr_noup"])
+        assert all(torch.isfinite(v).all() for v in logs.values()), logs
+    for k, p in trainer.model.named_parameters():
+        assert not torch.equal(p.detach(), params[k]), k

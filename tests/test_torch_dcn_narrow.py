@@ -2,8 +2,8 @@
 4 deformable groups, the width of the repo's debug configs, on the CPU (its
 other widths: ``test_torch_dcn_widths.py``).
 
-The kernels run only on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py``); here, from numpy seeds in f32, at ±4, ±8 and exact:
+The kernels run only on the card (``tests/test_torch_cuda.py``); here,
+from numpy seeds in f32, at ±4, ±8 and exact:
 
 * (a) the plain forward and backward at this width (what the card's checks
   hold the kernels to), separate and in-place ``om`` forms, against the JAX

@@ -6,8 +6,8 @@ On the card the DCN kernels read DCNPack's ``conv_offset_mask`` output
 channels (concat(o1, o2) of the split), the mask the sigmoid of the rest,
 and the backward writes one gradient of ``om``
 (``realvsr_tpu_torch/ops/kernels/dcn.py``).  The kernels run only on the
-card (``tests/test_torch_cuda.py``, ``chip_smoke.py``); here, from numpy
-seeds in f32, at ±4, ±8 and exact with the offset convs randomised:
+card (``tests/test_torch_cuda.py``); here, from numpy seeds in f32, at
+±4, ±8 and exact with the offset convs randomised:
 
 * (a) the port's ``DCNPack`` (the plain ``om`` path) against the JAX
   ``DCNPack`` (stock XLA) from the same weights, and against the port's

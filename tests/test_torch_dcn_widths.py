@@ -3,8 +3,8 @@ channels in 8 deformable groups (``csrc/dcn_fwd.cu`` / ``dcn_bwd.cu``) and
 the narrow kernels' other cases (``csrc/dcn_narrow.cu``: 32 in 4 or 8, 48
 in 8, 64 in 4).
 
-The kernels run only on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py``); here, from numpy seeds in f32:
+The kernels run only on the card (``tests/test_torch_cuda.py``); here,
+from numpy seeds in f32:
 
 * (a) the plain forward and backward at each width, separate and in-place
   ``om`` forms, against the JAX package's exact DCN and ``jax.vjp`` of it,

@@ -21,7 +21,7 @@ random weights the offset chains' gradients pass the exact DCN's position
 derivative, which jumps where a sample crosses a pixel, and TSA's max
 pools: f32 rounding alone moves them beyond 1e-4, as the JAX package's two
 exact DCN implementations show against each other (the spread added
-above).  The card runs the full depth (``chip_smoke.py``).
+above).  The card runs it too (``tests/test_torch_cuda.py``).
 """
 import jax
 import jax.numpy as jnp

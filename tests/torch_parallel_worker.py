@@ -14,13 +14,16 @@ Tasks (each writes ``<out>.<rank>.pt`` or ``.json``):
     ``device`` (the CPU by default) over ``backend`` (gloo by default);
     saves the gradients, the parameters and the BN running statistics
     after it;
-  * ``train``: a ``Trainer`` on the CPU from the YAML ``opt``; records the
+  * ``train``: a ``Trainer`` on ``device`` (the CPU by default) over
+    ``backend`` (the Trainer's default) from the YAML ``opt``; records the
     train loader's indices of epoch 0, the validation PSNR before training,
     which checkpoint writers ran on this rank and the last step, and with
     ``progress`` writes each step number to ``<progress>.<rank>`` (the
     stop-signal test waits on it);
   * ``spatial``: ``eval/spatial.py::spatial_sharded_forward`` of the model
-    in ``init`` over the window in ``batch``.
+    in ``init`` over the window in ``batch``, on ``device`` (the CPU by
+    default) over ``backend``; writes the kernels' launches of the call
+    beside it.
 """
 import json
 import os
@@ -101,7 +104,7 @@ def step(args):
     from realvsr_tpu_torch.train.wrappers import make_train_step
 
     device = mesh.maybe_initialize_distributed(args.get("device", "cpu"),
-                                               "gloo")
+                                               args.get("backend", "gloo"))
     opt, g, d = _models(args, device)
     state = (create_gan_train_state(g, d, opt) if d is not None
              else create_train_state(g, opt))
@@ -138,7 +141,8 @@ def train(args):
             return _inner(*a, **kw)
 
         setattr(ckpt, name, wrapped)
-    t = trainer_mod.Trainer(opt, device="cpu", dcn_max_offset=8.0)
+    t = trainer_mod.Trainer(opt, device=args.get("device", "cpu"),
+                            dcn_max_offset=8.0, backend=args.get("backend"))
     res = {"rank": mesh.rank(), "world": mesh.world_size(),
            "indices": t.train_loader.sampler.indices(0)[:64].tolist(),
            "per_rank_batch": t.train_loader.batch_size}
@@ -163,13 +167,23 @@ def train(args):
 def spatial(args):
     from realvsr_tpu_torch.eval.spatial import spatial_sharded_forward
 
-    mesh.maybe_initialize_distributed("cpu")
-    _, g, _ = _models(args)
+    from realvsr_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_fused
+    from realvsr_tpu_torch.ops.kernels.dcn import dcn_fwd
+
+    device = mesh.maybe_initialize_distributed(args.get("device", "cpu"),
+                                               args.get("backend"))
+    _, g, _ = _models(args, device)
     g.eval()
-    window = torch.from_numpy(np.load(args["batch"])["window"])
+    window = torch.from_numpy(np.load(args["batch"])["window"]).to(device)
+    kernels = {"dcn_fwd": dcn_fwd, "conv3x3": conv3x3,
+               "conv3x3_fused": conv3x3_fused}
+    before = {k: f.launches for k, f in kernels.items()}
     with torch.inference_mode():
         out = spatial_sharded_forward(g, window, halo=args["halo"])
-    torch.save(out, f"{args['out']}.{mesh.rank()}.pt")
+    torch.save(out.cpu(), f"{args['out']}.{mesh.rank()}.pt")
+    with open(f"{args['out']}.{mesh.rank()}.json", "w") as f:
+        json.dump({k: fn.launches - before[k] for k, fn in kernels.items()},
+                  f)
 
 
 if __name__ == "__main__":
